@@ -23,6 +23,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
 4. Run one batch's encode, decode, postnet and Griffin-Lim under
    torch.profiler and print each phase's wall time, device kernel time
    and idle share.
+5. Hold the backward kernel (csrc/flash_attention_bwd.cu) against the
+   plain version's autograd at the training path's shapes (encoder
+   self-attention at D=128, causal decoder self-attention, cross-attention,
+   the aux decoders' D=16 self- and cross-attention, a row of length 0),
+   in fp32 and bf16, with its time beside the plain backward's, SDPA's
+   backward (a yardstick only) and the card's bound.
+6. Train: write a corpus of 8 utterances (400-1000 80-d fbank frames,
+   log-mel targets, phone and word lines, their dictionaries, GCMVN and
+   SpecAugment in config.yaml) and run the port's train CLI in bf16 with
+   the recipe's stage-5 flags at full width: (a) with
+   --use-flash-attention --attention-dropout 0 for 5 updates, where both
+   kernels must launch at least 27 times an update, the loss and grad norm
+   stay finite, checkpoint_last.npz is written and the port's
+   generate_waveform serves an utterance from it; (b) with the recipe's
+   exact flags (--attention-dropout 0.1) for 2 updates, where the plain
+   path runs and neither kernel launches, as in JAX.
+7. Hold the card against the CPU on one fp32 update of a small model with
+   dropout off: the loss, every gradient and every updated parameter.
+8. Run one bf16 training update of 6(a) under torch.profiler and print its
+   wall time, device kernel time, idle share and top kernels.
 
 Prints the card's name and power limit, one JSON line of kernel
 measurements, and, last, {"ok": true, "device": {...}}.
@@ -30,6 +50,7 @@ measurements, and, last, {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import copy
 import json
 import shutil
 import subprocess
@@ -48,6 +69,14 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12,      # dense bf16 tensor cores
                   torch.float32: 67e12}        # fp32 outside tensor cores
 TOL_FP32 = (1e-5, 1e-5)   # (atol, rtol): fp32 sums in another order
 TOL_BF16 = 2e-2           # atol: output rounded to bf16 (8-bit mantissa)
+# backward against the plain version's fp32 autograd on the same inputs.
+# fp32: atol 1e-4 + rtol 1e-4, sums over up to 250 keys or queries in
+# another order. bf16: within 3e-2 of each of dq, dk, dv's largest
+# magnitude: the kernel takes D = rowsum(dO * o) from the bf16 output o,
+# as the TPU kernel does, and dS = P (dP - D) cancels in rows whose
+# probability sits on few keys, so an elementwise bound fails near 0
+TOL_BWD_FP32 = (1e-4, 1e-4)
+TOL_BWD_BF16 = 3e-2
 HEADS, HEAD_DIM = 4, 128
 UTT_FRAMES = (1000, 850, 620, 400)
 MAX_ITER = 150
@@ -74,11 +103,32 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_inputs(b, tq, tk, lengths, dtype, seed):
+def _dev_us(e):
+    return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call: torch.profiler's sum over the device
+    activities of ``iters`` calls, over ``iters``; host overhead (the
+    autograd engine's, for a backward) is left out."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_dev_us(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / iters
+
+
+def attention_inputs(b, tq, tk, lengths, dtype, seed, d=HEAD_DIM):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    shape_q, shape_k = (b, tq, HEADS, HEAD_DIM), (b, tk, HEADS, HEAD_DIM)
+    shape_q, shape_k = (b, tq, HEADS, d), (b, tk, HEADS, d)
     q = (torch.randn(shape_q, generator=g, device="cuda")
-         * HEAD_DIM ** -0.5).to(dtype)
+         * d ** -0.5).to(dtype)
     k = torch.randn(shape_k, generator=g, device="cuda").to(dtype)
     v = torch.randn(shape_k, generator=g, device="cuda").to(dtype)
     lens = torch.tensor(lengths, device="cuda")
@@ -86,14 +136,21 @@ def attention_inputs(b, tq, tk, lengths, dtype, seed):
     return q, k, v, kpm
 
 
-def attention_bound_ms(q, k, kpm, causal) -> tuple:
+def attention_bound_ms(q, k, kpm, causal, backward=False) -> tuple:
     """Least time for the function on this card: each input read once and
-    the output written once, against the products this data needs (a
-    causal row that has a valid key needs only the keys up to itself)."""
+    each output written once, against the products this data needs (a
+    causal row that has a valid key needs only the keys up to itself).
+    Forward: q, k, v in, o out; 2 products. Backward: q, k, v, o, dO and
+    the fp32 row statistics in, dq, dk, dv out; 5 products (S recomputed,
+    dV, dP, dQ, dK)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     size = q.element_size()
-    nbytes = (2 * q.numel() + 2 * k.numel()) * size + kpm.numel()
+    if backward:
+        nbytes = (4 * q.numel() + 4 * k.numel()) * size + kpm.numel() \
+            + 2 * 4 * b * h * tq
+    else:
+        nbytes = (2 * q.numel() + 2 * k.numel()) * size + kpm.numel()
     pad = kpm.cpu().numpy()
     pairs = 0
     for bi in range(b):
@@ -104,7 +161,7 @@ def attention_bound_ms(q, k, kpm, causal) -> tuple:
         for i in range(tq):
             ok = first_valid.size and first_valid[0] <= i
             pairs += min(i + 1, tk) if ok else tk
-    ops = 4.0 * h * d * pairs
+    ops = (10.0 if backward else 4.0) * h * d * pairs
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[q.dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -125,7 +182,8 @@ def sdpa_fn(q, k, v, kpm, causal):
         qt, kt, vt, attn_mask=mask, scale=1.0)
 
 
-def check_case(ka, name, b, tq, tk, lengths, causal, dtype, card):
+def check_case(ka, name, b, tq, tk, lengths, causal, dtype, card,
+               device_times=False):
     q, k, v, kpm = attention_inputs(b, tq, tk, lengths, dtype, seed=tq + tk)
     out = ka.flash_attention(q, k, v, kpm, causal=causal)
     ref = ka.flash_attention_reference(q, k, v, kpm, causal=causal)
@@ -151,6 +209,13 @@ def check_case(ka, name, b, tq, tk, lengths, causal, dtype, card):
             q, k, v, kpm, causal)),
         "library_ms": time_ms(sdpa_fn(q, k, v, kpm, causal)),
     }
+    if device_times:    # without the host time of the plain version's and
+        # SDPA's launches, which CUDA events include
+        rec["kernel_device_ms"] = device_ms(lambda: ka.flash_attention(
+            q, k, v, kpm, causal))
+        rec["plain_device_ms"] = device_ms(
+            lambda: ka.flash_attention_reference(q, k, v, kpm, causal))
+        rec["library_device_ms"] = device_ms(sdpa_fn(q, k, v, kpm, causal))
     rec["bound_ms"], rec["bound_by"] = attention_bound_ms(q, k, kpm, causal)
     rec["card"] = card
     print("kernel_case " + json.dumps(rec), flush=True)
@@ -163,12 +228,14 @@ def check_case(ka, name, b, tq, tk, lengths, causal, dtype, card):
 def kernel_phase(card: str, main_lengths) -> dict:
     from s2st_tpu_torch.kernels import attention as ka
     t0 = time.perf_counter()
-    lib = ka.build()
-    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
-    ptxas = lib.with_name(lib.stem + ".ptxas.txt")
-    if ptxas.is_file():
+    libs = ka.build()
+    print(f"built {', '.join(p.name for p in libs.values())} in "
+          f"{time.perf_counter() - t0:.1f} s (one nvcc a source, in "
+          f"parallel)", flush=True)
+    for lib in libs.values():
+        ptxas = lib.with_name(lib.stem + ".ptxas.txt")
         for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry", "registers", "spill")):
                 print("ptxas: " + line.strip(), flush=True)
     cases = []
     for t in (75, 150, 300):
@@ -186,7 +253,8 @@ def kernel_phase(card: str, main_lengths) -> dict:
     # the serving path's own encoder self-attention shape, in bf16
     t = main_lengths[0]
     return check_case(ka, "serving_encoder_self", len(main_lengths), t, t,
-                      main_lengths, False, torch.bfloat16, card)
+                      main_lengths, False, torch.bfloat16, card,
+                      device_times=True)
 
 
 RECIPE_ARGS = {
@@ -381,15 +449,11 @@ def _profiled(fn):
         wall = (time.perf_counter() - t0) * 1e3
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) \
-            or e.self_cuda_time_total
-    busy = sum(dev_us(e) for e in kern) / 1e3
+    busy = sum(_dev_us(e) for e in kern) / 1e3
     launches = sum(e.count for e in kern)
-    top = sorted(kern, key=dev_us, reverse=True)[:6]
-    return out, wall, busy, launches, [(e.key[:60], dev_us(e) / 1e3, e.count)
-                                       for e in top]
+    top = sorted(kern, key=_dev_us, reverse=True)[:6]
+    return out, wall, busy, launches, [(e.key[:60], _dev_us(e) / 1e3,
+                                        e.count) for e in top]
 
 
 def profile_phase(card: str) -> None:
@@ -433,6 +497,440 @@ def profile_phase(card: str) -> None:
                   flush=True)
 
 
+def sdpa_leaf_fn(q, k, v, kpm, causal):
+    """SDPA on fresh leaves: (leaves, a call giving (B, Tq, H, D))."""
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    call = sdpa_fn(*leaves, kpm, causal)
+    return leaves, lambda: call().transpose(1, 2)
+
+
+def grad_fn(out, leaves, g):
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def check_bwd_case(ka, name, b, tq, tk, lengths, causal, d, dtype, card,
+                   device_times=False):
+    """The backward kernel against the plain version's autograd (run in
+    fp32 on the same inputs and dO) at one shape; its time beside the
+    plain backward's (in the working type), SDPA's backward and the
+    bound. CUDA-event times (host-bound for the two autograd backwards)
+    and forward + backward times are printed for each of the three; with
+    ``device_times`` also the three backwards' device times."""
+    q, k, v, kpm = attention_inputs(b, tq, tk, lengths, dtype,
+                                    seed=tq + tk + d, d=d)
+    g = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(d),
+                    device="cuda").to(dtype)
+    out, row_max, row_logsum = ka.flash_attention_forward(q, k, v, kpm,
+                                                          causal, stats=True)
+    got = ka.flash_attention_backward(q, k, v, out, row_max, row_logsum, g,
+                                      kpm, causal)
+    ref_leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(ka.flash_attention_reference(
+        *ref_leaves, kpm, causal), ref_leaves, g.float())
+    torch.cuda.synchronize()
+    atol, rtol = TOL_BWD_FP32
+    max_err, ok = 0.0, True
+    for x, y in zip(got, want):
+        if not torch.isfinite(x.float()).all():
+            raise AssertionError(f"bwd {name} {dtype}: non-finite gradient")
+        err = (x.float() - y).abs()
+        max_err = max(max_err, float(err.max()))
+        if dtype == torch.float32:
+            ok = ok and bool((err <= atol + rtol * y.abs()).all())
+        else:
+            ok = ok and float(err.max()) <= TOL_BWD_BF16 * float(y.abs().max())
+    tol = (f"atol {atol} + rtol {rtol}" if dtype == torch.float32
+           else f"{TOL_BWD_BF16} of each gradient's largest magnitude")
+    plain_leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    plain_out = ka.flash_attention_reference(*plain_leaves, kpm, causal)
+    lib_leaves, lib_call = sdpa_leaf_fn(q, k, v, kpm, causal)
+    lib_out = lib_call()
+    kern_leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    rec = {
+        "case": name, "dtype": str(dtype).split(".")[-1], "B": b, "Tq": tq,
+        "Tk": tk, "H": HEADS, "D": d, "causal": causal,
+        "max_abs_err": max_err, "tolerance": tol,
+        "bwd_ms": time_ms(lambda: ka.flash_attention_backward(
+            q, k, v, out, row_max, row_logsum, g, kpm, causal), iters=20),
+        "plain_bwd_ms": time_ms(grad_fn(plain_out, plain_leaves, g),
+                                iters=20),
+        "library_bwd_ms": time_ms(grad_fn(lib_out, lib_leaves, g), iters=20),
+        "fwd_bwd_ms": time_ms(lambda: ka.flash_attention(
+            *kern_leaves, kpm, causal).backward(g), iters=20),
+        "plain_fwd_bwd_ms": time_ms(lambda: ka.flash_attention_reference(
+            *plain_leaves, kpm, causal).backward(g), iters=20),
+        "library_fwd_bwd_ms": time_ms(lambda: lib_call().backward(g),
+                                      iters=20),
+    }
+    if device_times:
+        rec["bwd_device_ms"] = device_ms(lambda: ka.flash_attention_backward(
+            q, k, v, out, row_max, row_logsum, g, kpm, causal))
+        rec["plain_bwd_device_ms"] = device_ms(
+            grad_fn(plain_out, plain_leaves, g))
+        rec["library_bwd_device_ms"] = device_ms(
+            grad_fn(lib_out, lib_leaves, g))
+    rec["bound_ms"], rec["bound_by"] = attention_bound_ms(q, k, kpm, causal,
+                                                          backward=True)
+    rec["card"] = card
+    print("bwd_case " + json.dumps(rec), flush=True)
+    if not ok:
+        raise AssertionError(f"bwd {name} {dtype}: kernel disagrees with the "
+                             f"plain version, max abs err {max_err}")
+    return rec
+
+
+TRAIN_FRAMES = (1000, 930, 860, 790, 700, 610, 520, 400)
+N_PHONES, N_WORDS = 60, 200
+
+
+def backward_phase(card: str, train_lengths) -> dict:
+    """Phase 5 at the training batch's shapes (B=8, 4 heads)."""
+    from s2st_tpu_torch.kernels import attention as ka
+    t = train_lengths[0]
+    cases = [
+        ("encoder_self_T150", 8, 150, 150,
+         [150, 141, 130, 117, 100, 88, 64, 40], False, HEAD_DIM),
+        ("train_encoder_self", 8, t, t, train_lengths, False, HEAD_DIM),
+        ("decoder_causal_T150", 8, 150, 150,
+         [150, 139, 129, 118, 105, 91, 78, 60], True, HEAD_DIM),
+        ("cross_Tq150_Tk250", 8, 150, 250, train_lengths, False, HEAD_DIM),
+        ("aux_self_causal_T40_D16", 8, 40, 40,
+         [40, 37, 35, 31, 28, 25, 22, 17], True, 16),
+        ("aux_cross_Tq40_Tk250_D16", 8, 40, 250, train_lengths, False, 16),
+        ("row_without_keys_T150", 8, 150, 150,
+         [150, 120, 0, 60, 150, 99, 13, 70], False, HEAD_DIM),
+        ("row_without_keys_causal_T40_D16", 8, 40, 40,
+         [40, 0, 35, 31, 28, 25, 22, 17], True, 16),
+    ]
+    main = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in cases:
+            is_main = case[0] == "train_encoder_self" \
+                and dtype == torch.bfloat16
+            rec = check_bwd_case(ka, *case, dtype=dtype, card=card,
+                                 device_times=is_main)
+            main = rec if is_main else main
+    return main
+
+
+def write_train_corpus(root: Path, seed: int) -> None:
+    """8 training utterances of 80-d fbank with 80-d log-mel targets
+    (0.6 target frames a source frame), 20-40 phones and 8-20 words each,
+    the two dictionaries, one serving utterance, GCMVN stats and the
+    config.yaml get_feature_manifest.py writes (SpecAugment on train)."""
+    r = np.random.RandomState(seed)
+    feat_dir = root / "features"
+    feat_dir.mkdir(parents=True)
+    header = ("id\tsrc_audio\ttgt_audio\tsrc_n_frames\ttgt_n_frames\t"
+              "src_text\ttgt_text\tspeaker\n")
+    rows, srcs, tgts = [], [], []
+    for i, n in enumerate(TRAIN_FRAMES):
+        src = (r.randn(n, 80) * 3.0 + 8.0).astype(np.float32)
+        tgt = (r.randn(int(0.6 * n), 80) * 2.5 - 6.0).astype(np.float32)
+        np.save(feat_dir / f"utt{i}_src.npy", src)
+        np.save(feat_dir / f"utt{i}_tgt.npy", tgt)
+        srcs.append(src)
+        tgts.append(tgt)
+        phones = " ".join(f"p{j}" for j in r.randint(0, N_PHONES,
+                                                     r.randint(20, 41)))
+        words = " ".join(f"w{j}" for j in r.randint(0, N_WORDS,
+                                                    r.randint(8, 21)))
+        rows.append(f"utt{i}\tfeatures/utt{i}_src.npy\tfeatures/utt{i}_tgt.npy"
+                    f"\t{n}\t{len(tgt)}\t{phones}\t{words}\tspk0")
+    (root / "train.tsv").write_text(header + "\n".join(rows) + "\n")
+    (root / "tst.tsv").write_text(header + rows[3] + "\n")
+    for name, prefix, n in (("src_vocab.txt", "p", N_PHONES),
+                            ("tgt_vocab.txt", "w", N_WORDS)):
+        (root / name).write_text("".join(f"{prefix}{j} 10\n"
+                                         for j in range(n)))
+    for side, feats in (("src", srcs), ("tgt", tgts)):
+        allf = np.concatenate(feats)
+        np.savez(root / f"gcmvn_{side}.npz", mean=allf.mean(0),
+                 std=allf.std(0))
+    (root / "config.yaml").write_text(f"""audio_root: {root.as_posix()}
+src_vocab_filename: src_vocab.txt
+tgt_vocab_filename: tgt_vocab.txt
+input_feat_per_channel: 80
+input_channels: 1
+features:
+  type: spectrogram+melscale+log
+  sample_rate: 16000
+  n_fft: 1024
+  win_length: 1024
+  hop_length: 256
+  win_len_t: 0.064
+  hop_len_t: 0.016
+  n_mels: 80
+  f_min: 20
+  f_max: 8000
+src_transforms:
+  '*':
+  - src_global_cmvn
+  _train:
+  - src_global_cmvn
+  - specaugment
+tgt_transforms:
+  '*':
+  - tgt_global_cmvn
+src_global_cmvn:
+  stats_npz_path: {(root / 'gcmvn_src.npz').as_posix()}
+tgt_global_cmvn:
+  stats_npz_path: {(root / 'gcmvn_tgt.npz').as_posix()}
+specaugment:
+  freq_mask_F: 27
+  freq_mask_N: 2
+  time_mask_N: 2
+  time_mask_T: 100
+  time_mask_p: 1.0
+  time_wrap_W: 0
+""")
+
+
+def recipe_train_argv(data: Path, save: Path, max_update: int) -> list:
+    """recipes/run_baseline.sh:117-151 with its own values (max_tokens
+    60000 puts the 8 utterances in one batch), and a log line a step."""
+    return [
+        str(data), "--save-dir", str(save), "--config-yaml", "config.yaml",
+        "--train-subset", "train", "--valid-subset", "dev",
+        "--num-workers", "4", "--max-tokens", "60000",
+        "--max-update", str(max_update), "--task", "s2s_translation",
+        "--criterion", "s2st_loss", "--arch", "s2st_transformer",
+        "--clip-norm", "1.0", "--n-frames-per-step", "4",
+        "--bce-pos-weight", "5.0", "--dropout", "0.1",
+        "--attention-dropout", "0.1", "--activation-dropout", "0.01",
+        "--encoder-normalize-before", "--decoder-normalize-before",
+        "--optimizer", "adam", "--lr", "1.5e-3", "--lr-scheduler",
+        "inverse_sqrt", "--warmup-updates", "4000", "--seed", "1",
+        "--update-freq", "1", "--eval-inference",
+        "--best-checkpoint-metric", "mcd_loss", "--use-hubert", "False",
+        "--label-smoothing", "0.1", "--asr-ce-weight", "0.3",
+        "--st-ce-weight", "0.3", "--report-accuracy",
+        "--skip-invalid-size-inputs-valid-test", "--ctc-weight", "0.0",
+        "--middle-layers", "4,9", "--log-file", str(save / "log.jsonl"),
+        "--log-format", "json", "--tensorboard-logdir", str(save / "tb"),
+        "--asr-decoder-layers", "1", "--st-decoder-layers", "1",
+        "--asr-decoder-embed-dim", "64", "--st-decoder-embed-dim", "64",
+        "--prenet-dim", "32", "--max-source-positions", "3000", "--fp16",
+        "--validate-after-updates", "300000", "--disable-validation",
+        "--keep-best-checkpoints", "50", "--keep-last-epochs", "50",
+        "--encoder-attention-heads", "4", "--decoder-attention-heads", "4",
+        "--decoder-ffn-embed-dim", "2048", "--device", "cuda",
+        "--log-interval", "1"]
+
+
+def run_train_cli(argv, save: Path, card: str, label: str) -> dict:
+    """One run of the port's train CLI with every kernel count set to 0
+    just before it; returns the counts, the per-update log and peak
+    memory."""
+    from s2st_tpu_torch.cli import train
+    from s2st_tpu_torch.kernels import attention as ka
+    save.mkdir(parents=True)
+    torch.cuda.reset_peak_memory_stats()
+    ka.flash_attention.launches = ka.flash_attention.bwd_launches = 0
+    t0 = time.perf_counter()
+    rc = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = ka.flash_attention.launches, ka.flash_attention.bwd_launches
+    if rc != 0:
+        raise AssertionError(f"train ({label}) returned {rc}")
+    log = [json.loads(line) for line in
+           (save / "log.jsonl").read_text().splitlines()]
+    for rec in log:
+        if not (np.isfinite(rec["loss"]) and np.isfinite(rec["gnorm"])):
+            raise AssertionError(f"train ({label}): non-finite loss or grad "
+                                 f"norm at update {rec['num_updates']}")
+    steady = [r["step_ms"] for r in log[1:]] or [log[0]["step_ms"]]
+    frames = log[-1]["ntokens"] * 4          # packed steps * 4 frames
+    out = {"updates": len(log), "fwd_launches": fwd, "bwd_launches": bwd,
+           "wall_s": wall,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "first_step_ms": log[0]["step_ms"],
+           "step_ms": sum(steady) / len(steady),
+           "losses": [r["loss"] for r in log],
+           "gnorms": [r["gnorm"] for r in log]}
+    out["target_frames_per_s"] = frames / (out["step_ms"] / 1e3)
+    print(f"train ({label}): {out['updates']} updates in {wall:.1f} s; "
+          f"{out['step_ms']:.3f} ms/update after the first "
+          f"({out['first_step_ms']:.1f} ms), {out['target_frames_per_s']:.0f} "
+          f"target frames/s ({frames} a batch), peak memory "
+          f"{out['peak_gib']:.2f} GiB; flash_attention launches fwd {fwd} "
+          f"bwd {bwd}; losses {out['losses']}; grad norms {out['gnorms']} "
+          f"({card})", flush=True)
+    return out
+
+
+def serve_from_checkpoint(work: Path, data: Path, ckpt: Path) -> None:
+    from s2st_tpu_torch.cli import generate_waveform
+    out = work / "served"
+    argv = [str(data), "--config-yaml", "config.yaml", "--gen-subset", "tst",
+            "--task", "s2s_translation", "--path", str(ckpt),
+            "--results-path", str(out), "--max-iter", "30",
+            "--eos-prob-threshold", "1.5", "--spec-bwd-max-iter", "8",
+            "--fp16", "--dump-waveforms", "--dump-features",
+            "--device", "cuda"]
+    if generate_waveform.main(argv) != 0:
+        raise AssertionError("generate_waveform from the trained "
+                             "checkpoint failed")
+    feat = np.load(out / "feat" / "utt3_pred.npy")
+    if feat.shape != (120, 80) or not np.isfinite(feat).all():
+        raise AssertionError(f"served features {feat.shape} not finite "
+                             f"(120, 80)")
+    print(f"train: served utt3 from {ckpt.name}: features {feat.shape} "
+          f"finite, {out / 'wav' / 'utt3_pred.wav'} written", flush=True)
+
+
+def train_phase(card: str) -> dict:
+    """Phase 6: (a) the kernel configuration, (b) the recipe's flags."""
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        data = work / "data"
+        write_train_corpus(data, seed=3)
+        n_a = 5
+        argv = recipe_train_argv(data, work / "a", n_a) + [
+            "--use-flash-attention", "--attention-dropout", "0"]
+        a = run_train_cli(argv, work / "a", card, "a: --use-flash-attention "
+                          "--attention-dropout 0")
+        if a["updates"] != n_a or a["fwd_launches"] < 27 * n_a \
+                or a["bwd_launches"] < 27 * n_a:
+            raise AssertionError(f"train (a): {a['updates']} updates with "
+                                 f"{a['fwd_launches']} forward and "
+                                 f"{a['bwd_launches']} backward kernel "
+                                 f"launches; want >= 27 each an update")
+        ckpt = work / "a" / "checkpoint_last.npz"
+        if not ckpt.is_file():
+            raise AssertionError("train (a) wrote no checkpoint_last.npz")
+        serve_from_checkpoint(work, data, ckpt)
+        b = run_train_cli(recipe_train_argv(data, work / "b", 2), work / "b",
+                          card, "b: the recipe's flags")
+        if b["updates"] != 2 or b["fwd_launches"] or b["bwd_launches"]:
+            raise AssertionError(f"train (b): {b['updates']} updates, kernel "
+                                 f"launches fwd {b['fwd_launches']} bwd "
+                                 f"{b['bwd_launches']}; want 2 and 0, 0")
+        return {"a": a, "b": b, "data": data, "work": work}
+    except BaseException:
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+
+
+def train_agreement_phase(card: str) -> None:
+    """Phase 7: one fp32 update with dropout off of a 2 + 2 layer model at
+    the recipe's widths (D=128 and the aux decoders' D=16), CTC on, on
+    the card (kernels) and on the CPU (plain versions), from one init.
+
+    Tolerances: the loss and grad norm 1e-4 relative; each leaf's
+    gradient within 1e-4 of its largest magnitude plus 1e-6 of the largest
+    of all (fp32 sums in another order; leaves whose gradient is 0 in exact
+    arithmetic hold fp32 noise); each parameter after the update within
+    1e-6 + 1e-5 |p| where the gradient Adam sees (divided by the
+    sample size, as in JAX) is above 100 eps, else within lr: Adam's first
+    step is g / (|g| + eps), which fp32 noise in a g near eps moves by up
+    to lr."""
+    from s2st_tpu_torch.data.s2st_dataset import collate, to_device
+    from s2st_tpu_torch.models.s2st_transformer import S2STTransformer
+    from s2st_tpu_torch.train.losses import LossConfig, s2st_loss
+    from s2st_tpu_torch.train.optim import inverse_sqrt_schedule
+    from s2st_tpu_torch.train.trainer import Trainer
+    cfg = recipe_config().replace(
+        encoder_layers=2, decoder_layers=2, middle_layers=(0, 1), ctc=True,
+        dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
+        prenet_dropout=0.0, postnet_dropout=0.0)
+    lcfg = LossConfig(label_smoothing=0.1, ctc_weight=0.3, asr_ce_weight=0.3,
+                      st_ce_weight=0.3)
+    lr, eps = 1.5e-3, 1e-8
+    r = np.random.RandomState(4)
+    items = [{"index": i,
+              "src_speech": r.randn(n, 80).astype(np.float32),
+              "tgt_speech": r.randn(n // 5, 320).astype(np.float32),
+              "src_text": np.append(r.randint(4, 100, n // 10), 2),
+              "tgt_text": np.append(r.randint(4, 100, n // 20), 2)}
+             for i, n in enumerate((240, 200, 150))]
+    batch = collate(items)
+    cpu = S2STTransformer(cfg).init_weights(7)
+    dev = copy.deepcopy(cpu).to("cuda")
+    results = []
+    for model, b in ((cpu, batch), (dev, to_device(batch, "cuda"))):
+        loss, ex = s2st_loss(model, lcfg, b, train=True)
+        loss.backward()
+        sample_size = float(ex["sample_size"])
+        grads = {n: p.grad.detach().cpu().clone()
+                 for n, p in model.named_parameters()}
+        tr = Trainer(model, lcfg, inverse_sqrt_schedule(lr, 4000, lr),
+                     clip_norm=1.0)
+        met = tr.train_step(b)
+        params = {n: p.detach().cpu().clone()
+                  for n, p in model.named_parameters()}
+        results.append((loss.item(), grads, met, params))
+    (l_c, g_c, m_c, p_c), (l_d, g_d, m_d, p_d) = results
+    if m_c["gnorm"] >= 1.0:
+        raise AssertionError("train agreement: the clip acted; the bounds "
+                             "assume it does not")
+    g_max = max(float(g.abs().max()) for g in g_c.values())
+    worst_g = worst_p = 0.0
+    for name in g_c:
+        dg = float((g_d[name] - g_c[name]).abs().max())
+        scale = float(g_c[name].abs().max())
+        if scale > 1e-3 * g_max:     # not a leaf of fp32 noise
+            worst_g = max(worst_g, dg / scale)
+        dp = (p_d[name] - p_c[name]).abs()
+        steady = g_c[name].abs() / sample_size > 100 * eps
+        bound = torch.where(steady, 1e-6 + 1e-5 * p_c[name].abs(),
+                            torch.full_like(dp, lr + 1e-6))
+        if steady.any():
+            worst_p = max(worst_p, float(dp[steady].max()))
+        if dg > 1e-4 * scale + 1e-6 * g_max or bool((dp > bound).any()):
+            raise AssertionError(f"train agreement: {name} differs, grad "
+                                 f"{dg:.3e}, param {float(dp.max()):.3e}")
+    rel_loss = abs(l_d - l_c) / abs(l_c)
+    rel_gnorm = abs(m_d["gnorm"] - m_c["gnorm"]) / m_c["gnorm"]
+    print(f"train agreement: card vs CPU (fp32, one update): loss "
+          f"{l_d:.6f} vs {l_c:.6f} (rel {rel_loss:.2e}), grad norm rel "
+          f"{rel_gnorm:.2e}, worst per-leaf grad error {worst_g:.2e} of the "
+          f"leaf's max among leaves above 1e-3 of the largest (tolerance "
+          f"1e-4), worst param error {worst_p:.2e} "
+          f"where the scaled gradient is above 100 eps (tolerance 1e-6 + "
+          f"1e-5 |p|) ({card})", flush=True)
+    if rel_loss > 1e-4 or rel_gnorm > 1e-4:
+        raise AssertionError("train agreement: loss or grad norm differ")
+
+
+def train_profile_phase(card: str, data: Path) -> None:
+    """Phase 8: one bf16 update of 6(a)'s model and batch under
+    torch.profiler, after two warm-up updates."""
+    from s2st_tpu_torch.cli import train
+    from s2st_tpu_torch.data.data_cfg import S2STDataConfig
+    from s2st_tpu_torch.data.dictionary import Dictionary
+    from s2st_tpu_torch.data.s2st_dataset import TrainSplit, to_device
+    from s2st_tpu_torch.models.config_from_args import model_config
+    from s2st_tpu_torch.models.s2st_transformer import S2STTransformer
+    from s2st_tpu_torch.train.optim import schedule_from_args
+    from s2st_tpu_torch.train.trainer import Trainer
+    args = train.get_parser().parse_args(
+        recipe_train_argv(data, data / "unused", 1)
+        + ["--use-flash-attention", "--attention-dropout", "0"])
+    data_cfg = S2STDataConfig(data / "config.yaml")
+    dicts = [Dictionary.load(str(data / f)) for f in ("src_vocab.txt",
+                                                      "tgt_vocab.txt")]
+    cfg = model_config(args, len(dicts[0]), len(dicts[1]), 80)
+    split = TrainSplit(str(data), data_cfg, "train", *dicts,
+                       n_frames_per_step=4)
+    model = S2STTransformer(cfg).init_weights(1).to("cuda")
+    trainer = Trainer(model, train.loss_config(args), schedule_from_args(args),
+                      clip_norm=1.0,
+                      generator=torch.Generator("cuda").manual_seed(2))
+    batch = to_device(split.collate_indices(split.batches(60000, None, 1)[0]),
+                      "cuda")
+    for _ in range(2):
+        trainer.train_step(batch)
+    _, wall, busy, launches, top = _profiled(lambda: trainer.train_step(batch))
+    print(f"profile train_update: wall_ms {wall:.3f}, device_kernel_ms "
+          f"{busy:.3f} in {launches} device activities, idle share "
+          f"{1 - busy / wall:.3f} ({card})", flush=True)
+    for key, ms, count in top:
+        print(f"profile train_update:   {ms:9.3f} ms  {count:6d}x  {key}",
+              flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -458,19 +956,44 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     agreement_phase(card)
     profile_phase(card)
+    train_lengths = [subsampled_length(recipe_config(), n)
+                     for n in TRAIN_FRAMES]
+    bwd = backward_phase(card, train_lengths)
+    trained = train_phase(card)
+    try:
+        train_agreement_phase(card)
+        train_profile_phase(card, trained["data"])
+    finally:
+        shutil.rmtree(trained["work"], ignore_errors=True)
 
+    a = trained["a"]
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
         "source": "s2st_tpu_torch/csrc/flash_attention.cu",
         "replaces": "s2st_tpu/nn/attention.py:85",
         "launches": served["launches"],
+        "launches_by_path": {"serve": served["launches"],
+                             "train": a["fwd_launches"]},
         "max_abs_err": serving["max_abs_err"],
-        "ms": serving["kernel_ms"],
-        "plain_ms": serving["plain_ms"],
+        "ms": serving["kernel_device_ms"],
+        "plain_ms": serving["plain_device_ms"],
         "bound_ms": serving["bound_ms"],
         "bound_by": serving["bound_by"],
-        "library_ms": serving["library_ms"],
+        "library_ms": serving["library_device_ms"],
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "s2st_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "s2st_tpu/nn/attention.py:85",
+        "launches": a["bwd_launches"],
+        "launches_per_update": a["bwd_launches"] / a["updates"],
+        "max_abs_err": bwd["max_abs_err"],
+        "ms": bwd["bwd_device_ms"],
+        "plain_ms": bwd["plain_bwd_device_ms"],
+        "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"],
+        "library_ms": bwd["library_bwd_device_ms"],
     }]
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

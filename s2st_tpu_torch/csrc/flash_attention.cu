@@ -33,8 +33,14 @@
 // Layout: q (B, Tq, H, D), k and v (B, Tk, H, D), o (B, Tq, H, D), read and
 // written through their batch/time/head strides (unit stride over D), so the
 // caller needs no transposes. key_padding_mask is (B, Tk) bytes, 1 at pad.
+// For training the kernel also writes each row's softmax statistics, fp32
+// (B, H, Tq): the running max m and log of the sum l of exp(s - m). They are
+// kept apart, not as one log-sum-exp m + log l, because a row with no valid
+// key has m = -1e9, where fp32 cannot hold log l beside it (its ulp is 64);
+// flash_attention_bwd.cu recomputes the probabilities as exp(s - m - log l).
 //
 // Plain C interface for ctypes; returns the cudaError_t of the launch.
+// row_max and row_logsum may both be null (inference needs no statistics).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,6 +61,8 @@ struct Params {
   const void* v;
   void* o;
   const uint8_t* kpm;
+  float* row_max;
+  float* row_logsum;
   long long q_sb, q_st, q_sh;
   long long k_sb, k_st, k_sh;
   long long v_sb, v_st, v_sh;
@@ -225,7 +233,16 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
 
   if (lane == 0) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) row_sum[warp * 8 + i] = l_run[i];
+    for (int i = 0; i < 8; ++i) {
+      const int r = warp * 8 + i;
+      row_sum[r] = l_run[i];
+      const int t = q0 + r;
+      if (p.row_max && t < p.Tq) {
+        const long long at = static_cast<long long>(blockIdx.y) * p.Tq + t;
+        p.row_max[at] = m_run[i];
+        p.row_logsum[at] = logf(l_run[i]);
+      }
+    }
   }
   __syncthreads();
 #pragma unroll
@@ -259,7 +276,7 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements.
 extern "C" int s2st_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
-    const void* key_padding_mask,
+    const void* key_padding_mask, float* row_max, float* row_logsum,
     long long q_sb, long long q_st, long long q_sh,
     long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh,
@@ -276,6 +293,8 @@ extern "C" int s2st_flash_attention_fwd(
   p.v = v;
   p.o = o;
   p.kpm = static_cast<const uint8_t*>(key_padding_mask);
+  p.row_max = row_max;
+  p.row_logsum = row_logsum;
   p.q_sb = q_sb; p.q_st = q_st; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_st = k_st; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_st = v_st; p.v_sh = v_sh;

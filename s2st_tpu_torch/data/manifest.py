@@ -1,12 +1,12 @@
-"""The generation split: TSV manifest, features, transforms and batches.
+"""TSV manifests, feature transforms, and the generation split.
 
-Reads what stage 7 reads of ``s2st_tpu/data/s2st_dataset.py``: the TSV
-(``_load_tsv``, :55) with paths taken from ``audio_root``, source fbank
-features through the split's global-CMVN transform
-(``data/feature_transforms.py:60-89``), and, for teacher forcing, the
-packed target log-mels. Batches are the JAX batcher's greedy
-length-descending split under ``max_tokens`` (longest * rows) and
-``batch_size``; they are padded to the batch maximum, not bucketed.
+Reads what stages 5 and 7 read of ``s2st_tpu/data/s2st_dataset.py``: the
+TSV (``_load_tsv``, :55) with paths taken from ``audio_root``, features
+through the split's transforms (``data/feature_transforms.py``: global
+CMVN and SpecAugment) and the packed target log-mels. Batches are the JAX
+batcher's greedy length-descending split under ``max_tokens`` (longest *
+rows) and ``batch_size``; they are padded to the batch maximum, not
+bucketed.
 """
 
 from __future__ import annotations
@@ -43,29 +43,108 @@ def pack_frames(feature: np.ndarray, n_frames_per_step: int) -> np.ndarray:
     return feature[:n * n_frames_per_step].reshape(n, -1)
 
 
-class _Transforms:
-    """A split's feature transforms; only global CMVN runs at generation."""
+def spec_augment(spec: np.ndarray, conf: Dict, rng: np.random.RandomState
+                 ) -> np.ndarray:
+    """Time warp and frequency/time masks (feature_transforms.py:111-183,
+    the config keys of fairseq's specaugment block)."""
+    spec = spec.copy()
+    num_frames, num_freqs = spec.shape
+    freq_n, freq_f = conf.get("freq_mask_N", 0), conf.get("freq_mask_F", 0)
+    time_n, time_t = conf.get("time_mask_N", 0), conf.get("time_mask_T", 0)
+    time_p = conf.get("time_mask_p", 0.0)
+    mask_value = conf.get("mask_value", None)
+    if mask_value is None:
+        mask_value = spec.mean()
+    if num_frames == 0 or num_freqs < freq_f:
+        return spec
+    w = conf.get("time_warp_W", 0)
+    if w > 0 and 2 * w < num_frames:
+        w0 = rng.randint(w, num_frames - w)
+        s = rng.randint(-w + 1, w)
+        src_pos = np.arange(num_frames, dtype=np.float64)
+        left = src_pos[:w0 + s + 1] * (w0 / max(w0 + s, 1))
+        right = w0 + (src_pos[w0 + s + 1:] - (w0 + s)) \
+            * ((num_frames - 1 - w0) / max(num_frames - 1 - (w0 + s), 1))
+        pos = np.concatenate([left, right])
+        idx0 = np.clip(pos.astype(np.int64), 0, num_frames - 1)
+        idx1 = np.clip(idx0 + 1, 0, num_frames - 1)
+        frac = (pos - idx0)[:, None]
+        spec = ((1 - frac) * spec[idx0] + frac * spec[idx1]).astype(np.float32)
+    for _ in range(freq_n):
+        f = rng.randint(0, freq_f + 1)
+        f0 = rng.randint(0, max(num_freqs - f, 1))
+        if f > 0:
+            spec[:, f0:f0 + f] = mask_value
+    max_t = min(time_t, int(num_frames * time_p) if time_p > 0 else time_t)
+    for _ in range(time_n):
+        t = rng.randint(0, max(max_t, 0) + 1)
+        t0 = rng.randint(0, max(num_frames - t, 1))
+        if t > 0:
+            spec[t0:t0 + t, :] = mask_value
+    return spec
+
+
+class FeatureTransforms:
+    """A split's feature transforms by name: global CMVN (``global_cmvn``,
+    ``src_global_cmvn``, ``tgt_global_cmvn``) and ``specaugment`` (the
+    train split's in the recipe's config.yaml); any other name raises."""
 
     def __init__(self, cfg: S2STDataConfig, names: Optional[List[str]]):
-        self.stats = []
+        self.steps = []
         for name in names or []:
-            if name not in _CMVN:
+            conf = cfg.config.get(name) or {}
+            if name in _CMVN:
+                stats = np.load(cfg.cmvn_stats_path(name))
+                mean = stats["mean"].astype(np.float32)
+                std = stats["std"].astype(np.float32)
+                self.steps.append(
+                    lambda x, rng, m=mean, s=std: (x - m) / s)
+            elif name == "specaugment":
+                self.steps.append(
+                    lambda x, rng, c=conf: spec_augment(x, c, rng))
+            else:
                 raise NotImplementedError(
                     f"feature transform {name!r} is not ported")
-            stats = np.load(cfg.cmvn_stats_path(name))
-            self.stats.append((stats["mean"].astype(np.float32),
-                               stats["std"].astype(np.float32)))
 
-    def __call__(self, x: np.ndarray) -> np.ndarray:
+    def __call__(self, x: np.ndarray,
+                 rng: Optional[np.random.RandomState] = None) -> np.ndarray:
+        """rng: the item's own stream for SpecAugment (np.random's global
+        stream without one)."""
         x = np.asarray(x, np.float32)
-        for mean, std in self.stats:
-            x = (x - mean) / std
-        return x
+        for step in self.steps:
+            x = step(x, rng if rng is not None else np.random)
+        return np.asarray(x, np.float32)
 
 
-class GenerationSplit:
-    def __init__(self, root: str, cfg: S2STDataConfig, split: str,
-                 n_frames_per_step: int = 1):
+def batch_by_size(lengths: np.ndarray, max_tokens: Optional[int],
+                  batch_size: Optional[int]) -> List[List[int]]:
+    """Indices, longest first, cut greedily so that rows * longest stays
+    within max_tokens and rows within batch_size (data/iterators.py:54-90;
+    samples longer than max_tokens are skipped)."""
+    order = np.lexsort((np.arange(len(lengths)), lengths))[::-1]
+    out: List[List[int]] = []
+    cur: List[int] = []
+    for idx in order:
+        ln = int(lengths[idx])
+        if max_tokens and ln > max_tokens:
+            logger.warning(f"skipping sample {idx}: length {ln} > max_tokens")
+            continue
+        longest = int(lengths[cur[0]]) if cur else ln  # longest first
+        if cur and ((max_tokens and (len(cur) + 1) * longest > max_tokens)
+                    or (batch_size and len(cur) >= batch_size)):
+            out.append(cur)
+            cur = []
+        cur.append(int(idx))
+    if cur:
+        out.append(cur)
+    return out
+
+
+class Manifest:
+    """A split's TSV rows with paths taken from ``audio_root``, and the
+    split's source and target transforms."""
+
+    def __init__(self, root: str, cfg: S2STDataConfig, split: str):
         tsv = Path(root) / f"{split}.tsv"
         if not tsv.is_file():
             raise FileNotFoundError(f"Dataset not found: {tsv}")
@@ -78,37 +157,22 @@ class GenerationSplit:
         self.ids = [s["id"] for s in self.samples]
         self.src_n_frames = np.array([int(s["src_n_frames"])
                                       for s in self.samples])
-        self.n_frames_per_step = n_frames_per_step
         is_train = split.startswith("train")
-        self.src_transforms = _Transforms(
+        self.src_transforms = FeatureTransforms(
             cfg, cfg.transforms_for("src_transforms", split, is_train))
-        self.tgt_transforms = _Transforms(
+        self.tgt_transforms = FeatureTransforms(
             cfg, cfg.transforms_for("tgt_transforms", split, is_train))
+
+
+class GenerationSplit(Manifest):
+    def __init__(self, root: str, cfg: S2STDataConfig, split: str,
+                 n_frames_per_step: int = 1):
+        super().__init__(root, cfg, split)
+        self.n_frames_per_step = n_frames_per_step
 
     def batches(self, max_tokens: Optional[int],
                 batch_size: Optional[int]) -> List[List[int]]:
-        """Indices, longest first, cut greedily so that rows * longest
-        stays within max_tokens and rows within batch_size
-        (data/iterators.py:54-90; samples longer than max_tokens skipped)."""
-        lengths = self.src_n_frames
-        order = np.lexsort((np.arange(len(lengths)), lengths))[::-1]
-        out: List[List[int]] = []
-        cur: List[int] = []
-        for idx in order:
-            ln = int(lengths[idx])
-            if max_tokens and ln > max_tokens:
-                logger.warning(f"skipping sample {idx}: length {ln} > "
-                               f"max_tokens")
-                continue
-            longest = int(lengths[cur[0]]) if cur else ln  # longest first
-            if cur and ((max_tokens and (len(cur) + 1) * longest > max_tokens)
-                        or (batch_size and len(cur) >= batch_size)):
-                out.append(cur)
-                cur = []
-            cur.append(int(idx))
-        if cur:
-            out.append(cur)
-        return out
+        return batch_by_size(self.src_n_frames, max_tokens, batch_size)
 
     def collate(self, indices: List[int], with_target: bool = False
                 ) -> Dict[str, object]:

@@ -1,16 +1,19 @@
-"""Fused attention forward: the Hopper kernel and its plain PyTorch version.
+"""Fused attention forward and backward: the Hopper kernels and their plain
+PyTorch version.
 
 ``flash_attention`` replaces the Pallas TPU kernel behind
-``s2st_tpu/nn/attention.py::attend_flash`` (:44-88). On a CUDA tensor it
-launches ``csrc/flash_attention.cu`` (built for ``sm_90a`` on first use and
-loaded with ctypes); on a CPU tensor it runs ``flash_attention_reference``.
-There is no other path: a CUDA call the kernel cannot take raises.
+``s2st_tpu/nn/attention.py::attend_flash`` (:44-88) and its ``custom_vjp``
+backward. On a CUDA tensor it launches ``csrc/flash_attention.cu``, and its
+gradient launches ``csrc/flash_attention_bwd.cu`` (each built for ``sm_90a``
+on first use and loaded with ctypes); on a CPU tensor it runs
+``flash_attention_reference``, whose gradient is plain autograd. There is no
+other path: a CUDA call the kernels cannot take raises.
 
 Semantics (those of ``s2st_tpu/nn/attention.py::attend``): q is pre-scaled;
 a causal mask of -1e9 is added strictly above the diagonal; key padding
 replaces the score with -1e9, so a row with no valid key averages every
-value; softmax and accumulation run in fp32 and the output has the input
-type.
+value and a padded key's score gets no gradient; softmax and accumulation
+run in fp32 and the outputs have the input type.
 """
 
 from __future__ import annotations
@@ -22,16 +25,25 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 NEG_INF = -1e9
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flash_attention.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SOURCES = {"fwd": _CSRC / "flash_attention.cu",
+            "bwd": _CSRC / "flash_attention_bwd.cu"}
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_ARGTYPES = {
+    "fwd": ("s2st_flash_attention_fwd",
+            [_P] * 7 + [_LL] * 13 + [_I] * 7 + [_P]),
+    "bwd": ("s2st_flash_attention_bwd",
+            [_P] * 9 + [_LL] + [_P] * 4 + [_I] * 7 + [_P]),
+}
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -40,7 +52,8 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               causal: bool = False) -> torch.Tensor:
     """Plain version: einsum + masked fp32 softmax. q (B, Tq, H, D)
     pre-scaled, k/v (B, Tk, H, D), key_padding_mask (B, Tk) True at pad.
-    Returns (B, Tq, H, D) in v's dtype."""
+    Returns (B, Tq, H, D) in v's dtype. Its autograd is the plain version
+    of the backward kernel."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     if causal:
         tq, tk = logits.shape[-2:]
@@ -60,39 +73,60 @@ def _nvcc() -> str:
         if cand and os.path.isfile(cand):
             return cand
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{_SOURCE.name}")
+                       "the attention kernels")
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernel library."""
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:12]
-    lib_path = _BUILD_DIR / f"libflash_attention_{tag}.so"
-    if not lib_path.is_file():
+def _lib_path(name: str) -> Path:
+    tag = hashlib.sha256(_SOURCES[name].read_bytes()).hexdigest()[:12]
+    return _BUILD_DIR / f"lib{_SOURCES[name].stem}_{tag}.so"
+
+
+def _compile(names) -> None:
+    """Build the named kernel libraries that are not built yet, one nvcc a
+    source, all started together."""
+    jobs = []
+    for name in names:
+        lib_path = _lib_path(name)
+        if lib_path.is_file():
+            continue
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(_SOURCE)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        build_log = (res.stdout + res.stderr).strip()
-        (_BUILD_DIR / f"{lib_path.stem}.ptxas.txt").write_text(build_log)
+               "-Xptxas", "-v", "-o", str(tmp), str(_SOURCES[name])]
+        jobs.append((lib_path, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for lib_path, tmp, proc in jobs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) for "
+                          f"{lib_path.name}:\n{log}")
+            continue
+        (_BUILD_DIR / f"{lib_path.stem}.ptxas.txt").write_text(log.strip())
         os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    fn = lib.s2st_flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 13
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+@functools.lru_cache(maxsize=None)
+def _library(name: str) -> ctypes.CDLL:
+    """Build (once per source version) and load one kernel library."""
+    _compile([name])
+    lib = ctypes.CDLL(str(_lib_path(name)))
+    symbol, argtypes = _ARGTYPES[name]
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return lib
 
 
-def build() -> Path:
-    """Build and load the kernel now; returns the library path."""
-    return Path(_library()._name)
+def build() -> Dict[str, Path]:
+    """Build both kernel libraries in parallel and load them; returns
+    {"fwd": path, "bwd": path}."""
+    _compile(list(_SOURCES))
+    return {name: Path(_library(name)._name) for name in _SOURCES}
 
 
 def _check(q, k, v, key_padding_mask):
@@ -127,6 +161,111 @@ def _check(q, k, v, key_padding_mask):
                              "time")
 
 
+def _strides(*tensors):
+    return [s for t in tensors for s in t.stride()[:3]]
+
+
+def flash_attention_forward(q, k, v, kpm=None, causal: bool = False,
+                            stats: bool = False):
+    """One forward kernel launch on CUDA tensors. Returns (out, row_max,
+    row_logsum); the two (B, H, Tq) fp32 row statistics, which the backward
+    kernel reads, only when ``stats``."""
+    _check(q, k, v, kpm)
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    row_max = row_logsum = None
+    if stats:
+        row_max = torch.empty((b, h, tq), dtype=torch.float32,
+                              device=q.device)
+        row_logsum = torch.empty_like(row_max)
+    if out.numel() == 0:
+        return out, row_max, row_logsum
+    if tk == 0:
+        raise ValueError("attention over zero keys")
+    lib = _library("fwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.s2st_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            kpm.data_ptr() if kpm is not None else None,
+            row_max.data_ptr() if stats else None,
+            row_logsum.data_ptr() if stats else None,
+            *_strides(q, k, v, out),
+            kpm.stride(0) if kpm is not None else 0,
+            b, h, tq, tk, d, int(causal), _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    flash_attention.launches += 1
+    return out, row_max, row_logsum
+
+
+def flash_attention_backward(q, k, v, out, row_max, row_logsum, grad_out,
+                             key_padding_mask=None, causal: bool = False):
+    """dq, dk, dv of ``flash_attention`` from the forward's inputs, output
+    and row statistics: one call of csrc/flash_attention_bwd.cu (three
+    launches on the current stream), counted in
+    ``flash_attention.bwd_launches``."""
+    _check(q, k, v, key_padding_mask)
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    grad_out = grad_out.contiguous()
+    if grad_out.shape != out.shape or grad_out.dtype != q.dtype or \
+            out.dtype != q.dtype:
+        raise ValueError(f"grad_out {tuple(grad_out.shape)} "
+                         f"{grad_out.dtype} does not match the output "
+                         f"{tuple(out.shape)} {out.dtype}")
+    for name, s in (("row_max", row_max), ("row_logsum", row_logsum)):
+        if s is None or s.dtype != torch.float32 or s.shape != (b, h, tq) \
+                or not s.is_contiguous() or s.device != q.device:
+            raise ValueError(f"{name} must be contiguous fp32 {(b, h, tq)} "
+                             f"on q's device")
+    dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, tk, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    rowdot = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(
+        *_strides(q, k, v, out, grad_out, dq, dk, dv))
+    kpm = key_padding_mask
+    lib = _library("bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.s2st_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            grad_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            kpm.data_ptr() if kpm is not None else None,
+            kpm.stride(0) if kpm is not None else 0,
+            row_max.data_ptr(), row_logsum.data_ptr(), rowdot.data_ptr(),
+            ctypes.addressof(strides), b, h, tq, tk, d, int(causal),
+            _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA "
+                           f"error {err}")
+    flash_attention.bwd_launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, key_padding_mask, causal):
+        out, row_max, row_logsum = flash_attention_forward(
+            q, k, v, key_padding_mask, causal, stats=True)
+        ctx.save_for_backward(q, k, v, out, row_max, row_logsum,
+                              key_padding_mask)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, out, row_max, row_logsum, kpm = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, row_max,
+                                              row_logsum, grad_out, kpm,
+                                              ctx.causal)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_padding_mask: Optional[torch.Tensor] = None,
                     causal: bool = False) -> torch.Tensor:
@@ -134,34 +273,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, Tk) True at pad. Returns (B, Tq, H, D) in q's dtype.
 
     A CPU tensor takes ``flash_attention_reference``; a CUDA tensor takes
-    the kernel (one launch, counted in ``flash_attention.launches``)."""
+    the forward kernel (one launch, counted in ``flash_attention.launches``)
+    and, when a gradient is wanted, keeps the row statistics for the
+    backward kernel (``flash_attention_backward``)."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, key_padding_mask, causal)
-    _check(q, k, v, key_padding_mask)
-    b, tq, h, d = q.shape
-    tk = k.shape[1]
-    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    if tk == 0:
-        raise ValueError("attention over zero keys")
-    lib = _library()
-    kpm = key_padding_mask
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.s2st_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            kpm.data_ptr() if kpm is not None else None,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            out.stride(0), out.stride(1), out.stride(2),
-            kpm.stride(0) if kpm is not None else 0,
-            b, h, tq, tk, d, int(causal), _DTYPES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
-    flash_attention.launches += 1
-    return out
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, key_padding_mask, causal)
+    return flash_attention_forward(q, k, v, key_padding_mask, causal,
+                                   stats=False)[0]
 
 
 flash_attention.launches = 0
+flash_attention.bwd_launches = 0

@@ -4,8 +4,10 @@ Counterpart of ``s2st_tpu/options.py``: the model flags with the same names
 and defaults (:222-303, :484-488), ``model_args_from_checkpoint`` (:2371),
 which lets the checkpoint's own flag echo (``__meta__["args"]``) override
 the command line for every architectural key, and ``build_model_config``
-(:2445-2509). Vocabulary and speaker counts come from the checkpoint's
-array shapes, so no dictionary has to be loaded.
+(:2445-2509). ``model_config`` takes the vocabulary sizes from the caller
+(the training CLI's dictionaries); ``build_model_config`` takes them, and
+the speaker count, from a checkpoint's array shapes, so that generation
+loads no dictionary.
 """
 
 from __future__ import annotations
@@ -61,6 +63,10 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--postnet-layers", type=int, default=5)
     p.add_argument("--postnet-conv-dim", type=int, default=512)
     p.add_argument("--postnet-conv-kernel-size", type=int, default=5)
+    p.add_argument("--postnet-dropout", type=float, default=0.5)
+    p.add_argument("--dropout", type=float, default=0.1)
+    p.add_argument("--attention-dropout", type=float, default=0.1)
+    p.add_argument("--activation-dropout", type=float, default=0.01)
     p.add_argument("--output-frame-dim", type=int, default=80)
     p.add_argument("--asr-decoder-layers", type=int, default=6)
     p.add_argument("--asr-decoder-embed-dim", type=int, default=256)
@@ -93,10 +99,8 @@ def _ints(s) -> tuple:
 
 def build_model_config(args: argparse.Namespace, variables: Dict[str, Any],
                        input_feat_per_channel: int) -> S2STConfig:
-    if getattr(args, "arch", "s2st_transformer") != "s2st_transformer":
-        raise NotImplementedError(f"arch {args.arch} is not ported")
-    if getattr(args, "use_hubert", False):
-        raise NotImplementedError("the HuBERT frontend is not ported")
+    """The config of a checkpoint's model: vocabularies and speakers from
+    its array shapes, the rest from ``args``."""
     params = variables["params"]
 
     def rows(*path, axis=0, default=0):
@@ -111,9 +115,20 @@ def build_model_config(args: argparse.Namespace, variables: Dict[str, Any],
         or rows("decoder", "ctc_proj", "w", axis=1, default=100)
     tgt_vocab = rows("aux_st_decoder", "embed", "w") \
         or rows("decoder", "ctc_proj_tgt", "w", axis=1, default=100)
+    return model_config(args, src_vocab, tgt_vocab, input_feat_per_channel,
+                        num_speakers=rows("encoder", "embed_speaker", "w"))
+
+
+def model_config(args: argparse.Namespace, src_vocab_size: int,
+                 tgt_vocab_size: int, input_feat_per_channel: int,
+                 num_speakers: int = 0) -> S2STConfig:
+    if getattr(args, "arch", "s2st_transformer") != "s2st_transformer":
+        raise NotImplementedError(f"arch {args.arch} is not ported")
+    if getattr(args, "use_hubert", False):
+        raise NotImplementedError("the HuBERT frontend is not ported")
     return S2STConfig(
-        src_vocab_size=src_vocab,
-        tgt_vocab_size=tgt_vocab,
+        src_vocab_size=src_vocab_size,
+        tgt_vocab_size=tgt_vocab_size,
         input_feat_per_channel=input_feat_per_channel,
         conv_kernel_sizes=_ints(args.conv_kernel_sizes),
         conv_channels=args.conv_channels,
@@ -136,6 +151,7 @@ def build_model_config(args: argparse.Namespace, variables: Dict[str, Any],
         postnet_layers=args.postnet_layers,
         postnet_conv_dim=args.postnet_conv_dim,
         postnet_conv_kernel_size=args.postnet_conv_kernel_size,
+        postnet_dropout=args.postnet_dropout,
         ctc=args.ctc_weight > 0.0,
         aux_asr=args.asr_ce_weight > 0.0,
         aux_st=args.st_ce_weight > 0.0,
@@ -144,9 +160,12 @@ def build_model_config(args: argparse.Namespace, variables: Dict[str, Any],
         asr_decoder_embed_dim=args.asr_decoder_embed_dim,
         st_decoder_layers=args.st_decoder_layers,
         st_decoder_embed_dim=args.st_decoder_embed_dim,
-        num_speakers=rows("encoder", "embed_speaker", "w"),
+        num_speakers=num_speakers,
         speaker_embed_dim=args.speaker_embed_dim,
         speaker_embed_dim_dec=args.speaker_embed_dim,
+        dropout=args.dropout,
+        attention_dropout=args.attention_dropout,
+        activation_dropout=args.activation_dropout,
         activation_fn=args.activation_fn,
         no_scale_embedding=args.no_scale_embedding,
         max_source_positions=args.max_source_positions,

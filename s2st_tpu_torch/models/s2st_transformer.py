@@ -1,12 +1,13 @@
-"""Direct speech-to-speech translation transformer, inference forward.
+"""Direct speech-to-speech translation transformer.
 
 Counterpart of ``s2st_tpu/models/s2st_transformer.py``: conv1d-GLU
-subsampler, transformer encoder with middle-layer taps, and the
-autoregressive spectrogram decoder (prenet -> transformer -> feat/eos
-projections -> postnet residual). The module tree carries fairseq
-``state_dict`` names and also holds the aux ASR/ST text decoders and the
-CTC projections, so that a whole checkpoint loads strictly; their forward
-is not part of this module yet. Activations are (B, T, C).
+subsampler, transformer encoder with middle-layer taps, the autoregressive
+spectrogram decoder (prenet -> transformer -> feat/eos projections ->
+postnet residual), the aux ASR/ST text decoders over encoder taps and the
+CTC projection. The module tree carries fairseq ``state_dict`` names.
+``forward`` is the teacher-forced training forward (:632-687); dropout runs
+when a ``torch.Generator`` is given, and ``train`` puts the postnet on batch
+statistics. Activations are (B, T, C).
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ import torch
 from torch import nn
 
 from ..nn.attention import MultiheadAttention
-from ..nn.core import (conv1d, glu, layer_norm, lengths_to_padding_mask,
-                       linear)
+from ..nn.core import (conv1d, dropout, glu, layer_norm,
+                       lengths_to_padding_mask, linear)
 from ..nn.tacotron import Postnet, Prenet
 from ..nn.transformer import (TransformerDecoderLayer,
                               TransformerEncoderLayer, positions_for_lengths,
@@ -33,7 +34,7 @@ PAD = 1  # fairseq Dictionary: bos=0 pad=1 eos=2 unk=3
 @dataclass(frozen=True)
 class S2STConfig:
     """The fields of ``s2st_tpu.models.s2st_transformer.S2STConfig``
-    (:48-139) that the inference path and the module tree read."""
+    (:48-139) that the port reads."""
     src_vocab_size: int = 100
     tgt_vocab_size: int = 100
     input_feat_per_channel: int = 80
@@ -59,6 +60,7 @@ class S2STConfig:
     postnet_layers: int = 5
     postnet_conv_dim: int = 512
     postnet_conv_kernel_size: int = 5
+    postnet_dropout: float = 0.5
     ctc: bool = False
     aux_asr: bool = False
     aux_st: bool = False
@@ -70,6 +72,9 @@ class S2STConfig:
     num_speakers: int = 0
     speaker_embed_dim: int = 64
     speaker_embed_dim_dec: int = 64
+    dropout: float = 0.1
+    attention_dropout: float = 0.1
+    activation_dropout: float = 0.01
     activation_fn: str = "relu"
     no_scale_embedding: bool = False
     max_source_positions: int = 3000
@@ -82,6 +87,12 @@ class S2STConfig:
 
     def replace(self, **kw) -> "S2STConfig":
         return dataclasses.replace(self, **kw)
+
+    def dropout_rates(self) -> Dict[str, float]:
+        """The transformer layers' dropout keyword arguments."""
+        return {"dropout_rate": self.dropout,
+                "attention_dropout": self.attention_dropout,
+                "activation_dropout": self.activation_dropout}
 
 
 class Conv1dSubsampler(nn.Module):
@@ -121,7 +132,7 @@ class S2STEncoder(nn.Module):
                                     cfg.encoder_ffn_embed_dim,
                                     cfg.encoder_attention_heads,
                                     cfg.encoder_normalize_before,
-                                    cfg.activation_fn)
+                                    cfg.activation_fn, **cfg.dropout_rates())
             for _ in range(cfg.encoder_layers))
         dim = cfg.encoder_embed_dim
         self.layer_norm = nn.LayerNorm(dim) \
@@ -136,8 +147,11 @@ class S2STEncoder(nn.Module):
                                           dim, PAD), persistent=False)
 
     def forward(self, src_feats: torch.Tensor, src_lengths: torch.Tensor,
-                speaker: Optional[torch.Tensor] = None) -> Dict[str, Any]:
-        """models/s2st_transformer.py:305 (eval, no HuBERT, no pipeline)."""
+                speaker: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, Any]:
+        """models/s2st_transformer.py:305 (no HuBERT, no LayerDrop, no
+        pipeline); dropout only with a generator."""
         cfg = self.cfg
         x, out_lengths = self.subsample(src_feats.to(cfg.dtype), src_lengths)
         t_out = x.shape[1]
@@ -149,9 +163,10 @@ class S2STEncoder(nn.Module):
         if speaker is not None and self.embed_speaker is not None:
             x = x + self.embed_speaker.weight.to(x.dtype)[
                 speaker.reshape(-1)][:, None, :]
+        x = dropout(x, cfg.dropout, generator)
         middle: List[torch.Tensor] = []
         for i, layer in enumerate(self.transformer_layers):
-            x = layer(x, padding_mask)
+            x = layer(x, padding_mask, generator)
             if i in cfg.middle_layers:
                 middle.append(x)
         if self.layer_norm is not None:
@@ -180,7 +195,8 @@ class SpectrogramDecoder(nn.Module):
                                     cfg.decoder_attention_heads,
                                     kv_dim=cfg.encoder_embed_dim,
                                     normalize_before=cfg.decoder_normalize_before,
-                                    activation=cfg.activation_fn)
+                                    activation=cfg.activation_fn,
+                                    **cfg.dropout_rates())
             for _ in range(cfg.decoder_layers))
         self.layer_norm = nn.LayerNorm(dim) \
             if cfg.decoder_normalize_before else None
@@ -217,12 +233,17 @@ class SpectrogramDecoder(nn.Module):
     def forward(self, prev_output: torch.Tensor, tgt_lengths: torch.Tensor,
                 encoder_out: Dict[str, Any],
                 speaker: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
-        """Teacher-forced decode (models/s2st_transformer.py:437, eval).
-        prev_output (B, Tt, out_dim) shifted targets. Returns feat_out,
-        post_feat_out (B, Tt, out_dim), eos_out (B, Tt, 1) and attn
-        (B, Tt, Ts), the last layer's head-averaged cross-attention."""
+                generator: Optional[torch.Generator] = None,
+                train: bool = False) -> Dict[str, Any]:
+        """Teacher-forced decode (models/s2st_transformer.py:437).
+        prev_output (B, Tt, out_dim) shifted targets. A generator turns on
+        the prenet's dropout, and with ``train`` the other dropout sites
+        too (JAX's rng and ``deterministic = not train``); ``train`` puts
+        the postnet on batch statistics. Returns
+        feat_out, post_feat_out (B, Tt, out_dim), eos_out (B, Tt, 1), attn
+        (B, Tt, Ts), the last layer's head-averaged cross-attention, and,
+        with ``train``, new_stats {"postnet": the postnet's running
+        stats}."""
         cfg = self.cfg
         b, tt, _ = prev_output.shape
         x = prev_output.to(cfg.dtype)
@@ -230,41 +251,82 @@ class SpectrogramDecoder(nn.Module):
             spk = self.embed_speaker.weight.to(cfg.dtype)[speaker.reshape(-1)]
             x = torch.cat([spk[:, None, :], x[:, 1:, :]], dim=1)
         x = self.prenet_in(x, generator)
+        drop = generator if train else None
         pos = positions_for_lengths(self.pos_table, tgt_lengths, tt, PAD,
                                     x.dtype)
         x = x + self.pos_emb_alpha.to(x.dtype) * pos
+        x = dropout(x, cfg.dropout, drop)
         self_pad = lengths_to_padding_mask(tgt_lengths, tt)
         enc = encoder_out["encoder_out"]
         enc_pad = encoder_out["encoder_padding_mask"]
         attn = None
         last = len(self.transformer_layers) - 1
         for i, layer in enumerate(self.transformer_layers):
-            x, w = layer(x, enc, enc_pad, self_pad, need_attn=(i == last))
+            x, w = layer(x, enc, enc_pad, self_pad, need_attn=(i == last),
+                         generator=drop)
             if w is not None:
                 attn = w.mean(dim=1)
         feat_out, eos_out = self.heads(x)
-        post_feat_out = feat_out + self.postnet(feat_out)
-        return {"feat_out": feat_out, "post_feat_out": post_feat_out,
-                "eos_out": eos_out, "attn": attn}
+        out = {"feat_out": feat_out, "eos_out": eos_out, "attn": attn}
+        if train:
+            post, stats = self.postnet.train_forward(
+                feat_out, cfg.postnet_dropout, drop)
+            out["new_stats"] = {"postnet": stats}
+        else:
+            post = self.postnet(feat_out)
+        out["post_feat_out"] = feat_out + post
+        return out
+
+
+AUX_MAX_POSITIONS = 1024  # aux_decode's max_positions default (:569)
 
 
 class AuxTextDecoder(nn.Module):
-    """Parameters of an aux ASR/ST transformer text decoder
-    (models/s2st_transformer.py:164-179); its forward is a later slice."""
+    """An aux ASR/ST transformer text decoder over an encoder tap
+    (models/s2st_transformer.py:164-179, ``aux_decode`` :566-619)."""
 
     def __init__(self, cfg: S2STConfig, vocab: int, dim: int, n_layers: int):
         super().__init__()
+        self.cfg = cfg
+        self.dim = dim
         self.embed_tokens = nn.Embedding(vocab, dim, padding_idx=PAD)
         self.layers = nn.ModuleList(
             TransformerDecoderLayer(dim, cfg.decoder_ffn_embed_dim,
                                     cfg.decoder_attention_heads,
                                     kv_dim=cfg.encoder_embed_dim,
                                     normalize_before=cfg.decoder_normalize_before,
-                                    activation=cfg.activation_fn)
+                                    activation=cfg.activation_fn,
+                                    **cfg.dropout_rates())
             for _ in range(n_layers))
         self.layer_norm = nn.LayerNorm(dim) \
             if cfg.decoder_normalize_before else None
         self.output_projection = nn.Linear(dim, vocab, bias=False)
+        self.register_buffer(
+            "pos_table", sinusoidal_table(AUX_MAX_POSITIONS + PAD + 1, dim,
+                                          PAD), persistent=False)
+
+    def forward(self, prev_tokens: torch.Tensor, enc_tap: torch.Tensor,
+                enc_padding_mask: Optional[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """prev_tokens (B, Tt) -> logits (B, Tt, V) in the compute dtype.
+        The embedding is scaled by sqrt(dim); positions count non-pad
+        tokens (fairseq's pad-aware positions); the output projection has
+        no bias."""
+        cfg = self.cfg
+        x = self.embed_tokens.weight.to(cfg.dtype)[prev_tokens]
+        if not cfg.no_scale_embedding:
+            x = x * math.sqrt(self.dim)
+        is_pad = prev_tokens == PAD
+        pos_idx = torch.where(is_pad, PAD,
+                              torch.cumsum((~is_pad).long(), dim=1) + PAD)
+        x = x + self.pos_table[pos_idx].to(cfg.dtype)
+        x = dropout(x, cfg.dropout, generator)
+        for layer in self.layers:
+            x, _ = layer(x, enc_tap, enc_padding_mask, is_pad,
+                         generator=generator)
+        if self.layer_norm is not None:
+            x = layer_norm(x, self.layer_norm.weight, self.layer_norm.bias)
+        return linear(x, self.output_projection.weight)
 
 
 class S2STTransformer(nn.Module):
@@ -284,9 +346,45 @@ class S2STTransformer(nn.Module):
         return self.encoder(src_feats, src_lengths, speaker)
 
     def decode(self, prev_output, tgt_lengths, encoder_out, speaker=None,
-               generator=None) -> Dict[str, torch.Tensor]:
+               generator=None) -> Dict[str, Any]:
         return self.decoder(prev_output, tgt_lengths, encoder_out, speaker,
                             generator)
+
+    def forward(self, batch: Dict[str, torch.Tensor], train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, Any]:
+        """Teacher-forced forward over a collated batch (:632-687): the
+        spectrogram decoder's outputs, the encoder's padding mask and
+        lengths, ``new_stats`` (with ``train``), and ``ctc_logits``,
+        ``asr_logits`` and ``st_logits`` where the config has those heads
+        and the batch their inputs. A generator turns on the prenet's
+        dropout, and with ``train`` every other dropout site."""
+        cfg = self.cfg
+        if cfg.ctc_tgt:
+            raise NotImplementedError("the MTL target-side CTC is not ported")
+        speaker = batch.get("speaker")
+        drop = generator if train else None
+        enc = self.encoder(batch["src_speech"], batch["src_speech_lens"],
+                           speaker, drop)
+        dec = self.decoder(batch["prev_output_tokens"],
+                           batch["target_lengths"], enc, speaker, generator,
+                           train)
+        out = dict(dec)
+        out["encoder_padding_mask"] = enc["encoder_padding_mask"]
+        out["encoder_out_lengths"] = enc["out_lengths"]
+        taps = enc["out_middle_layers"]
+        pad = enc["encoder_padding_mask"]
+        if cfg.ctc and taps:     # ctc_logits (:622) over tap 0
+            proj = self.decoder.ctc_proj
+            out["ctc_logits"] = linear(taps[0], proj.weight, proj.bias)
+        if cfg.aux_asr and "prev_src_text_tokens" in batch:
+            out["asr_logits"] = self.aux_asr_decoder(
+                batch["prev_src_text_tokens"], taps[0], pad, drop)
+        if cfg.aux_st and "prev_tgt_text_tokens" in batch:
+            out["st_logits"] = self.aux_st_decoder(
+                batch["prev_tgt_text_tokens"], taps[1 if len(taps) > 1 else 0],
+                pad, drop)
+        return out
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> "S2STTransformer":

@@ -3,9 +3,10 @@ cache for step-by-step decoding.
 
 Counterpart of ``s2st_tpu/nn/attention.py``. Heads are (B, T, H, D). Every
 full-sequence call that needs neither the weights nor an additive mask other
-than the causal one goes to ``kernels.attention.flash_attention``; the rest,
-and the one-query decode steps, use ``attend`` (plain PyTorch, as JAX leaves
-them to XLA).
+than the causal one, and has no attention-probability dropout active, goes
+to ``kernels.attention.flash_attention`` (the gate of ``mha``, :137-140);
+the rest, and the one-query decode steps, use ``attend`` (plain PyTorch, as
+JAX leaves them to XLA).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 from torch import nn
 
 from ..kernels.attention import NEG_INF, flash_attention
-from .core import linear
+from .core import dropout, linear
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -32,12 +33,16 @@ def causal_mask(t: int, device=None, dtype=torch.float32) -> torch.Tensor:
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            key_padding_mask: Optional[torch.Tensor] = None,
-           attn_mask: Optional[torch.Tensor] = None
+           attn_mask: Optional[torch.Tensor] = None,
+           dropout_rate: float = 0.0,
+           generator: Optional[torch.Generator] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scaled dot-product attention (nn/attention.py:91). q (B, Tq, H, D)
     pre-scaled; k, v (B, Tk, H, D); key_padding_mask (B, Tk) True at pad,
     whose scores are REPLACED by NEG_INF; attn_mask (Tq, Tk) ADDED.
-    Returns (out (B, Tq, H, D), weights fp32 (B, H, Tq, Tk))."""
+    Dropout (with a generator) drops fp32 probabilities before the value
+    product. Returns (out (B, Tq, H, D), weights fp32 (B, H, Tq, Tk), the
+    probabilities before dropout)."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     if attn_mask is not None:
         logits = logits + attn_mask.float()
@@ -45,7 +50,8 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = logits.masked_fill(key_padding_mask[:, None, None, :],
                                     NEG_INF)
     weights = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype), v)
+    probs = dropout(weights, dropout_rate, generator)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
     return out, weights
 
 
@@ -68,10 +74,14 @@ class MultiheadAttention(nn.Module):
                 value: torch.Tensor,
                 key_padding_mask: Optional[torch.Tensor] = None,
                 attn_mask: Optional[torch.Tensor] = None,
-                causal: bool = False, need_weights: bool = False):
+                causal: bool = False, need_weights: bool = False,
+                dropout_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None):
         """Full-sequence attention (nn/attention.py:115). (B, T, C) in and
-        out; q is scaled after its projection bias. Returns (out, weights
-        (B, H, Tq, Tk) fp32 or None)."""
+        out; q is scaled after its projection bias. Probability dropout at
+        ``dropout_rate`` is active when a generator is given, and then the
+        call takes ``attend``. Returns (out, weights (B, H, Tq, Tk) fp32 or
+        None)."""
         b, tq, c = query.shape
         q = split_heads(linear(query, self.q_proj.weight, self.q_proj.bias)
                         * self.scale, self.num_heads)
@@ -80,12 +90,14 @@ class MultiheadAttention(nn.Module):
         v = split_heads(linear(value, self.v_proj.weight, self.v_proj.bias),
                         self.num_heads)
         w = None
-        if not need_weights and attn_mask is None:
+        prob_dropout = generator is not None and dropout_rate > 0.0
+        if not need_weights and attn_mask is None and not prob_dropout:
             out = flash_attention(q, k, v, key_padding_mask, causal=causal)
         else:
             if causal and attn_mask is None:
                 attn_mask = causal_mask(tq, query.device)
-            out, w = attend(q, k, v, key_padding_mask, attn_mask)
+            out, w = attend(q, k, v, key_padding_mask, attn_mask,
+                            dropout_rate, generator)
         out = linear(out.reshape(b, tq, c), self.out_proj.weight,
                      self.out_proj.bias)
         return out, (w if need_weights else None)

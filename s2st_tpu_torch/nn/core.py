@@ -53,6 +53,25 @@ def batch_norm_eval(x: torch.Tensor, running_mean: torch.Tensor,
     return (y * weight.float() + bias.float()).to(x.dtype)
 
 
+def batch_norm_train(x: torch.Tensor, running_mean: torch.Tensor,
+                     running_var: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, momentum: float = 0.1,
+                     eps: float = 1e-5):
+    """Training batch norm over (B, T, C) (nn/core.py:203-224): statistics
+    over every (B, T) frame, padding included; normalised with the biased
+    variance. Returns (y, new running mean, new running var); the running
+    var takes the unbiased variance, n / (n - 1), at ``momentum``."""
+    xf = x.float()
+    mean = xf.mean(dim=(0, 1))
+    var = xf.var(dim=(0, 1), unbiased=False)
+    n = x.shape[0] * x.shape[1]
+    unbiased = var.detach() * (n / max(n - 1, 1))
+    new_mean = (1 - momentum) * running_mean.float() + momentum * mean.detach()
+    new_var = (1 - momentum) * running_var.float() + momentum * unbiased
+    y = (xf - mean) * torch.rsqrt(var + eps) * weight.float() + bias.float()
+    return y.to(x.dtype), new_mean, new_var
+
+
 def conv1d(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None, stride: int = 1,
            padding: int = 0) -> torch.Tensor:

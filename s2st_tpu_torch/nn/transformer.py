@@ -3,7 +3,9 @@
 Counterpart of ``s2st_tpu/nn/transformer.py``, with fairseq parameter
 names (``self_attn``, ``self_attn_layer_norm``, ``encoder_attn``,
 ``encoder_attn_layer_norm``, ``fc1``, ``fc2``, ``final_layer_norm``).
-Activations are (B, T, C). Inference only: no dropout.
+Activations are (B, T, C). Dropout runs at JAX's sites and rates
+(``encoder_layer`` :79-109, ``decoder_layer`` :130-188) when a
+``torch.Generator`` is given, and not at all without one (inference).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 from torch import nn
 
 from .attention import MultiheadAttention, attend, split_heads
-from .core import get_activation, layer_norm, linear
+from .core import dropout, get_activation, layer_norm, linear
 
 
 def sinusoidal_table(num_positions: int, dim: int, padding_idx: int = 1
@@ -54,48 +56,73 @@ def position_at_step(table: torch.Tensor, step: int, padding_idx: int = 1,
 
 class _Sublayers(nn.Module):
     """normalize_before puts each sublayer's layer norm on its input
-    (pre-LN) or on the residual sum (post-LN)."""
+    (pre-LN) or on the residual sum (post-LN). Dropout rates: ``dropout_rate``
+    after each sublayer, ``attention_dropout`` on the attention
+    probabilities, ``activation_dropout`` after the FFN activation."""
+
+    def _set_dropout(self, dropout_rate: float, attention_dropout: float,
+                     activation_dropout: float):
+        self.dropout_rate = dropout_rate
+        self.attention_dropout = attention_dropout
+        self.activation_dropout = activation_dropout
 
     def _norm(self, ln: nn.LayerNorm, x: torch.Tensor, before: bool):
         return layer_norm(x, ln.weight, ln.bias) \
             if self.normalize_before == before else x
 
-    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+    def _attn(self, attn, ln, x, memory, generator, **kw):
+        """Residual attention sublayer; returns (x, weights or None)."""
+        h = self._norm(ln, x, True)
+        mem = h if memory is None else memory
+        h, w = attn(h, mem, mem, dropout_rate=self.attention_dropout,
+                    generator=generator, **kw)
+        h = dropout(h, self.dropout_rate, generator)
+        return self._norm(ln, x + h, False), w
+
+    def _ffn(self, x: torch.Tensor,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
         act = get_activation(self.activation)
         h = self._norm(self.final_layer_norm, x, True)
-        h = linear(act(linear(h, self.fc1.weight, self.fc1.bias)),
-                   self.fc2.weight, self.fc2.bias)
+        h = act(linear(h, self.fc1.weight, self.fc1.bias))
+        h = dropout(h, self.activation_dropout, generator)
+        h = linear(h, self.fc2.weight, self.fc2.bias)
+        h = dropout(h, self.dropout_rate, generator)
         return self._norm(self.final_layer_norm, x + h, False)
 
 
 class TransformerEncoderLayer(_Sublayers):
     def __init__(self, dim: int, ffn_dim: int, num_heads: int,
-                 normalize_before: bool = True, activation: str = "relu"):
+                 normalize_before: bool = True, activation: str = "relu",
+                 dropout_rate: float = 0.0, attention_dropout: float = 0.0,
+                 activation_dropout: float = 0.0):
         super().__init__()
         self.normalize_before = normalize_before
         self.activation = activation
+        self._set_dropout(dropout_rate, attention_dropout, activation_dropout)
         self.self_attn = MultiheadAttention(dim, num_heads)
         self.self_attn_layer_norm = nn.LayerNorm(dim)
         self.fc1 = nn.Linear(dim, ffn_dim)
         self.fc2 = nn.Linear(ffn_dim, dim)
         self.final_layer_norm = nn.LayerNorm(dim)
 
-    def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor]
-                ) -> torch.Tensor:
-        """nn/transformer.py:79 (eval)."""
-        h = self._norm(self.self_attn_layer_norm, x, True)
-        h, _ = self.self_attn(h, h, h, key_padding_mask=padding_mask)
-        x = self._norm(self.self_attn_layer_norm, x + h, False)
-        return self._ffn(x)
+    def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """nn/transformer.py:79; dropout only with a generator."""
+        x, _ = self._attn(self.self_attn, self.self_attn_layer_norm, x, None,
+                          generator, key_padding_mask=padding_mask)
+        return self._ffn(x, generator)
 
 
 class TransformerDecoderLayer(_Sublayers):
     def __init__(self, dim: int, ffn_dim: int, num_heads: int,
                  kv_dim: Optional[int] = None, normalize_before: bool = False,
-                 activation: str = "relu"):
+                 activation: str = "relu", dropout_rate: float = 0.0,
+                 attention_dropout: float = 0.0,
+                 activation_dropout: float = 0.0):
         super().__init__()
         self.normalize_before = normalize_before
         self.activation = activation
+        self._set_dropout(dropout_rate, attention_dropout, activation_dropout)
         self.self_attn = MultiheadAttention(dim, num_heads)
         self.self_attn_layer_norm = nn.LayerNorm(dim)
         self.encoder_attn = MultiheadAttention(dim, num_heads, kdim=kv_dim,
@@ -108,22 +135,23 @@ class TransformerDecoderLayer(_Sublayers):
     def forward(self, x: torch.Tensor, enc_out: Optional[torch.Tensor],
                 enc_padding_mask: Optional[torch.Tensor],
                 self_attn_padding_mask: Optional[torch.Tensor],
-                need_attn: bool = False):
+                need_attn: bool = False,
+                generator: Optional[torch.Generator] = None):
         """Teacher-forced layer with causal self-attention
-        (nn/transformer.py:130, eval). Returns (x, cross-attention weights
-        fp32 (B, H, Tq, Tk) when need_attn else None)."""
-        h = self._norm(self.self_attn_layer_norm, x, True)
-        h, _ = self.self_attn(h, h, h, key_padding_mask=self_attn_padding_mask,
-                              causal=True)
-        x = self._norm(self.self_attn_layer_norm, x + h, False)
+        (nn/transformer.py:130); dropout only with a generator. Returns
+        (x, cross-attention weights fp32 (B, H, Tq, Tk) when need_attn else
+        None)."""
+        x, _ = self._attn(self.self_attn, self.self_attn_layer_norm, x, None,
+                          generator, key_padding_mask=self_attn_padding_mask,
+                          causal=True)
         attn_w = None
         if enc_out is not None:
-            h = self._norm(self.encoder_attn_layer_norm, x, True)
-            h, attn_w = self.encoder_attn(h, enc_out, enc_out,
-                                          key_padding_mask=enc_padding_mask,
-                                          need_weights=need_attn)
-            x = self._norm(self.encoder_attn_layer_norm, x + h, False)
-        return self._ffn(x), attn_w
+            x, attn_w = self._attn(self.encoder_attn,
+                                   self.encoder_attn_layer_norm, x, enc_out,
+                                   generator,
+                                   key_padding_mask=enc_padding_mask,
+                                   need_weights=need_attn)
+        return self._ffn(x, generator), attn_w
 
 
 def fuse_decoder_layer_params(layer: TransformerDecoderLayer

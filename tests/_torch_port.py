@@ -2,13 +2,29 @@
 the same tiny config on both sides and the same weights, carried across by
 the port's JAX bridge. Every comparison runs fp32 on the CPU."""
 
+import atexit
 import dataclasses
+import os
+import shutil
+import tempfile
 
 import numpy as np
 import torch
 
 from s2st_tpu_torch.models.jax_bridge import load_jax_variables
 from s2st_tpu_torch.models.s2st_transformer import S2STConfig, S2STTransformer
+
+# The JAX package's CLIs, which these tests and the package's own call, put
+# JAX's persistent compilation cache under ~/.cache/s2st_tpu, where it
+# outlives the test run. Every process that imports this module (each pytest
+# worker collects it) gets a cache of its own, removed at exit, so no test
+# loads an executable that an earlier run compiled: the insertion
+# transformer's 8-device CPU train step, loaded from that cache, stalls in
+# XLA's collective rendezvous and aborts the process
+# (tests/test_insertion.py::test_insertion_e2e).
+JAX_CACHE_DIR = tempfile.mkdtemp(prefix="s2st_xla_cache_")
+atexit.register(shutil.rmtree, JAX_CACHE_DIR, ignore_errors=True)
+os.environ["S2ST_TPU_COMPILATION_CACHE_DIR"] = JAX_CACHE_DIR
 
 
 def port_cfg(jax_cfg, **overrides) -> S2STConfig:

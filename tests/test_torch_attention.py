@@ -7,8 +7,12 @@ tools/flash_attention_parity.py:1-3). The CUDA kernel itself is held
 against the plain version on the card in tests/test_torch_flash_kernel.py
 (marked ``cuda``), and by chip_smoke.py at the serving shapes.
 
+The gradient of the port's attention (the plain path, plain autograd on
+the CPU) is held against ``jax.grad`` of ``attend`` in the same four cases;
+the backward kernel is held against that plain autograd on the card.
+
 Tolerance: fp32 on both sides, only the summation order differs:
-atol 1e-6, rtol 1e-5.
+atol 1e-6, rtol 1e-5 (gradients: atol 1e-5, rtol 1e-5).
 """
 
 import jax.numpy as jnp
@@ -86,3 +90,47 @@ def test_mha_matches_jax(causal, need_weights, cross):
     if need_weights:
         np.testing.assert_allclose(p_w.numpy(), np.asarray(j_w), atol=ATOL,
                                    rtol=RTOL)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_attention_gradient_matches_jax(case):
+    import jax
+    b, tq, tk, lengths, causal = CASES[case]
+    q, k, v, kpm = attention_inputs(b, tq, tk, lengths, seed=8)
+    g = np.random.RandomState(9).randn(*q.shape).astype(np.float32)
+
+    def loss(q_, k_, v_):
+        return jnp.sum(_jax_attend(q_, k_, v_, kpm, causal)[0] * g)
+
+    j_grads = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    p_in = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    ka.flash_attention(*p_in, torch.from_numpy(kpm),
+                       causal=causal).backward(torch.from_numpy(g))
+    for name, p_x, j_g in zip("qkv", p_in, j_grads):
+        np.testing.assert_allclose(p_x.grad.numpy(), np.asarray(j_g),
+                                   atol=1e-5, rtol=RTOL, err_msg=name)
+
+
+def test_mha_probability_dropout_takes_attend():
+    """With a generator and a dropout rate the call drops probabilities:
+    it equals ``attend`` with the same draws, and differs from the call
+    without dropout (mha's gate, nn/attention.py:137-140)."""
+    _, mod = _mha_pair(seed=5)
+    x = torch.from_numpy(np.random.RandomState(6).randn(2, 7, 16)
+                         .astype(np.float32))
+    kpm = torch.tensor([[False] * 7, [False] * 4 + [True] * 3])
+    with torch.no_grad():
+        plain, _ = mod(x, x, x, key_padding_mask=kpm, causal=True)
+        dropped, _ = mod(x, x, x, key_padding_mask=kpm, causal=True,
+                         dropout_rate=0.5,
+                         generator=torch.Generator().manual_seed(3))
+        q = pa.split_heads(pa.linear(x, mod.q_proj.weight, mod.q_proj.bias)
+                           * mod.scale, 2)
+        kv = [pa.split_heads(pa.linear(x, lin.weight, lin.bias), 2)
+              for lin in (mod.k_proj, mod.v_proj)]
+        out, _ = pa.attend(q, *kv, kpm, pa.causal_mask(7), 0.5,
+                           torch.Generator().manual_seed(3))
+        ref = pa.linear(out.reshape(2, 7, 16), mod.out_proj.weight,
+                        mod.out_proj.bias)
+    assert torch.equal(dropped, ref)
+    assert not torch.allclose(dropped, plain)

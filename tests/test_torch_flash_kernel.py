@@ -1,15 +1,24 @@
-"""The port's attention wrapper and its CUDA kernel, without JAX.
+"""The port's attention wrapper and its CUDA kernels, without JAX.
 
 The wrapper ``kernels.attention.flash_attention`` takes the plain version
-for a CPU tensor and the kernel for a CUDA tensor, with no other path. The
-``cuda``-marked tests hold the kernel against the plain version on the card
-and skip elsewhere. This file imports neither JAX nor ``s2st_tpu``, so on a
+for a CPU tensor and the kernels for a CUDA tensor, with no other path: the
+forward kernel, and the backward kernel for its gradient. The
+``cuda``-marked tests hold each kernel against the plain version (its
+autograd, for the backward) on the card and skip elsewhere. This file imports neither JAX nor ``s2st_tpu``, so on a
 machine with a card and no JAX it runs as it is:
 
     python -m pytest tests/test_torch_flash_kernel.py --noconftest -q
 
 Tolerances on the card: fp32 atol 1e-5 + rtol 1e-5 (fp32 sums in another
-order); bf16 atol 2e-2 (the output is rounded to an 8-bit mantissa).
+order); bf16 atol 2e-2 (the output is rounded to an 8-bit mantissa). The
+gradients: fp32 atol 1e-4 + rtol 1e-4 (sums over up to 130 keys or
+queries in another order); bf16 within 3e-2 of each gradient's largest
+magnitude, against the plain version's autograd in fp32 on the same bf16
+inputs and dO. The kernel accumulates in fp32 but, like the TPU kernel,
+takes D = rowsum(dO * o) from the bf16 output o, and dS = P (dP - D)
+cancels in rows whose probability sits on few keys (early causal rows),
+so an elementwise bound would fail where the gradient is near 0; the plain
+version run in bf16 is less exact still (it rounds dP to bf16).
 """
 
 import numpy as np
@@ -57,6 +66,24 @@ def test_row_without_keys_averages_all_values():
     np.testing.assert_allclose(out[1].numpy(),
                                np.broadcast_to(v[1].mean(0), out[1].shape),
                                atol=1e-6, rtol=1e-5)
+
+
+def test_row_without_keys_gradient():
+    """A row with no valid key: its dq is 0 and each value gets dO / Tk;
+    padded keys get no gradient through their scores."""
+    q, k, v, kpm = (torch.from_numpy(x) for x in
+                    attention_inputs(*CASES["row_without_keys"][:4], seed=4))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    g = torch.from_numpy(np.random.RandomState(5).randn(*q.shape)
+                         .astype(np.float32))
+    ka.flash_attention(q, k, v, kpm).backward(g)
+    assert torch.equal(q.grad[1], torch.zeros_like(q.grad[1]))
+    assert torch.equal(k.grad[1], torch.zeros_like(k.grad[1]))
+    np.testing.assert_allclose(
+        v.grad[1].numpy(),
+        np.broadcast_to(g[1].numpy().sum(0) / q.shape[1], v.grad[1].shape),
+        atol=1e-6, rtol=1e-5)
+    assert torch.equal(k.grad[0][kpm[0]], torch.zeros_like(k.grad[0][kpm[0]]))
 
 
 def test_wrapper_raises_off_cpu_without_cuda():
@@ -146,3 +173,42 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
         ka.flash_attention(q, k, v, kpm.float())
     with pytest.raises(ValueError, match="device"):
         ka.flash_attention(q, k, v, kpm.cpu())
+
+
+def _assert_grad_close(got, want, dtype, name):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4, msg=name)
+    else:
+        err = float((got.float() - want).abs().max())
+        assert err <= 3e-2 * float(want.abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_backward_kernel_matches_plain_on_card(cuda_device, case, dtype, d):
+    """dq, dk, dv of the kernels against autograd of the plain version, at
+    the two head widths of the training path (512-d / 4 heads and the aux
+    decoders' 64-d / 4 heads)."""
+    b, tq, tk, lengths, causal = CASES[case]
+    dt = getattr(torch, dtype)
+    arrays = attention_inputs(b, tq, tk, lengths, seed=6, h=4, d=d)
+    g = torch.from_numpy(np.random.RandomState(7).randn(b, tq, 4, d)
+                         .astype(np.float32)).to(cuda_device, dt)
+    grads = []
+    for fn, ref_dt in ((ka.flash_attention, dt),
+                       (ka.flash_attention_reference, torch.float32)):
+        q, k, v, kpm = _on_card(arrays, cuda_device, dt)
+        q, k, v = (x.to(ref_dt).requires_grad_() for x in (q, k, v))
+        fn(q, k, v, kpm, causal=causal).backward(g.to(ref_dt))
+        grads.append((q.grad, k.grad, v.grad))
+    before = ka.flash_attention.bwd_launches
+    q, k, v, kpm = _on_card(arrays, cuda_device, dt)
+    q.requires_grad_()
+    ka.flash_attention(q, k, v, kpm, causal=causal).backward(g)
+    torch.cuda.synchronize()
+    assert ka.flash_attention.bwd_launches == before + 1
+    for name, got, want in zip("qkv", *grads):
+        assert got.dtype == dt and torch.isfinite(got).all(), name
+        _assert_grad_close(got, want, dt, name)
