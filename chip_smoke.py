@@ -5,12 +5,14 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Phases, each of which fails the run (non-zero exit, no result line):
+Phases, each of which fails the run (non-zero exit, no result line). First
+every kernel source under s2st_tpu_torch/csrc is built for sm_90a, one nvcc
+a source, all started together.
 
-1. Build csrc/flash_attention.cu for sm_90a and hold the kernel against its
-   plain PyTorch version at the serving path's shapes, in fp32 and bf16,
-   with its time beside the plain version's, SDPA's (a yardstick only) and
-   the card's bound.
+1. Hold csrc/flash_attention.cu's kernel against its plain PyTorch
+   version at the serving path's shapes, in fp32 and bf16, with its time
+   beside the plain version's, SDPA's (a yardstick only) and the card's
+   bound.
 2. Serve: write a small corpus (4 utterances of 80-d fbank), its GCMVN
    stats and a seeded random checkpoint of the recipe's model at full width
    (12 + 6 layers, 512-d, 4 heads, 2048 FFN, 1024 conv channels, prenet 32,
@@ -43,6 +45,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    dropout off: the loss, every gradient and every updated parameter.
 8. Run one bf16 training update of 6(a) under torch.profiler and print its
    wall time, device kernel time, idle share and top kernels.
+9. Hold csrc/lightconv.cu and csrc/dynamicconv.cu against their plain
+   versions in fp32 and bf16 at the LightConv path's shapes (B=64, T=64,
+   C=512, H=4, K = 3, 7, 15, 31 with the encoder's padding K//2 and the
+   decoder's K-1) and edge cases (T < K, T = 1, an all-pad row, H = 1;
+   bf16 activations with fp32 dynamic weights), with device times (CUDA
+   graph replay, and torch.profiler's sum beside it) beside the plain
+   versions', PyTorch's depthwise conv1d (lightconv's yardstick only) and
+   the card's bound.
+10. Serve text: write a binarized de-en test split (128 pairs, sources of
+   8-64 tokens, dictionaries of 8848 and 6632 types) and seeded random
+   checkpoints of lightconv_iwslt_de_en at full width (7 + 6 layers,
+   512-d, kernels 3..31, 4 heads, FFN 1024), then run the port's text
+   generate CLI in bf16 (--batch-size 64 --beam 5 --max-len-a 1.2
+   --max-len-b 10 --remove-bpe): (a) lightweight and (b) dynamic convs,
+   where the used kernel launches exactly 7 times a batch and the other
+   never; (c) and (d) the same with --score-reference, 13 a batch. Each
+   run prints 128 H- lines and a finite BLEU line.
+11. Hold the card against the CPU on a small LightConv in fp32, both conv
+   types: teacher-forced logits and the beam's hypotheses.
+12. Run one batch of 10(a) (encode, beam loop) under torch.profiler and
+   print each one's wall time, device kernel time, idle share and top
+   kernels.
 
 Prints the card's name and power limit, one JSON line of kernel
 measurements, and, last, {"ok": true, "device": {...}}.
@@ -110,18 +134,50 @@ def _dev_us(e):
 def device_ms(fn, iters: int = 20) -> float:
     """Device time of one call: torch.profiler's sum over the device
     activities of ``iters`` calls, over ``iters``; host overhead (the
-    autograd engine's, for a backward) is left out."""
+    autograd engine's, for a backward) is left out. A trace with no device
+    activity (the profiler can drop a window's events) is taken again, up
+    to three times, and then fails the run."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(_dev_us(e) for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / iters
+    raise AssertionError("torch.profiler recorded no device time")
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time of one call: ``iters`` calls captured in one CUDA graph,
+    replayed ``replays`` times between two CUDA events, over iters x
+    replays. A replay does no host work, so this times the device alone,
+    and unlike the profiler's sum it cannot lose part of a trace."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    return sum(_dev_us(e) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) \
-        / 1e3 / iters
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def attention_inputs(b, tq, tk, lengths, dtype, seed, d=HEAD_DIM):
@@ -225,10 +281,12 @@ def check_case(ka, name, b, tq, tk, lengths, causal, dtype, card,
     return rec
 
 
-def kernel_phase(card: str, main_lengths) -> dict:
-    from s2st_tpu_torch.kernels import attention as ka
+def build_kernels() -> None:
+    """Build every kernel library of the port, one nvcc a source, all
+    started together, and print what ptxas reports of each."""
+    from s2st_tpu_torch.kernels import nvcc
     t0 = time.perf_counter()
-    libs = ka.build()
+    libs = nvcc.build()
     print(f"built {', '.join(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc a source, in "
           f"parallel)", flush=True)
@@ -237,6 +295,10 @@ def kernel_phase(card: str, main_lengths) -> dict:
         for line in ptxas.read_text().splitlines():
             if any(w in line for w in ("entry", "registers", "spill")):
                 print("ptxas: " + line.strip(), flush=True)
+
+
+def kernel_phase(card: str, main_lengths) -> dict:
+    from s2st_tpu_torch.kernels import attention as ka
     cases = []
     for t in (75, 150, 300):
         cases.append((f"encoder_self_T{t}", 4, t, t,
@@ -931,6 +993,382 @@ def train_profile_phase(card: str, data: Path) -> None:
               flush=True)
 
 
+# --------------------------------------------------------------------------
+# phases 9-12: LightConv / DynamicConv text serving
+# --------------------------------------------------------------------------
+
+CONV_B, CONV_C, CONV_H = 64, 512, 4
+CONV_MAIN_CASE = "encoder_K31"     # the encoder's widest kernel, bf16
+
+
+def conv_inputs(kind, b, t, c, h, k, dtype, seed, zero_row=False):
+    """x (B, T, C) in ``dtype``; the raw weights: (H, K) fp32 for lightconv
+    (the model's parameter), (B, T, H, K) logits in ``dtype`` for
+    dynamicconv (the model's weight_linear output)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, t, c), generator=g, device="cuda")
+    if zero_row:
+        x[-1] = 0.0
+    shape = (h, k) if kind == "lightconv" else (b, t, h, k)
+    w = torch.randn(shape, generator=g, device="cuda") * 2
+    return x.to(dtype), (w if kind == "lightconv" else w.to(dtype))
+
+
+def conv_bound_ms(x, w) -> tuple:
+    """x read once, y written once, the weights read once; 2 K operations
+    (a multiply and an add) an output element, fp32 on the CUDA cores."""
+    k = w.shape[-1]
+    nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 2.0 * k * x.numel() / PEAK_OPS_PER_S[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def depthwise_fn(x, w, pad, heads):
+    """PyTorch's depthwise conv1d (groups=C) computing lightconv on the
+    same inputs, the softmaxed weights prepared outside the call (a
+    yardstick only; the port never calls it)."""
+    b, t, c = x.shape
+    k = w.shape[-1]
+    wc = torch.softmax(w.float(), -1).repeat_interleave(c // heads, 0)
+    wc = wc[:, None, :].to(x.dtype).contiguous()
+    xt = x.transpose(1, 2)
+    if pad == k // 2 and k % 2 == 1:
+        return lambda: torch.nn.functional.conv1d(xt, wc, padding=pad,
+                                                  groups=c)
+    return lambda: torch.nn.functional.conv1d(xt, wc, padding=k - 1,
+                                              groups=c)[:, :, :t]
+
+
+def check_conv_case(kind, name, b, t, c, h, k, pad, zero_row, dtype, card,
+                    device_times=False):
+    from s2st_tpu_torch.kernels import conv as kc
+    fn, plain = getattr(kc, kind), getattr(kc, f"{kind}_reference")
+    x, w = conv_inputs(kind, b, t, c, h, k, dtype, seed=t * 100 + k,
+                       zero_row=zero_row)
+    out = fn(x, w, pad, h)
+    ref = plain(x, w, pad, h)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out.float()).all():
+        raise AssertionError(f"{kind} {name} {dtype}: non-finite output")
+    err = (out.float() - ref.float()).abs()
+    max_err = float(err.max())
+    if dtype == torch.float32:
+        atol, rtol = TOL_FP32
+        ok = bool((err <= atol + rtol * ref.float().abs()).all())
+        tol = f"atol {atol} + rtol {rtol}"
+    else:
+        ok = max_err <= TOL_BF16
+        tol = f"atol {TOL_BF16}"
+    if zero_row and out[-1].any():
+        ok = False
+    rec = {"kernel": kind, "case": name, "dtype": str(dtype).split(".")[-1],
+           "B": b, "T": t, "C": c, "H": h, "K": k, "padding_l": pad,
+           "max_abs_err": max_err, "tolerance": tol,
+           "kernel_ms": time_ms(lambda: fn(x, w, pad, h)),
+           "plain_ms": time_ms(lambda: plain(x, w, pad, h))}
+    lib = depthwise_fn(x, w, pad, h) if kind == "lightconv" else None
+    if lib is not None:
+        rec["library_ms"] = time_ms(lib)
+        lib_err = float((lib().transpose(1, 2).float()
+                         - ref.float()).abs().max())
+        rec["library_max_abs_err"] = lib_err
+    if device_times:    # CUDA-graph replay, and torch.profiler beside it
+        for key, call in (("kernel", lambda: fn(x, w, pad, h)),
+                          ("plain", lambda: plain(x, w, pad, h)),
+                          ("library", lib)):
+            rec[f"{key}_graph_ms"] = graph_ms(call) if call else None
+            rec[f"{key}_device_ms"] = device_ms(call) if call else None
+    rec["bound_ms"], rec["bound_by"] = conv_bound_ms(x, w)
+    rec["card"] = card
+    print("conv_case " + json.dumps(rec), flush=True)
+    if not ok:
+        raise AssertionError(f"{kind} {name} {dtype}: kernel disagrees with "
+                             f"the plain version, max abs err {max_err} "
+                             f"({tol})")
+    return rec
+
+
+def conv_kernel_phase(card: str) -> dict:
+    """Phase 9: both conv kernels against their plain versions at the
+    LightConv path's shapes and edge cases, fp32 and bf16; device times at
+    every encoder and decoder shape in bf16. Returns the main case's
+    record for each kernel."""
+    b, c, h = CONV_B, CONV_C, CONV_H
+    cases = [(f"encoder_K{k}", b, 64, c, h, k, k // 2, False)
+             for k in (3, 7, 15, 31)]
+    cases += [(f"decoder_K{k}", b, 64, c, h, k, k - 1, False)
+              for k in (3, 7, 15, 31)]
+    cases += [("T_below_K", b, 9, c, h, 31, 15, False),
+              ("T_1", b, 1, c, h, 31, 30, False),
+              ("all_pad_row", b, 64, c, h, 15, 7, True),
+              ("H_1", b, 64, c, 1, 7, 3, False)]
+    main = {}
+    for kind in ("lightconv", "dynamicconv"):
+        for dtype in (torch.float32, torch.bfloat16):
+            for case in cases:
+                timed = dtype == torch.bfloat16 and \
+                    case[0].startswith(("encoder", "decoder"))
+                rec = check_conv_case(kind, *case, dtype=dtype, card=card,
+                                      device_times=timed)
+                if timed and case[0] == CONV_MAIN_CASE:
+                    main[kind] = rec
+        x, w = conv_inputs(kind, b, 64, c, h, 31, torch.bfloat16, seed=7)
+        if kind == "dynamicconv":       # bf16 activations, fp32 weights
+            from s2st_tpu_torch.kernels import conv as kc
+            w = w.float()
+            err = float((kc.dynamicconv(x, w, 15, h).float()
+                         - kc.dynamicconv_reference(x, w, 15, h).float())
+                        .abs().max())
+            print(f"conv_case dynamicconv bf16 x, fp32 logits, K=31: max abs "
+                  f"err {err:.3e} (atol {TOL_BF16})", flush=True)
+            if not err <= TOL_BF16:
+                raise AssertionError("dynamicconv bf16/fp32 disagrees")
+    return main
+
+
+TEXT_SRC_TYPES, TEXT_TGT_TYPES = 8848, 6632   # IWSLT'14 de-en BPE dicts
+TEXT_PAIRS, TEXT_BATCH = 128, 64
+TEXT_GEN_FLAGS = ["--batch-size", str(TEXT_BATCH), "--beam", "5",
+                  "--max-len-a", "1.2", "--max-len-b", "10", "--remove-bpe",
+                  "--fp16"]
+
+
+def write_text_corpus(root: Path, seed: int) -> None:
+    """A binarized de-en test split written with the port's builder: 128
+    sentence pairs, source lengths of 8-64 tokens (EOS included), targets
+    0.8-1.2 times as long, over dictionaries of 8848 and 6632 types (a
+    quarter of them BPE pieces ending in "@@")."""
+    from s2st_tpu_torch.data.indexed_dataset import write_dataset
+    r = np.random.RandomState(seed)
+    root.mkdir(parents=True)
+    for lang, n in (("de", TEXT_SRC_TYPES), ("en", TEXT_TGT_TYPES)):
+        (root / f"dict.{lang}.txt").write_text("".join(
+            f"{lang}{i}{'@@' if i % 4 == 0 else ''} {n - i}\n"
+            for i in range(n - 4)))
+    src, tgt = [], []
+    for _ in range(TEXT_PAIRS):
+        ns = r.randint(8, 65)
+        nt = int(np.clip(round(ns * r.uniform(0.8, 1.2)), 2, 80))
+        src.append(np.append(r.randint(4, TEXT_SRC_TYPES, ns - 1), 2))
+        tgt.append(np.append(r.randint(4, TEXT_TGT_TYPES, nt - 1), 2))
+    write_dataset(str(root / "test.de-en.de"), src, TEXT_SRC_TYPES)
+    write_dataset(str(root / "test.de-en.en"), tgt, TEXT_TGT_TYPES)
+
+
+def text_model(conv_type: str, dtype=torch.float32, seed: int = 0):
+    """lightconv_iwslt_de_en at full width with seeded random weights, and
+    its flag echo (the model flags, as a checkpoint's __meta__ holds them)."""
+    from s2st_tpu_torch.models.lightconv_args import (arch_args,
+                                                      build_lightconv_config)
+    from s2st_tpu_torch.models.lightconv_model import LightConvModel
+    flags = [] if conv_type == "lightweight" else [
+        "--encoder-conv-type", "dynamic", "--decoder-conv-type", "dynamic"]
+    args = arch_args("lightconv_iwslt_de_en", flags)
+    echo = {k: v for k, v in vars(args).items() if k not in ("fp16", "bf16")}
+    args.fp16 = dtype == torch.bfloat16
+    cfg = build_lightconv_config(args, TEXT_SRC_TYPES, TEXT_TGT_TYPES)
+    return LightConvModel(cfg).init_weights(seed), echo
+
+
+def run_text_cli(data: Path, ckpt: Path, out: Path, score_reference: bool,
+                 card: str, label: str) -> dict:
+    """One run of the port's text generate CLI with both conv kernels'
+    counts set to 0 just before it; returns the counts, the batches and the
+    run's timing, after checking its lines."""
+    from s2st_tpu_torch.cli import generate
+    from s2st_tpu_torch.kernels import conv as kc
+    argv = [str(data), "--source-lang", "de", "--target-lang", "en",
+            "--gen-subset", "test", "--path", str(ckpt), *TEXT_GEN_FLAGS,
+            "--results-path", str(out), "--device", "cuda"]
+    if score_reference:
+        argv.append("--score-reference")
+    kc.lightconv.launches = kc.dynamicconv.launches = 0
+    t0 = time.perf_counter()
+    rc = generate.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"lightconv": kc.lightconv.launches,
+              "dynamicconv": kc.dynamicconv.launches}
+    if rc != 0:
+        raise AssertionError(f"text generate ({label}) returned {rc}")
+    lines = (out / "generate-test.txt").read_text().splitlines()
+    hyps = [ln for ln in lines if ln.startswith("H-")]
+    scores = [float(ln.split("\t")[1]) for ln in hyps]
+    bleu = float(lines[-1].rsplit("=", 1)[1])
+    if len(hyps) != TEXT_PAIRS or not np.isfinite(scores).all() or \
+            not lines[-1].startswith("Generate test with beam=5: BLEU4 = ") \
+            or not np.isfinite(bleu):
+        raise AssertionError(f"text generate ({label}): {len(hyps)} H- lines "
+                             f"(want {TEXT_PAIRS}), last line {lines[-1]!r}")
+    timing = json.loads((out / "timing.json").read_text())
+    rec = {"counts": counts, "batches": len(timing["batches"]),
+           "timing": timing, "wall_s": wall, "bleu": bleu}
+    for b in timing["batches"]:
+        if score_reference:
+            detail = f"forward_ms {b['forward_ms']:.3f}"
+        else:
+            detail = (f"encode_ms {b['encode_ms']:.3f}, beam_ms "
+                      f"{b['beam_ms']:.3f} over {b['decode_steps']} steps "
+                      f"({b['beam_ms'] / b['decode_steps']:.3f} ms/step)")
+        print(f"text ({label}) batch {b['batch']}: rows {b['rows']}, source "
+              f"tokens {b['src_tokens']}, {detail} ({card})", flush=True)
+    print(f"text ({label}): {len(hyps)} H- lines, {lines[-1]}; "
+          f"{timing['sentences_per_s']:.2f} sentences/s, "
+          f"{timing['target_tokens_per_s']:.1f} target tokens/s, wall "
+          f"{wall:.2f} s; launches lightconv {counts['lightconv']}, "
+          f"dynamicconv {counts['dynamicconv']} ({card})", flush=True)
+    return rec
+
+
+def text_serve_phase(work: Path, card: str) -> dict:
+    """Phase 10: lightconv_iwslt_de_en at full width in bf16 through the
+    port's text generate CLI: (a) lightweight, (b) dynamic, (c) and (d)
+    the same with --score-reference. Each kernel launches exactly 7 times
+    a batch in the beam runs (the encoder) and 13 under --score-reference
+    (encoder and teacher-forced decoder), the other kernel never."""
+    from s2st_tpu_torch.models.jax_bridge import write_jax_checkpoint
+    data = work / "text"
+    write_text_corpus(data, seed=11)
+    ckpts = {}
+    for conv_type in ("lightweight", "dynamic"):
+        model, echo = text_model(conv_type, seed=12)
+        ckpts[conv_type] = work / f"lightconv_{conv_type}.npz"
+        write_jax_checkpoint(str(ckpts[conv_type]), model,
+                             meta={"args": echo})
+    # a first run warms cuBLAS; the runs after it are the ones measured
+    run_text_cli(data, ckpts["lightweight"], work / "warmup", False, card,
+                 "warm-up")
+    runs = {}
+    for label, conv_type, score_ref, per_batch in (
+            ("a", "lightweight", False, 7), ("b", "dynamic", False, 7),
+            ("c", "lightweight", True, 13), ("d", "dynamic", True, 13)):
+        rec = run_text_cli(data, ckpts[conv_type], work / label, score_ref,
+                           card, f"{label}: {conv_type}"
+                           + (", --score-reference" if score_ref else ""))
+        used = "lightconv" if conv_type == "lightweight" else "dynamicconv"
+        other = "dynamicconv" if used == "lightconv" else "lightconv"
+        want = per_batch * rec["batches"]
+        if rec["counts"][used] != want or rec["counts"][other] != 0:
+            raise AssertionError(f"text ({label}): launches {rec['counts']} "
+                                 f"over {rec['batches']} batches; want "
+                                 f"{used} {want} and {other} 0")
+        runs[label] = rec
+    runs["data"], runs["ckpts"] = data, ckpts
+    return runs
+
+
+def text_agreement_phase(card: str) -> None:
+    """Phase 11: a small LightConv in fp32 on the card (kernels) and on the
+    CPU (plain versions), both conv types: teacher-forced logits within
+    1e-5 + 1e-5 |ref|, and the beam's hypotheses (identical tokens and
+    lengths, scores and per-position scores within 1e-5)."""
+    from s2st_tpu_torch.generate.sequence_generator import (BeamConfig,
+                                                            beam_search)
+    from s2st_tpu_torch.models.lightconv_model import (LightConvConfig,
+                                                       LightConvModel)
+    from s2st_tpu_torch.models.transformer_text import TransformerTextConfig
+    r = np.random.RandomState(13)
+    b, ts, tt, vocab = 4, 17, 15, 60
+    src = np.full((b, ts), 1, np.int64)
+    prev = np.full((b, tt), 1, np.int64)
+    for i, (sl, tl) in enumerate(((17, 15), (12, 9), (7, 11), (3, 2))):
+        src[i, ts - sl:] = np.append(r.randint(4, vocab, sl - 1), 2)
+        prev[i, 0] = 2
+        prev[i, 1:tl] = r.randint(4, vocab, tl - 1)
+    src_t, prev_t = torch.from_numpy(src), torch.from_numpy(prev)
+    for conv_type in ("lightweight", "dynamic"):
+        base = TransformerTextConfig(
+            src_vocab_size=vocab, tgt_vocab_size=vocab, encoder_layers=3,
+            encoder_embed_dim=64, encoder_ffn_embed_dim=128,
+            encoder_attention_heads=4, decoder_layers=2,
+            decoder_embed_dim=64, decoder_ffn_embed_dim=128,
+            decoder_attention_heads=4, max_source_positions=128,
+            max_target_positions=128)
+        cfg = LightConvConfig(base=base, conv_type=conv_type,
+                              encoder_kernel_sizes=(3, 7, 15),
+                              decoder_kernel_sizes=(3, 7),
+                              encoder_conv_dim=64, decoder_conv_dim=64)
+        cpu = LightConvModel(cfg).init_weights(14).eval()
+        dev = copy.deepcopy(cpu).to("cuda")
+        bs = BeamConfig(beam=4, max_len=20, max_len_a=1.0, max_len_b=3.0)
+        outs = []
+        with torch.inference_mode():
+            for model, device in ((cpu, torch.device("cpu")),
+                                  (dev, torch.device("cuda"))):
+                s, p = src_t.to(device), prev_t.to(device)
+                logits = model(s, p)
+                enc = model.encode(s)
+                step = model.make_beam_step(
+                    enc["encoder_out"].repeat_interleave(4, 0),
+                    enc["encoder_padding_mask"].repeat_interleave(4, 0))
+                beam = beam_search(step, model.init_beam_cache(b * 4, device),
+                                   b, vocab, bs, device,
+                                   src_lengths=(s != 1).sum(1))
+                outs.append((logits.cpu(), {k: v.cpu() if torch.is_tensor(v)
+                                            else v for k, v in beam.items()}))
+        (lc, bc), (lg, bg) = outs
+        err = float((lg - lc).abs().max())
+        ok = bool(((lg - lc).abs() <= 1e-5 + 1e-5 * lc.abs()).all())
+        same = torch.equal(bg["tokens"], bc["tokens"]) and \
+            torch.equal(bg["lengths"], bc["lengths"])
+        s_err = float((bg["scores"] - bc["scores"]).abs().max())
+        p_err = float((bg["pos_scores"] - bc["pos_scores"]).abs().max())
+        print(f"text agreement ({conv_type}): card vs CPU (fp32) logits max "
+              f"abs err {err:.3e} (tolerance 1e-5 + 1e-5 |ref|); beam tokens "
+              f"identical {same}, score err {s_err:.3e}, per-position err "
+              f"{p_err:.3e} (tolerance 1e-5) ({card})", flush=True)
+        if not (ok and same and s_err <= 1e-5 and p_err <= 1e-5):
+            raise AssertionError(f"text agreement ({conv_type}): card and CPU "
+                                 f"disagree")
+
+
+def text_profile_phase(card: str, runs: dict) -> None:
+    """Phase 12: one batch of 10(a) (lightweight, bf16, the first and
+    longest batch) under torch.profiler, after a warm-up pass: encode and
+    the beam loop, each with its wall time, device kernel time, idle share
+    and top kernels."""
+    from s2st_tpu_torch.cli import generate
+    from s2st_tpu_torch.generate.sequence_generator import beam_search
+    from s2st_tpu_torch.models.lightconv_model import cast_for_inference
+    from s2st_tpu_torch.tasks.translation import TranslationTask
+    args = generate.get_parser().parse_args(
+        [str(runs["data"]), "--source-lang", "de", "--target-lang", "en",
+         "--path", "unused", *TEXT_GEN_FLAGS])
+    task = TranslationTask.setup_task(args)
+    ds = task.load_dataset("test")
+    batch = ds.collate(ds.batches(args.max_tokens, TEXT_BATCH, 8)[0])
+    model, _ = text_model("lightweight", torch.bfloat16, seed=12)
+    model = cast_for_inference(model.to("cuda").eval(), torch.bfloat16)
+    bs = generate.beam_config(args, model.cfg)
+    src = batch["src_tokens"].cuda()
+    n = src.shape[0]
+
+    def beam(enc):
+        step = model.make_beam_step(
+            enc["encoder_out"].repeat_interleave(5, 0),
+            enc["encoder_padding_mask"].repeat_interleave(5, 0))
+        return beam_search(step, model.init_beam_cache(n * 5, "cuda"), n,
+                           TEXT_TGT_TYPES, bs, torch.device("cuda"),
+                           src_lengths=(src != 1).sum(1))
+
+    with torch.inference_mode():
+        for _ in range(2):      # the second pass is the one reported
+            enc, *rec_enc = _profiled(lambda: model.encode(src))
+            out, *rec_beam = _profiled(lambda: beam(enc))
+    for name, (wall, busy, launches, top) in (("text_encode", rec_enc),
+                                              ("text_beam", rec_beam)):
+        extra = f", {out['steps']} steps" if name == "text_beam" else ""
+        print(f"profile {name}: rows {n}, wall_ms {wall:.3f}, "
+              f"device_kernel_ms {busy:.3f} in {launches} device activities"
+              f"{extra}, idle share {1 - busy / wall:.3f} ({card})",
+              flush=True)
+        for key, ms, count in top:
+            print(f"profile {name}:   {ms:9.3f} ms  {count:6d}x  {key}",
+                  flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -948,6 +1386,7 @@ def main() -> int:
 
     main_lengths = [subsampled_length(recipe_config(), n)
                     for n in UTT_FRAMES]
+    build_kernels()
     serving = kernel_phase(card, main_lengths)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -965,6 +1404,14 @@ def main() -> int:
         train_profile_phase(card, trained["data"])
     finally:
         shutil.rmtree(trained["work"], ignore_errors=True)
+    conv = conv_kernel_phase(card)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_text_"))
+    try:
+        text = text_serve_phase(work, card)
+        text_agreement_phase(card)
+        text_profile_phase(card, text)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     a = trained["a"]
     kernels = [{
@@ -995,6 +1442,25 @@ def main() -> int:
         "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_bwd_device_ms"],
     }]
+    for kind, beam_run, score_run, line in (("lightconv", "a", "c", 81),
+                                            ("dynamicconv", "b", "d", 162)):
+        rec = conv[kind]
+        kernels.append({
+            "name": kind,
+            "route": "cuda",
+            "source": f"s2st_tpu_torch/csrc/{kind}.cu",
+            "replaces": f"s2st_tpu/ops/conv_kernels.py:{line}",
+            "launches": text[beam_run]["counts"][kind],
+            "launches_by_path": {
+                "beam": text[beam_run]["counts"][kind],
+                "score_reference": text[score_run]["counts"][kind]},
+            "max_abs_err": rec["max_abs_err"],
+            "ms": rec["kernel_graph_ms"],
+            "plain_ms": rec["plain_graph_ms"],
+            "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"],
+            "library_ms": rec["library_graph_ms"],
+        })
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"gpu: {card}", flush=True)

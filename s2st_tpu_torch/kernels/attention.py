@@ -19,31 +19,16 @@ run in fp32 and the outputs have the input type.
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
+from . import nvcc
+
 NEG_INF = -1e9
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = {"fwd": _CSRC / "flash_attention.cu",
-            "bwd": _CSRC / "flash_attention_bwd.cu"}
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
-_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_ARGTYPES = {
-    "fwd": ("s2st_flash_attention_fwd",
-            [_P] * 7 + [_LL] * 13 + [_I] * 7 + [_P]),
-    "bwd": ("s2st_flash_attention_bwd",
-            [_P] * 9 + [_LL] + [_P] * 4 + [_I] * 7 + [_P]),
-}
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -64,69 +49,6 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                                     NEG_INF)
     weights = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype), v)
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the attention kernels")
-
-
-def _lib_path(name: str) -> Path:
-    tag = hashlib.sha256(_SOURCES[name].read_bytes()).hexdigest()[:12]
-    return _BUILD_DIR / f"lib{_SOURCES[name].stem}_{tag}.so"
-
-
-def _compile(names) -> None:
-    """Build the named kernel libraries that are not built yet, one nvcc a
-    source, all started together."""
-    jobs = []
-    for name in names:
-        lib_path = _lib_path(name)
-        if lib_path.is_file():
-            continue
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(_SOURCES[name])]
-        jobs.append((lib_path, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    failed = []
-    for lib_path, tmp, proc in jobs:
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}) for "
-                          f"{lib_path.name}:\n{log}")
-            continue
-        (_BUILD_DIR / f"{lib_path.stem}.ptxas.txt").write_text(log.strip())
-        os.replace(tmp, lib_path)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-
-
-@functools.lru_cache(maxsize=None)
-def _library(name: str) -> ctypes.CDLL:
-    """Build (once per source version) and load one kernel library."""
-    _compile([name])
-    lib = ctypes.CDLL(str(_lib_path(name)))
-    symbol, argtypes = _ARGTYPES[name]
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return lib
-
-
-def build() -> Dict[str, Path]:
-    """Build both kernel libraries in parallel and load them; returns
-    {"fwd": path, "bwd": path}."""
-    _compile(list(_SOURCES))
-    return {name: Path(_library(name)._name) for name in _SOURCES}
 
 
 def _check(q, k, v, key_padding_mask):
@@ -183,10 +105,10 @@ def flash_attention_forward(q, k, v, kpm=None, causal: bool = False,
         return out, row_max, row_logsum
     if tk == 0:
         raise ValueError("attention over zero keys")
-    lib = _library("fwd")
+    launch = nvcc.function("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.s2st_flash_attention_fwd(
+        err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             kpm.data_ptr() if kpm is not None else None,
             row_max.data_ptr() if stats else None,
@@ -229,10 +151,10 @@ def flash_attention_backward(q, k, v, out, row_max, row_logsum, grad_out,
     strides = (ctypes.c_longlong * 24)(
         *_strides(q, k, v, out, grad_out, dq, dk, dv))
     kpm = key_padding_mask
-    lib = _library("bwd")
+    launch = nvcc.function("flash_attention_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.s2st_flash_attention_bwd(
+        err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             grad_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             kpm.data_ptr() if kpm is not None else None,

@@ -9,6 +9,26 @@ export map ``s2st_tpu/models/torch_import.py::to_fairseq_state_dict``
 (:566-673): one table, built from the port model's modules, maps each
 ``state_dict`` entry to its JAX leaf and serves both directions.
 
+The LightConv family (``models/lightconv_model.py``, fairseq's
+``LightConv*Layer`` names; the JAX package has no fairseq importer for it)
+maps as:
+
+  encoder.embed_tokens.weight          params::encoder::embed::w
+  {enc,dec}.layers.i.linear1/linear2/fc1/fc2   ::layeri::<same>::{w (T), b}
+  {enc,dec}.layers.i.conv.weight (H,1,K)       ::layeri::conv_weight (H,K)
+  {enc,dec}.layers.i.conv.weight_linear.weight ::layeri::weight_linear::w (T)
+  encoder.layers.i.layer_norms.0 / .1          ::layeri::conv_ln / final_ln
+  decoder.layers.i.conv_layer_norm             ::layeri::conv_ln
+  decoder.layers.i.encoder_attn.{q,k,v,out}_proj  ::layeri::cross_attn::{q,k,v,out}
+  decoder.layers.i.encoder_attn_layer_norm     ::layeri::cross_attn_ln
+  decoder.layers.i.final_layer_norm            ::layeri::final_ln
+  {encoder,decoder}.layer_norm                 ::final_ln
+  decoder.embed_tokens.weight                  params::decoder::embed::w
+  decoder.embed_out (V, D)                     params::decoder::out_proj::w (D, V)
+
+with (T) a transposed (out, in) weight and layer norms' weight/bias as
+scale/bias.
+
 - ``state_dict_from_jax`` / ``load_jax_variables``: JAX tree (numpy) ->
   port ``state_dict``, loaded with ``strict=True``.
 - ``read_jax_checkpoint``: ``.npz`` -> (tree, meta).
@@ -30,6 +50,13 @@ SEP = "::"
 
 # torch module name -> JAX module path, first match wins
 _MODULE_RULES = [
+    # LightConv (fairseq LightConvEncoderLayer / LightConvDecoderLayer)
+    (r"^(encoder|decoder)\.layers\.(\d+)\.layer_norms\.0$", r"\1::layer\2::conv_ln"),
+    (r"^(encoder|decoder)\.layers\.(\d+)\.layer_norms\.1$", r"\1::layer\2::final_ln"),
+    (r"^(encoder|decoder)\.layers\.(\d+)\.conv\.weight_linear$",
+     r"\1::layer\2::weight_linear"),
+    (r"^(encoder|decoder)\.layers\.(\d+)\.conv$", r"\1::layer\2"),
+    (r"^(encoder|decoder)\.layers\.(\d+)(\.|$)", r"\1::layer\2\3"),
     (r"^encoder\.subsample\.conv_layers\.(\d+)$", r"encoder::subsample::conv\1"),
     (r"^(encoder|decoder)\.transformer_layers\.(\d+)(\.|$)", r"\1::layer\2\3"),
     (r"^(aux_asr_decoder|aux_st_decoder)\.layers\.(\d+)(\.|$)", r"\1::layer\2\3"),
@@ -43,6 +70,7 @@ _MODULE_RULES = [
 ]
 _LAYER_PARTS = {
     "self_attn_layer_norm": "self_attn_ln",
+    "conv_layer_norm": "conv_ln",
     "encoder_attn_layer_norm": "cross_attn_ln",
     "encoder_attn": "cross_attn",
     "final_layer_norm": "final_ln",
@@ -64,7 +92,9 @@ def _jax_module_path(name: str) -> str:
 def jax_layout(model: nn.Module) -> List[Tuple[str, str, str]]:
     """(state_dict name, JAX flat key, kind) for every entry of the
     model's ``state_dict``. kind: "linear" (weight transposed), "conv"
-    ((out, in, K) <-> (K, in, out)), "count" (int32 in JAX) or "same"."""
+    ((out, in, K) <-> (K, in, out)), "heads_k" ((H, 1, K) <-> (H, K)),
+    "count" (int32 in JAX) or "same". A module may name its own entries'
+    leaves in a ``jax_names`` table {entry: (leaf path, kind)}."""
     table = []
     for mod_name, mod in model.named_modules():
         entries = list(mod.named_parameters(recurse=False)) + [
@@ -76,6 +106,11 @@ def jax_layout(model: nn.Module) -> List[Tuple[str, str, str]]:
         for pname, _ in entries:
             full = f"{mod_name}.{pname}" if mod_name else pname
             kind = "same"
+            own = getattr(mod, "jax_names", {})
+            if pname in own:
+                leaf, kind = own[pname]
+                table.append((full, SEP.join(["params", path, leaf]), kind))
+                continue
             if isinstance(mod, nn.Linear):
                 leaf = {"weight": "w", "bias": "b"}[pname]
                 kind = "linear" if pname == "weight" else "same"
@@ -108,6 +143,8 @@ def _to_torch(arr: np.ndarray, kind: str) -> torch.Tensor:
         arr = arr.T
     elif kind == "conv":
         arr = np.transpose(arr, (2, 1, 0))
+    elif kind == "heads_k":
+        arr = arr[:, None, :]
     return torch.from_numpy(np.array(arr, order="C"))
 
 
@@ -118,6 +155,8 @@ def _to_jax(t: torch.Tensor, kind: str) -> np.ndarray:
         arr = arr.T
     elif kind == "conv":
         arr = np.transpose(arr, (2, 1, 0))
+    elif kind == "heads_k":
+        arr = arr[:, 0, :]
     elif kind == "count":
         arr = arr.astype(np.int32)
     return np.array(arr, order="C")

@@ -51,3 +51,49 @@ def t(x, dtype=None):
     """numpy -> torch (CPU)."""
     out = torch.from_numpy(np.array(x, order="C"))
     return out if dtype is None else out.to(dtype)
+
+
+# The small LightConv of tests/test_lightconv_model.py: 2 + 2 layers, kernels
+# (3, 5), vocabulary 30.
+LIGHTCONV_SMALL = dict(vocab=30, dim=16, ffn=32, heads=2, kernels=(3, 5))
+
+
+def lightconv_cfgs(conv_type="lightweight", glu=True, normalize_before=False,
+                   tied=False, small=LIGHTCONV_SMALL):
+    """(JAX LightConvConfig, port LightConvConfig) with the same fields,
+    fp32, dropout off."""
+    import jax.numpy as jnp
+    from s2st_tpu.models import lightconv_model as jlc
+    from s2st_tpu.models import transformer_text as jtt
+    from s2st_tpu_torch.models import lightconv_model as plc
+    from s2st_tpu_torch.models.transformer_text import TransformerTextConfig
+    s = small
+    base = dict(src_vocab_size=s["vocab"], tgt_vocab_size=s["vocab"],
+                encoder_layers=len(s["kernels"]),
+                encoder_embed_dim=s["dim"], encoder_ffn_embed_dim=s["ffn"],
+                encoder_attention_heads=s["heads"],
+                encoder_normalize_before=normalize_before,
+                decoder_layers=len(s["kernels"]),
+                decoder_embed_dim=s["dim"], decoder_ffn_embed_dim=s["ffn"],
+                decoder_attention_heads=s["heads"],
+                decoder_normalize_before=normalize_before,
+                dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
+                share_decoder_input_output_embed=tied,
+                max_source_positions=256, max_target_positions=256)
+    rest = dict(conv_type=conv_type, encoder_kernel_sizes=s["kernels"],
+                decoder_kernel_sizes=s["kernels"], encoder_conv_dim=s["dim"],
+                decoder_conv_dim=s["dim"], encoder_glu=glu, decoder_glu=glu,
+                weight_dropout=0.0, input_dropout=0.0, relu_dropout=0.0)
+    jcfg = jlc.LightConvConfig(
+        base=jtt.TransformerTextConfig(dtype=jnp.float32, **base), **rest)
+    pcfg = plc.LightConvConfig(
+        base=TransformerTextConfig(dtype=torch.float32, **base), **rest)
+    return jcfg, pcfg
+
+
+def lightconv_port_model(pcfg, variables):
+    """Port LightConv on the CPU holding the JAX variables (strict load)."""
+    from s2st_tpu_torch.models.lightconv_model import LightConvModel
+    model = LightConvModel(pcfg)
+    load_jax_variables(model, numpy_tree(variables))
+    return model.eval()

@@ -2,8 +2,8 @@
 
 - Importing every module of s2st_tpu_torch (and chip_smoke.py) in a fresh
   interpreter loads neither jax nor any module of s2st_tpu.
-- Without a CUDA card the serving and training CLIs raise unless
-  ``--device cpu`` is given, and chip_smoke.py exits non-zero with no
+- Without a CUDA card the serving, training and text generation CLIs raise
+  unless ``--device cpu`` is given, and chip_smoke.py exits non-zero with no
   result line, as it does from a directory that holds nothing else of the
   repository.
 - The tests' shared helper keeps the JAX CLIs' compilation cache inside
@@ -51,7 +51,11 @@ def test_port_imports_neither_jax_nor_s2st_tpu():
     n, bad = res.stdout.strip().split(" ", 1)
     assert int(n) >= 21
     for name in ("train.losses", "train.optim", "train.trainer",
-                 "data.dictionary", "data.s2st_dataset", "cli.train"):
+                 "data.dictionary", "data.s2st_dataset", "cli.train",
+                 "kernels.nvcc", "kernels.conv", "data.indexed_dataset",
+                 "data.language_pair_dataset", "tasks.translation",
+                 "models.lightconv_model", "models.lightconv_args",
+                 "generate.sequence_generator", "scoring", "cli.generate"):
         assert f"s2st_tpu_torch.{name}" in _walk_names(), name
     assert bad == "[]", bad
 
@@ -99,6 +103,27 @@ def test_train_cli_raises_without_cuda(tmp_path):
     from s2st_tpu_torch.cli import train
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main([str(tmp_path)])
+
+
+def test_text_generate_cli_raises_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from s2st_tpu_torch.cli import generate
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate.main([str(tmp_path), "--path", "x.npz"])
+
+
+@pytest.mark.parametrize("flags", [["--sampling"],
+                                   ["--diverse-beam-groups", "2"],
+                                   ["--diversity-rate", "0.5"],
+                                   ["--prefix-size", "1"],
+                                   ["--constraints", "ordered"],
+                                   ["--path", "a.npz:b.npz"]])
+def test_text_generate_cli_refuses_later_slices_flags(tmp_path, flags):
+    from s2st_tpu_torch.cli import generate
+    with pytest.raises(NotImplementedError, match="not ported"):
+        generate.main([str(tmp_path), "--path", "x.npz", "--device", "cpu",
+                       *flags])
 
 
 def test_train_cli_refuses_later_slices_flags(tmp_path):
