@@ -7,12 +7,17 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, each of which fails the run (non-zero exit, no result line). First
 every kernel source under s2st_tpu_torch/csrc is built for sm_90a, one nvcc
-a source, all started together.
+a source, all started together; the build prints ptxas's report
+(registers, spills) and the count of tensor-core instructions in each
+library's SASS, and the attention libraries must hold some.
 
 1. Hold csrc/flash_attention.cu's kernel against its plain PyTorch
-   version at the serving path's shapes, in fp32 and bf16, with its time
-   beside the plain version's, SDPA's (a yardstick only) and the card's
-   bound.
+   version at the serving path's shapes, in fp32 (scalar kernel) and bf16
+   (tensor-core kernel), with its device time by CUDA-graph replay beside
+   the plain version's, SDPA's (a yardstick only) and the card's bound;
+   at the serving shape also torch.profiler's sums beside them. In bf16
+   also at the encoder shapes of the training batch (B=8) and of batches
+   of the recipe's size (B=60 to train, B=100 to serve, T'=250).
 2. Serve: write a small corpus (4 utterances of 80-d fbank), its GCMVN
    stats and a seeded random checkpoint of the recipe's model at full width
    (12 + 6 layers, 512-d, 4 heads, 2048 FFN, 1024 conv channels, prenet 32,
@@ -29,8 +34,9 @@ a source, all started together.
    plain version's autograd at the training path's shapes (encoder
    self-attention at D=128, causal decoder self-attention, cross-attention,
    the aux decoders' D=16 self- and cross-attention, a row of length 0),
-   in fp32 and bf16, with its time beside the plain backward's, SDPA's
-   backward (a yardstick only) and the card's bound.
+   in fp32 and bf16, with its device time by graph replay beside the plain
+   backward's, SDPA's backward (a yardstick only) and the card's bound;
+   in bf16 also at a training batch of the recipe's size (B=60, T'=250).
 6. Train: write a corpus of 8 utterances (400-1000 80-d fbank frames,
    log-mel targets, phone and word lines, their dictionaries, GCMVN and
    SpecAugment in config.yaml) and run the port's train CLI in bf16 with
@@ -44,7 +50,8 @@ a source, all started together.
 7. Hold the card against the CPU on one fp32 update of a small model with
    dropout off: the loss, every gradient and every updated parameter.
 8. Run one bf16 training update of 6(a) under torch.profiler and print its
-   wall time, device kernel time, idle share and top kernels.
+   wall time, device kernel time, idle share, top kernels and the
+   attention kernels' share of the device time.
 9. Hold csrc/lightconv.cu and csrc/dynamicconv.cu against their plain
    versions in fp32 and bf16 at the LightConv path's shapes (B=64, T=64,
    C=512, H=4, K = 3, 7, 15, 31 with the encoder's padding K//2 and the
@@ -76,6 +83,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -153,19 +161,20 @@ def device_ms(fn, iters: int = 20) -> float:
     raise AssertionError("torch.profiler recorded no device time")
 
 
-def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+def graph_ms(fn, iters: int = 20, replays: int = 5, stream=None) -> float:
     """Device time of one call: ``iters`` calls captured in one CUDA graph,
     replayed ``replays`` times between two CUDA events, over iters x
     replays. A replay does no host work, so this times the device alone,
-    and unlike the profiler's sum it cannot lose part of a trace."""
-    side = torch.cuda.Stream()
+    and unlike the profiler's sum it cannot lose part of a trace. Warm-up
+    and capture run on ``stream`` (a new side stream by default)."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):       # warm up off the default stream
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -178,6 +187,21 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (iters * replays)
+
+
+def grad_graph_ms(forward, leaves, g) -> float:
+    """Device time of one autograd backward of ``forward(*leaves)`` with
+    output gradient g, by graph replay. The forward runs once, outside the
+    graph, on the stream that then captures the backward: autograd runs
+    each backward op on its forward op's stream, so all of them are
+    captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = forward(*leaves)
+    return graph_ms(lambda: torch.autograd.grad(out, leaves, g,
+                                                retain_graph=True),
+                    stream=side)
 
 
 def attention_inputs(b, tq, tk, lengths, dtype, seed, d=HEAD_DIM):
@@ -258,20 +282,17 @@ def check_case(ka, name, b, tq, tk, lengths, causal, dtype, card,
     rec = {
         "case": name, "dtype": str(dtype).split(".")[-1],
         "B": b, "Tq": tq, "Tk": tk, "H": HEADS, "D": HEAD_DIM,
-        "causal": causal, "max_abs_err": max_err, "tolerance": tol,
-        "kernel_ms": time_ms(lambda: ka.flash_attention(q, k, v, kpm,
-                                                        causal)),
-        "plain_ms": time_ms(lambda: ka.flash_attention_reference(
-            q, k, v, kpm, causal)),
-        "library_ms": time_ms(sdpa_fn(q, k, v, kpm, causal)),
-    }
-    if device_times:    # without the host time of the plain version's and
-        # SDPA's launches, which CUDA events include
-        rec["kernel_device_ms"] = device_ms(lambda: ka.flash_attention(
-            q, k, v, kpm, causal))
-        rec["plain_device_ms"] = device_ms(
-            lambda: ka.flash_attention_reference(q, k, v, kpm, causal))
-        rec["library_device_ms"] = device_ms(sdpa_fn(q, k, v, kpm, causal))
+        "causal": causal, "max_abs_err": max_err, "tolerance": tol}
+    # device times by CUDA-graph replay; with device_times also
+    # torch.profiler's sum beside each
+    for key, call in (("kernel", lambda: ka.flash_attention(q, k, v, kpm,
+                                                            causal)),
+                      ("plain", lambda: ka.flash_attention_reference(
+                          q, k, v, kpm, causal)),
+                      ("library", sdpa_fn(q, k, v, kpm, causal))):
+        rec[f"{key}_graph_ms"] = graph_ms(call)
+        if device_times:
+            rec[f"{key}_device_ms"] = device_ms(call)
     rec["bound_ms"], rec["bound_by"] = attention_bound_ms(q, k, kpm, causal)
     rec["card"] = card
     print("kernel_case " + json.dumps(rec), flush=True)
@@ -281,23 +302,54 @@ def check_case(ka, name, b, tq, tk, lengths, causal, dtype, card,
     return rec
 
 
-def build_kernels() -> None:
+def build_kernels() -> dict:
     """Build every kernel library of the port, one nvcc a source, all
-    started together, and print what ptxas reports of each."""
+    started together; print what ptxas reports of each and
+    how many tensor-core instructions (HMMA) cuobjdump finds in its SASS.
+    Returns {library: HMMA count, or None without cuobjdump}."""
     from s2st_tpu_torch.kernels import nvcc
     t0 = time.perf_counter()
     libs = nvcc.build()
     print(f"built {', '.join(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc a source, in "
           f"parallel)", flush=True)
-    for lib in libs.values():
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    hmma_counts = {}
+    for name, lib in libs.items():
         ptxas = lib.with_name(lib.stem + ".ptxas.txt")
         for line in ptxas.read_text().splitlines():
             if any(w in line for w in ("entry", "registers", "spill")):
                 print("ptxas: " + line.strip(), flush=True)
+        if not Path(cuobjdump).is_file():
+            print(f"sass: {lib.name}: cuobjdump not found", flush=True)
+            hmma_counts[name] = None
+            continue
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        hmma = [w for w in sass.split() if w.startswith("HMMA")]
+        print(f"sass: {lib.name}: {len(hmma)} HMMA instructions "
+              f"({', '.join(sorted(set(hmma))) or 'none'})", flush=True)
+        hmma_counts[name] = len(hmma)
+    return hmma_counts
 
 
-def kernel_phase(card: str, main_lengths) -> dict:
+# batches of the recipe's size (recipes/run_baseline.sh: --max-tokens 60000
+# to train, :31, and 100000 to serve, :167) over utterances of about 1000
+# fbank frames, the longest of the smoke's: 60 and 100 utterances
+RECIPE_BATCHES = {"recipe_train_B60": 60, "recipe_serve_B100": 100}
+
+
+def recipe_lengths(batch: int) -> list:
+    """Encoder lengths (T') of a length-bucketed batch of the recipe's
+    size: ``batch`` utterances of 1000 down to 900 fbank frames."""
+    from s2st_tpu_torch.models.s2st_transformer import subsampled_length
+    return [subsampled_length(recipe_config(), 1000 - (100 * i) // batch)
+            for i in range(batch)]
+
+
+def kernel_phase(card: str, main_lengths, train_lengths) -> dict:
+    """Phase 1; returns the bf16 records of the main shapes by case."""
     from s2st_tpu_torch.kernels import attention as ka
     cases = []
     for t in (75, 150, 300):
@@ -312,11 +364,18 @@ def kernel_phase(card: str, main_lengths) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for case in cases:
             check_case(ka, *case, dtype=dtype, card=card)
-    # the serving path's own encoder self-attention shape, in bf16
-    t = main_lengths[0]
-    return check_case(ka, "serving_encoder_self", len(main_lengths), t, t,
-                      main_lengths, False, torch.bfloat16, card,
-                      device_times=True)
+    # in bf16 the main path's encoder self-attention shapes: the served
+    # batch, the training batch, and batches of the recipe's size
+    main = {}
+    for name, lengths in (("serving_encoder_self", main_lengths),
+                          ("train_encoder_self", train_lengths),
+                          *((n, recipe_lengths(b))
+                            for n, b in RECIPE_BATCHES.items())):
+        t = lengths[0]
+        main[name] = check_case(ka, name, len(lengths), t, t, lengths, False,
+                                torch.bfloat16, card,
+                                device_times=name == "serving_encoder_self")
+    return main
 
 
 RECIPE_ARGS = {
@@ -499,8 +558,9 @@ def agreement_phase(card: str) -> None:
 
 
 def _profiled(fn):
-    """(result, wall ms, device kernel ms, device activities, top ones) of
-    one call under torch.profiler; the device idles for wall - kernel ms."""
+    """(result, wall ms, device kernel ms, device activities, every device
+    activity as (name, ms, count), largest first) of one call under
+    torch.profiler; the device idles for wall - kernel ms."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -513,8 +573,8 @@ def _profiled(fn):
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(_dev_us(e) for e in kern) / 1e3
     launches = sum(e.count for e in kern)
-    top = sorted(kern, key=_dev_us, reverse=True)[:6]
-    return out, wall, busy, launches, [(e.key[:60], _dev_us(e) / 1e3,
+    top = sorted(kern, key=_dev_us, reverse=True)
+    return out, wall, busy, launches, [(e.key, _dev_us(e) / 1e3,
                                         e.count) for e in top]
 
 
@@ -554,8 +614,8 @@ def profile_phase(card: str) -> None:
         print(f"profile {name}: wall_ms {wall:.3f}, device_kernel_ms "
               f"{busy:.3f} in {launches} device activities, idle share "
               f"{1 - busy / wall:.3f} ({card})", flush=True)
-        for key, ms, count in top:
-            print(f"profile {name}:   {ms:9.3f} ms  {count:6d}x  {key}",
+        for key, ms, count in top[:6]:
+            print(f"profile {name}:   {ms:9.3f} ms  {count:6d}x  {key[:60]}",
                   flush=True)
 
 
@@ -575,9 +635,9 @@ def check_bwd_case(ka, name, b, tq, tk, lengths, causal, d, dtype, card,
     """The backward kernel against the plain version's autograd (run in
     fp32 on the same inputs and dO) at one shape; its time beside the
     plain backward's (in the working type), SDPA's backward and the
-    bound. CUDA-event times (host-bound for the two autograd backwards)
-    and forward + backward times are printed for each of the three; with
-    ``device_times`` also the three backwards' device times."""
+    bound: device times by graph replay, forward + backward times by CUDA
+    events (host included), and with ``device_times`` torch.profiler's
+    sums of the three backwards beside the graph times."""
     q, k, v, kpm = attention_inputs(b, tq, tk, lengths, dtype,
                                     seed=tq + tk + d, d=d)
     g = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(d),
@@ -612,11 +672,17 @@ def check_bwd_case(ka, name, b, tq, tk, lengths, causal, d, dtype, card,
         "case": name, "dtype": str(dtype).split(".")[-1], "B": b, "Tq": tq,
         "Tk": tk, "H": HEADS, "D": d, "causal": causal,
         "max_abs_err": max_err, "tolerance": tol,
-        "bwd_ms": time_ms(lambda: ka.flash_attention_backward(
-            q, k, v, out, row_max, row_logsum, g, kpm, causal), iters=20),
-        "plain_bwd_ms": time_ms(grad_fn(plain_out, plain_leaves, g),
-                                iters=20),
-        "library_bwd_ms": time_ms(grad_fn(lib_out, lib_leaves, g), iters=20),
+        # device times of the three backwards by CUDA-graph replay: the
+        # kernel's direct call, and autograd of the plain version and SDPA
+        "bwd_graph_ms": graph_ms(lambda: ka.flash_attention_backward(
+            q, k, v, out, row_max, row_logsum, g, kpm, causal)),
+        "plain_bwd_graph_ms": grad_graph_ms(
+            lambda *x: ka.flash_attention_reference(*x, kpm, causal),
+            [x.detach().requires_grad_() for x in (q, k, v)], g),
+        "library_bwd_graph_ms": grad_graph_ms(
+            lambda *x: sdpa_fn(*x, kpm, causal)().transpose(1, 2),
+            [x.detach().requires_grad_() for x in (q, k, v)], g),
+        # forward + backward through autograd, CUDA events (host included)
         "fwd_bwd_ms": time_ms(lambda: ka.flash_attention(
             *kern_leaves, kpm, causal).backward(g), iters=20),
         "plain_fwd_bwd_ms": time_ms(lambda: ka.flash_attention_reference(
@@ -624,7 +690,7 @@ def check_bwd_case(ka, name, b, tq, tk, lengths, causal, d, dtype, card,
         "library_fwd_bwd_ms": time_ms(lambda: lib_call().backward(g),
                                       iters=20),
     }
-    if device_times:
+    if device_times:    # torch.profiler's sums beside the graph times
         rec["bwd_device_ms"] = device_ms(lambda: ka.flash_attention_backward(
             q, k, v, out, row_max, row_logsum, g, kpm, causal))
         rec["plain_bwd_device_ms"] = device_ms(
@@ -646,7 +712,9 @@ N_PHONES, N_WORDS = 60, 200
 
 
 def backward_phase(card: str, train_lengths) -> dict:
-    """Phase 5 at the training batch's shapes (B=8, 4 heads)."""
+    """Phase 5 at the training batch's shapes (B=8, 4 heads) and, in bf16,
+    at a training batch of the recipe's size; returns the bf16 records of
+    the encoder self-attention shapes by case."""
     from s2st_tpu_torch.kernels import attention as ka
     t = train_lengths[0]
     cases = [
@@ -664,14 +732,19 @@ def backward_phase(card: str, train_lengths) -> dict:
         ("row_without_keys_causal_T40_D16", 8, 40, 40,
          [40, 0, 35, 31, 28, 25, 22, 17], True, 16),
     ]
-    main = None
+    main = {}
     for dtype in (torch.float32, torch.bfloat16):
         for case in cases:
             is_main = case[0] == "train_encoder_self" \
                 and dtype == torch.bfloat16
             rec = check_bwd_case(ka, *case, dtype=dtype, card=card,
                                  device_times=is_main)
-            main = rec if is_main else main
+            if is_main:
+                main[case[0]] = rec
+    lengths = recipe_lengths(RECIPE_BATCHES["recipe_train_B60"])
+    main["recipe_train_B60"] = check_bwd_case(
+        ka, "recipe_train_B60", len(lengths), lengths[0], lengths[0],
+        lengths, False, HEAD_DIM, torch.bfloat16, card)
     return main
 
 
@@ -988,9 +1061,19 @@ def train_profile_phase(card: str, data: Path) -> None:
     print(f"profile train_update: wall_ms {wall:.3f}, device_kernel_ms "
           f"{busy:.3f} in {launches} device activities, idle share "
           f"{1 - busy / wall:.3f} ({card})", flush=True)
-    for key, ms, count in top:
-        print(f"profile train_update:   {ms:9.3f} ms  {count:6d}x  {key}",
-              flush=True)
+    for key, ms, count in top[:6]:
+        print(f"profile train_update:   {ms:9.3f} ms  {count:6d}x  "
+              f"{key[:60]}", flush=True)
+    attn = [(re.search(r"(flash_fwd|attn_bwd)\w*(<[\d, ]+>)?", key), ms,
+             count)
+            for key, ms, count in top]
+    attn = [(m.group(0), ms, count) for m, ms, count in attn if m]
+    attn_ms = sum(ms for _, ms, _ in attn)
+    print(f"profile train_update: attention kernels {attn_ms:.3f} ms of "
+          f"{busy:.3f} ms device time ({attn_ms / busy:.3f}): "
+          + "; ".join(f"{name} {ms:.3f} ms {count}x"
+                      for name, ms, count in attn)
+          + f" ({card})", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -1364,9 +1447,26 @@ def text_profile_phase(card: str, runs: dict) -> None:
               f"device_kernel_ms {busy:.3f} in {launches} device activities"
               f"{extra}, idle share {1 - busy / wall:.3f} ({card})",
               flush=True)
-        for key, ms, count in top:
-            print(f"profile {name}:   {ms:9.3f} ms  {count:6d}x  {key}",
+        for key, ms, count in top[:6]:
+            print(f"profile {name}:   {ms:9.3f} ms  {count:6d}x  {key[:60]}",
                   flush=True)
+
+
+def attention_shapes(fwd: dict, bwd: dict) -> dict:
+    """The attention kernels' graph-replay times at each main shape of
+    phases 1 and 5 beside SDPA's, the plain version's and the bound."""
+    def row(rec, kernel, plain, library):
+        return {"B": rec["B"], "T": rec["Tq"], "ms": rec[kernel],
+                "plain_ms": rec[plain], "library_ms": rec[library],
+                "bound_ms": rec["bound_ms"],
+                "max_abs_err": rec["max_abs_err"]}
+    return {
+        "forward": {name: row(rec, "kernel_graph_ms", "plain_graph_ms",
+                              "library_graph_ms")
+                    for name, rec in fwd.items()},
+        "backward": {name: row(rec, "bwd_graph_ms", "plain_bwd_graph_ms",
+                               "library_bwd_graph_ms")
+                     for name, rec in bwd.items()}}
 
 
 def main() -> int:
@@ -1375,6 +1475,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO))
     import s2st_tpu_torch  # noqa: F401  (fails outside the repository)
+    from s2st_tpu_torch.kernels import attention as ka
     from s2st_tpu_torch.models.s2st_transformer import subsampled_length
     # fp32 means fp32 here: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1386,8 +1487,14 @@ def main() -> int:
 
     main_lengths = [subsampled_length(recipe_config(), n)
                     for n in UTT_FRAMES]
-    build_kernels()
-    serving = kernel_phase(card, main_lengths)
+    train_lengths = [subsampled_length(recipe_config(), n)
+                     for n in TRAIN_FRAMES]
+    for name, hmma in build_kernels().items():
+        if name.startswith("flash_attention") and hmma == 0:
+            raise AssertionError(f"{name}: no tensor-core instruction in "
+                                 f"the SASS")
+    fwd = kernel_phase(card, main_lengths, train_lengths)
+    serving = fwd["serving_encoder_self"]
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         served = serve_phase(work, card)
@@ -1395,9 +1502,8 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     agreement_phase(card)
     profile_phase(card)
-    train_lengths = [subsampled_length(recipe_config(), n)
-                     for n in TRAIN_FRAMES]
-    bwd = backward_phase(card, train_lengths)
+    bwds = backward_phase(card, train_lengths)
+    bwd = bwds["train_encoder_self"]
     trained = train_phase(card)
     try:
         train_agreement_phase(card)
@@ -1414,33 +1520,38 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
 
     a = trained["a"]
+    shapes = attention_shapes(fwd, bwds)
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
         "source": "s2st_tpu_torch/csrc/flash_attention.cu",
         "replaces": "s2st_tpu/nn/attention.py:85",
+        "design": ka.DESIGNS,
         "launches": served["launches"],
         "launches_by_path": {"serve": served["launches"],
                              "train": a["fwd_launches"]},
         "max_abs_err": serving["max_abs_err"],
-        "ms": serving["kernel_device_ms"],
-        "plain_ms": serving["plain_device_ms"],
+        "ms": serving["kernel_graph_ms"],
+        "plain_ms": serving["plain_graph_ms"],
         "bound_ms": serving["bound_ms"],
         "bound_by": serving["bound_by"],
-        "library_ms": serving["library_device_ms"],
+        "library_ms": serving["library_graph_ms"],
+        "shapes": shapes["forward"],
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
         "source": "s2st_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "s2st_tpu/nn/attention.py:85",
+        "design": ka.DESIGNS,
         "launches": a["bwd_launches"],
         "launches_per_update": a["bwd_launches"] / a["updates"],
         "max_abs_err": bwd["max_abs_err"],
-        "ms": bwd["bwd_device_ms"],
-        "plain_ms": bwd["plain_bwd_device_ms"],
+        "ms": bwd["bwd_graph_ms"],
+        "plain_ms": bwd["plain_bwd_graph_ms"],
         "bound_ms": bwd["bound_ms"],
         "bound_by": bwd["bound_by"],
-        "library_ms": bwd["library_bwd_device_ms"],
+        "library_ms": bwd["library_bwd_graph_ms"],
+        "shapes": shapes["backward"],
     }]
     for kind, beam_run, score_run, line in (("lightconv", "a", "c", 81),
                                             ("dynamicconv", "b", "d", 162)):

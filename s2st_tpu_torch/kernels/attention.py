@@ -9,6 +9,12 @@ on first use and loaded with ctypes); on a CPU tensor it runs
 ``flash_attention_reference``, whose gradient is plain autograd. There is no
 other path: a CUDA call the kernels cannot take raises.
 
+Each kernel has two designs, chosen by the input type (``DESIGNS``): bf16
+runs on the tensor cores (mma.sync with tiles streamed by 16-byte cp.async,
+so every (b, t, h) row of q, k, v, o and dO must start 16-byte aligned:
+``misalignment`` says why a tensor does not), fp32 on the scalar kernels,
+which keep fp32 exact to its rounding.
+
 Semantics (those of ``s2st_tpu/nn/attention.py::attend``): q is pre-scaled;
 a causal mask of -1e9 is added strictly above the diagonal; key padding
 replaces the score with -1e9, so a row with no valid key averages every
@@ -29,6 +35,9 @@ NEG_INF = -1e9
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
+_ROW_ALIGN = 16     # bytes: one cp.async of the bf16 kernels
+DESIGNS = {"bfloat16": "tensor cores (mma.sync m16n8k16, cp.async ring)",
+           "float32": "scalar fp32 FMAs"}
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -49,6 +58,30 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                                     NEG_INF)
     weights = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype), v)
+
+
+def misalignment(t: torch.Tensor) -> Optional[str]:
+    """Why the bf16 kernels cannot copy the (b, t, h) rows of a (B, T, H, D)
+    tensor with 16-byte cp.async, or None: the data pointer, and the batch,
+    time and head strides of every dimension longer than 1, must be
+    multiples of 16 bytes."""
+    if t.data_ptr() % _ROW_ALIGN:
+        return f"data pointer {t.data_ptr():#x} is not {_ROW_ALIGN}-byte " \
+               f"aligned"
+    for name, n, stride in zip(("batch", "time", "head"), t.shape[:3],
+                               t.stride()[:3]):
+        if n > 1 and (stride * t.element_size()) % _ROW_ALIGN:
+            return f"its {name} stride of {stride} elements is not a " \
+                   f"multiple of {_ROW_ALIGN} bytes"
+    return None
+
+
+def _check_aligned(**tensors):
+    for name, t in tensors.items():
+        why = t.dtype == torch.bfloat16 and misalignment(t)
+        if why:
+            raise ValueError(f"{name} cannot be read by the bf16 kernels' "
+                             f"{_ROW_ALIGN}-byte copies: {why}")
 
 
 def _check(q, k, v, key_padding_mask):
@@ -81,6 +114,7 @@ def _check(q, k, v, key_padding_mask):
         if key_padding_mask.stride(-1) != 1:
             raise ValueError("key_padding_mask must have unit stride over "
                              "time")
+    _check_aligned(q=q, k=k, v=v)
 
 
 def _strides(*tensors):
@@ -125,8 +159,8 @@ def flash_attention_forward(q, k, v, kpm=None, causal: bool = False,
 def flash_attention_backward(q, k, v, out, row_max, row_logsum, grad_out,
                              key_padding_mask=None, causal: bool = False):
     """dq, dk, dv of ``flash_attention`` from the forward's inputs, output
-    and row statistics: one call of csrc/flash_attention_bwd.cu (three
-    launches on the current stream), counted in
+    and row statistics: one call of csrc/flash_attention_bwd.cu (two
+    launches on the current stream in bf16, three in fp32), counted in
     ``flash_attention.bwd_launches``."""
     _check(q, k, v, key_padding_mask)
     b, tq, h, d = q.shape
@@ -137,6 +171,7 @@ def flash_attention_backward(q, k, v, out, row_max, row_logsum, grad_out,
         raise ValueError(f"grad_out {tuple(grad_out.shape)} "
                          f"{grad_out.dtype} does not match the output "
                          f"{tuple(out.shape)} {out.dtype}")
+    _check_aligned(out=out, grad_out=grad_out)
     for name, s in (("row_max", row_max), ("row_logsum", row_logsum)):
         if s is None or s.dtype != torch.float32 or s.shape != (b, h, tq) \
                 or not s.is_contiguous() or s.device != q.device:

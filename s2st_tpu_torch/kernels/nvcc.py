@@ -2,10 +2,10 @@
 
 Every source under ``csrc/`` has a plain C interface. On first use on a CUDA
 machine it is compiled for ``sm_90a`` by ``nvcc`` into a shared library under
-``build/kernels/`` (git-ignored), named by the hash of the source, and loaded
-with ctypes. ``build()`` compiles every source that is not built yet, one
-``nvcc`` a source, all started together. Nothing here runs at import time,
-so the CPU tests can import every module.
+``build/kernels/`` (git-ignored), named by the hash of the source and of
+the headers beside it, and loaded with ctypes. ``build()`` compiles every
+source that is not built yet, one ``nvcc`` a source, all started together.
+Nothing here runs at import time, so the CPU tests can import every module.
 """
 
 from __future__ import annotations
@@ -53,7 +53,10 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     src = source(name)
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    tag = digest.hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}_{tag}.so"
 
 

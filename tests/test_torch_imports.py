@@ -10,7 +10,9 @@
   the test process.
 """
 
+import functools
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -147,3 +149,45 @@ def test_chip_smoke_fails_without_card_or_repo(where, tmp_path):
         res = _run([str(tmp_path / "chip_smoke.py")], cwd=tmp_path)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_attention_tiles_fails_without_card_and_imports_no_jax():
+    """attention_tiles.py, the bf16 attention kernels' block-shape sweep,
+    exits non-zero with no result line here, and importing it loads
+    neither jax nor s2st_tpu."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    res = _run([str(REPO / "attention_tiles.py")])
+    assert res.returncode != 0
+    assert "attention_tiles {" not in res.stdout
+    res = _run("import sys, attention_tiles; print(sorted(m for m in "
+               "sys.modules if m.split('.')[0] in ('jax', 's2st_tpu')))")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("w,s", [(2, 4), (4, 2), (4, 1)])
+def test_attention_tiles_forces_each_block_shape(w, s, tmp_path):
+    """A forced copy's launchers take (w, s) at every grid, in the forward
+    and in both backward kernels, and leave the rest of each source as it
+    is."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import attention_tiles
+    finally:
+        sys.path.remove(str(REPO))
+    root = attention_tiles.forced_copy(w, s, under=tmp_path)
+    csrc = root / "s2st_tpu_torch" / "csrc"
+    for name, calls in (
+            ("flash_attention.cu", [f"launch_tiles<{w}, {s}, NK>"]),
+            ("flash_attention_bwd.cu", [f"launch_dq<{w}, {s}, NK>",
+                                        f"launch_dkdv<{w}, {s}, NK>"])):
+        forced = (csrc / name).read_text()
+        body = forced.split("cudaError_t launch_shape(")[1].split("\n}\n")[0]
+        assert "tiles_for" not in body
+        for call in calls:
+            assert call in body, (name, call)
+        original = (REPO / "s2st_tpu_torch" / "csrc" / name).read_text()
+        strip = functools.partial(re.sub, attention_tiles._LAUNCH_SHAPE,
+                                  r"\1\3", flags=re.S)
+        assert strip(forced) == strip(original)
