@@ -17,7 +17,11 @@ library's SASS, and the attention libraries must hold some.
    the plain version's, SDPA's (a yardstick only) and the card's bound;
    at the serving shape also torch.profiler's sums beside them. In bf16
    also at the encoder shapes of the training batch (B=8) and of batches
-   of the recipe's size (B=60 to train, B=100 to serve, T'=250).
+   of the recipe's size (B=60 to train, B=100 to serve, T'=250). Then
+   MultiheadAttention at head_dims the kernel does not take, 4 (64-d, 16
+   heads) and 256 (512-d, 2 heads), fp32 and bf16, causal and not, with key
+   padding: it must run through attend, launch no kernel and match attend,
+   while flash_attention itself refuses those head_dims.
 2. Serve: write a small corpus (4 utterances of 80-d fbank), its GCMVN
    stats and a seeded random checkpoint of the recipe's model at full width
    (12 + 6 layers, 512-d, 4 heads, 2048 FFN, 1024 conv channels, prenet 32,
@@ -55,11 +59,13 @@ library's SASS, and the attention libraries must hold some.
 9. Hold csrc/lightconv.cu and csrc/dynamicconv.cu against their plain
    versions in fp32 and bf16 at the LightConv path's shapes (B=64, T=64,
    C=512, H=4, K = 3, 7, 15, 31 with the encoder's padding K//2 and the
-   decoder's K-1) and edge cases (T < K, T = 1, an all-pad row, H = 1;
-   bf16 activations with fp32 dynamic weights), with device times (CUDA
-   graph replay, and torch.profiler's sum beside it) beside the plain
-   versions', PyTorch's depthwise conv1d (lightconv's yardstick only) and
-   the card's bound.
+   decoder's K-1) and edge cases (T < K, T = 1, an all-pad row, H = 1; a K
+   that is not compiled in, K = 40 above a warp's lanes, odd C for the
+   one-element loads, T = 77 that fills no whole block, B = 1; bf16
+   activations with fp32 dynamic weights), with device times (CUDA graph
+   replay, and torch.profiler's sum beside it) beside the plain versions',
+   PyTorch's depthwise conv1d (lightconv's yardstick only) and the card's
+   bound, and their sums over one batch's launches at the path's K.
 10. Serve text: write a binarized de-en test split (128 pairs, sources of
    8-64 tokens, dictionaries of 8848 and 6632 types) and seeded random
    checkpoints of lightconv_iwslt_de_en at full width (7 + 6 layers,
@@ -77,10 +83,23 @@ library's SASS, and the attention libraries must hold some.
 
 Prints the card's name and power limit, one JSON line of kernel
 measurements, and, last, {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --conv-timing [DIR ...]
+
+runs no phase but times the conv kernels of one or more trees (this
+checkout's s2st_tpu_torch by default, else the s2st_tpu_torch under each
+DIR, used through its wrapper's functions only, so that a git archive of a
+parent can be timed beside this tree: parent, change, change, parent). For
+each tree, in its own process after all are built in parallel, it checks
+both kernels against their plain versions at phase 9's bf16 encoder and
+decoder shapes (K = 3, 7, 15, 31), times them, F.conv1d and a copy of x (the
+bytes of the bound) by graph replay, and prints one ``conv_timing`` JSON
+line with the sums over one batch's launches.
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
 import json
 import re
@@ -348,6 +367,75 @@ def recipe_lengths(batch: int) -> list:
             for i in range(batch)]
 
 
+# MultiheadAttention widths whose head_dim the kernel does not take:
+# (embed, heads) -> head_dim 4 (the 64-d aux decoders with
+# decoder_attention_heads=16) and 256 (the encoder with
+# encoder_attention_heads=2), both knobs of recipes/run_baseline.sh
+GATE_WIDTHS = ((64, 16), (512, 2))
+
+
+def mha_by_attend(m, x, kpm, causal):
+    """MultiheadAttention's function through the plain attend, written
+    out."""
+    from s2st_tpu_torch.nn.attention import attend, causal_mask, split_heads
+    from s2st_tpu_torch.nn.core import linear
+    b, t, c = x.shape
+    heads = [split_heads(linear(x, proj.weight, proj.bias), m.num_heads)
+             for proj in (m.q_proj, m.k_proj, m.v_proj)]
+    heads[0] = heads[0] * m.scale
+    out, _ = attend(*heads, kpm, causal_mask(t, x.device) if causal
+                    else None)
+    return linear(out.reshape(b, t, c), m.out_proj.weight, m.out_proj.bias)
+
+
+def head_dim_gate_cases(ka, card: str) -> None:
+    """Phase 1's last part: at head_dims outside the kernel's contract the
+    module runs through attend, with no launch, and matches it; the kernel
+    itself still refuses those head_dims."""
+    from s2st_tpu_torch.nn.attention import MultiheadAttention
+    t, lengths = 75, [75, 60, 31, 8]
+    for embed, heads in GATE_WIDTHS:
+        for dtype in (torch.float32, torch.bfloat16):
+            torch.manual_seed(embed + heads)
+            m = MultiheadAttention(embed, heads).to("cuda", dtype)
+            g = torch.Generator(device="cuda").manual_seed(embed)
+            x = torch.randn((len(lengths), t, embed), generator=g,
+                            device="cuda").to(dtype)
+            kpm = torch.arange(t, device="cuda")[None, :] >= torch.tensor(
+                lengths, device="cuda")[:, None]
+            for causal in (False, True):
+                before = ka.flash_attention.launches
+                out, _ = m(x, x, x, kpm, causal=causal)
+                ref = mha_by_attend(m, x, kpm, causal)
+                torch.cuda.synchronize()
+                launched = ka.flash_attention.launches - before
+                err = (out.float() - ref.float()).abs()
+                if dtype == torch.float32:
+                    atol, rtol = TOL_FP32
+                    ok = bool((err <= atol + rtol * ref.float().abs()).all())
+                else:
+                    ok = float(err.max()) <= TOL_BF16
+                ok = ok and bool(torch.isfinite(out.float()).all())
+                print("gate_case " + json.dumps({
+                    "embed": embed, "heads": heads, "head_dim": embed // heads,
+                    "dtype": str(dtype).split(".")[-1], "causal": causal,
+                    "kernel_launches": launched,
+                    "max_abs_err": float(err.max()), "card": card}),
+                      flush=True)
+                if launched or not ok:
+                    raise AssertionError(
+                        f"MultiheadAttention {embed}/{heads} {dtype} causal="
+                        f"{causal}: {launched} kernel launches, max abs err "
+                        f"{float(err.max())} against attend")
+        q = torch.zeros((1, 3, heads, embed // heads), device="cuda")
+        try:
+            ka.flash_attention(q, q, q)
+        except ValueError:
+            continue
+        raise AssertionError(f"flash_attention took head_dim "
+                             f"{embed // heads}")
+
+
 def kernel_phase(card: str, main_lengths, train_lengths) -> dict:
     """Phase 1; returns the bf16 records of the main shapes by case."""
     from s2st_tpu_torch.kernels import attention as ka
@@ -375,6 +463,7 @@ def kernel_phase(card: str, main_lengths, train_lengths) -> dict:
         main[name] = check_case(ka, name, len(lengths), t, t, lengths, False,
                                 torch.bfloat16, card,
                                 device_times=name == "serving_encoder_self")
+    head_dim_gate_cases(ka, card)
     return main
 
 
@@ -1173,11 +1262,96 @@ def check_conv_case(kind, name, b, t, c, h, k, pad, zero_row, dtype, card,
     return rec
 
 
+# the kernel sizes of lightconv_iwslt_de_en's 7 encoder and 6 decoder
+# layers (s2st_tpu/options.py:1219-1234): a beam batch launches the
+# encoder's, a --score-reference batch both
+TEXT_ENCODER_K = (3, 7, 15, 31, 31, 31, 31)
+TEXT_DECODER_K = (3, 7, 15, 31, 31, 31)
+
+
+def conv_batch_sums(recs: dict) -> dict:
+    """A kernel's graph-replay times and bounds summed over one batch's
+    launches at the path's K, from phase 9's bf16 records by case."""
+    out = {}
+    for key, rec_key in (("ms", "kernel_graph_ms"), ("bound_ms", "bound_ms")):
+        beam = sum(recs[f"encoder_K{k}"][rec_key] for k in TEXT_ENCODER_K)
+        out[f"batch_{key}"] = {
+            "beam": beam,
+            "score_reference": beam + sum(recs[f"decoder_K{k}"][rec_key]
+                                          for k in TEXT_DECODER_K)}
+    return out
+
+
+def conv_timing_tree(root: Path) -> dict:
+    """--conv-timing, one tree: both conv kernels of the s2st_tpu_torch
+    under root against their plain versions (bf16 tolerance) and timed by
+    graph replay at every K of the path, F.conv1d and a copy of x beside
+    them."""
+    sys.path.insert(0, str(root))
+    from s2st_tpu_torch.kernels import conv as kc
+    if not Path(kc.__file__).resolve().is_relative_to(root.resolve()):
+        raise AssertionError(f"imported {kc.__file__}, not under {root}")
+    b, t, c, h = CONV_B, 64, CONV_C, CONV_H
+    x = conv_inputs("lightconv", b, t, c, h, 3, torch.bfloat16, seed=0)[0]
+    y = torch.empty_like(x)
+    out = {"tree": str(root), "B": b, "T": t, "C": c, "H": h,
+           "dtype": "bfloat16", "copy_ms": graph_ms(lambda: y.copy_(x))}
+    for kind in ("lightconv", "dynamicconv"):
+        fn, plain = getattr(kc, kind), getattr(kc, f"{kind}_reference")
+        recs = {}
+        for side in ("encoder", "decoder"):
+            for k in sorted(set(TEXT_ENCODER_K)):
+                pad = k // 2 if side == "encoder" else k - 1
+                x, w = conv_inputs(kind, b, t, c, h, k, torch.bfloat16,
+                                   seed=k)
+                err = float((fn(x, w, pad, h).float()
+                             - plain(x, w, pad, h).float()).abs().max())
+                if not err <= TOL_BF16:
+                    raise AssertionError(f"{root} {kind} {side} K={k}: err "
+                                         f"{err}")
+                rec = {"kernel_graph_ms": graph_ms(lambda: fn(x, w, pad, h)),
+                       "max_abs_err": err}
+                rec["bound_ms"], rec["bound_by"] = conv_bound_ms(x, w)
+                if kind == "lightconv":
+                    rec["library_ms"] = graph_ms(depthwise_fn(x, w, pad, h))
+                recs[f"{side}_K{k}"] = rec
+        out[kind] = {"by_k": recs, **conv_batch_sums(recs)}
+    return out
+
+
+def conv_timing(roots: list) -> int:
+    """--conv-timing: build every tree's conv kernels in parallel, then
+    time each tree in a process of its own."""
+    card = gpu_identity()
+    print(f"gpu: {card}", flush=True)
+    t0 = time.perf_counter()
+    builds = [subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         " from s2st_tpu_torch.kernels import nvcc; nvcc.build(["
+         "'lightconv', 'dynamicconv'])", str(root)])
+        for root in dict.fromkeys(roots)]
+    if any([p.wait() for p in builds]):
+        print("chip_smoke: a conv build failed", file=sys.stderr)
+        return 1
+    print(f"built {len(builds)} trees in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    failed = [str(root) for root in roots if subprocess.run(
+        [sys.executable, __file__, "--conv-timing-tree", str(root)]
+    ).returncode]
+    print(f"gpu: {card}", flush=True)
+    if failed:
+        print(f"chip_smoke: conv timing failed: {', '.join(failed)}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def conv_kernel_phase(card: str) -> dict:
     """Phase 9: both conv kernels against their plain versions at the
     LightConv path's shapes and edge cases, fp32 and bf16; device times at
     every encoder and decoder shape in bf16. Returns the main case's
-    record for each kernel."""
+    record for each kernel, with its times and bounds summed over one
+    batch's launches."""
     b, c, h = CONV_B, CONV_C, CONV_H
     cases = [(f"encoder_K{k}", b, 64, c, h, k, k // 2, False)
              for k in (3, 7, 15, 31)]
@@ -1186,17 +1360,28 @@ def conv_kernel_phase(card: str) -> dict:
     cases += [("T_below_K", b, 9, c, h, 31, 15, False),
               ("T_1", b, 1, c, h, 31, 30, False),
               ("all_pad_row", b, 64, c, h, 15, 7, True),
-              ("H_1", b, 64, c, 1, 7, 3, False)]
+              ("H_1", b, 64, c, 1, 7, 3, False),
+              ("K_9", b, 64, c, h, 9, 4, False),
+              ("K_40", b, 64, c, h, 40, 20, False),
+              ("odd_C", b, 64, 129, 3, 7, 3, False),
+              ("T_77", b, 77, c, h, 31, 15, False),
+              ("B_1", 1, 64, c, h, 31, 15, False)]
     main = {}
     for kind in ("lightconv", "dynamicconv"):
+        timed_recs = {}
         for dtype in (torch.float32, torch.bfloat16):
             for case in cases:
                 timed = dtype == torch.bfloat16 and \
                     case[0].startswith(("encoder", "decoder"))
                 rec = check_conv_case(kind, *case, dtype=dtype, card=card,
                                       device_times=timed)
-                if timed and case[0] == CONV_MAIN_CASE:
-                    main[kind] = rec
+                if timed:
+                    timed_recs[case[0]] = rec
+        main[kind] = dict(timed_recs[CONV_MAIN_CASE],
+                          **conv_batch_sums(timed_recs))
+        print(f"conv_batch {kind}: " + json.dumps(
+            {k: v for k, v in main[kind].items() if k.startswith("batch")}),
+              flush=True)
         x, w = conv_inputs(kind, b, 64, c, h, 31, torch.bfloat16, seed=7)
         if kind == "dynamicconv":       # bf16 activations, fp32 weights
             from s2st_tpu_torch.kernels import conv as kc
@@ -1469,10 +1654,23 @@ def attention_shapes(fwd: dict, bwd: dict) -> dict:
                      for name, rec in bwd.items()}}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--conv-timing", nargs="*", type=Path, metavar="DIR",
+                        help="only time the conv kernels of these trees "
+                             "(this checkout without a DIR)")
+    parser.add_argument("--conv-timing-tree", type=Path,
+                        help=argparse.SUPPRESS)   # one tree, this process
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if args.conv_timing_tree:
+        print("conv_timing " + json.dumps(
+            conv_timing_tree(args.conv_timing_tree.resolve())), flush=True)
+        return 0
+    if args.conv_timing is not None:
+        return conv_timing([p.resolve() for p in args.conv_timing] or [REPO])
     sys.path.insert(0, str(REPO))
     import s2st_tpu_torch  # noqa: F401  (fails outside the repository)
     from s2st_tpu_torch.kernels import attention as ka
@@ -1553,6 +1751,7 @@ def main() -> int:
         "library_ms": bwd["library_bwd_graph_ms"],
         "shapes": shapes["backward"],
     }]
+    from s2st_tpu_torch.kernels import conv as kc
     for kind, beam_run, score_run, line in (("lightconv", "a", "c", 81),
                                             ("dynamicconv", "b", "d", 162)):
         rec = conv[kind]
@@ -1561,6 +1760,7 @@ def main() -> int:
             "route": "cuda",
             "source": f"s2st_tpu_torch/csrc/{kind}.cu",
             "replaces": f"s2st_tpu/ops/conv_kernels.py:{line}",
+            "design": kc.DESIGNS[kind],
             "launches": text[beam_run]["counts"][kind],
             "launches_by_path": {
                 "beam": text[beam_run]["counts"][kind],
@@ -1571,6 +1771,8 @@ def main() -> int:
             "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
             "library_ms": rec["library_graph_ms"],
+            "batch_ms": rec["batch_ms"],
+            "batch_bound_ms": rec["batch_bound_ms"],
         })
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

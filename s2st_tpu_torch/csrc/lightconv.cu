@@ -13,122 +13,192 @@
 // as the TPU kernel does.
 //
 // Bound on the card. The function reads x once and writes y once; the
-// weights are H*K floats. At the encoder's B=64, T=64, C=512 in bf16 that is
-// 8.4 MB, 2.5 us at 3.35 TB/s, against 2*K*B*T*C = 130 MFLOP for K=31, 1.9 us
-// of fp32 FMAs at 67 TFLOP/s: bytes bound it, and a launch costs more than
-// either at this size.
+// weights are H*K floats. At the encoder's B=64, T=64, C=512, H=4, K=31 in
+// bf16 that is 8.4 MB, 2.5 us at 3.35 TB/s, against 2*K*B*T*C = 130 MFLOP,
+// 1.9 us of fp32 FMAs at 67 TFLOP/s: bytes bound it, FMAs nearly so, and a
+// launch costs about as much as either at this size.
 //
-// Design. One block per (128-channel chunk, 32-step time tile, b); one thread
-// a channel, so the loads of a time row are contiguous across the warp. Each
-// thread stages its channel's tile of x plus the K-1 rows of halo (zero
-// outside [0, T)) in fp32 in shared memory, in its own column, and its head's
-// K softmaxed weights beside it; every x element is then read from device
-// memory (32 + K - 1) / 32 times instead of K times. A thread only ever reads
-// its own column, so the block needs no barrier. The sums are scalar fp32
-// FMAs, tap by tap in k order, as the plain version adds them.
+// Design (csrc/conv_common.cuh has the shared parts). A block owns 32
+// channels, a lane each, and `warps` x 16 time steps; a thread computes 16
+// consecutive outputs of its channel with 16 independent accumulators. The
+// block loads the logits of the heads its channels span (a warp a head, a
+// lane a tap) and stages x's tile plus its K-1 halo rows in fp32 in shared
+// memory, with 16-byte loads where C and the pointer allow (one element a
+// thread otherwise: odd C, an unaligned view), each thread issuing its
+// loads before its first store; the warps then softmax their head rows in
+// fp32 into shared memory. One barrier. A thread copies its head's K
+// weights into registers and streams the 16 + K - 1 rows of x past them:
+// each x value, read once from shared memory (a conflict-free row of the
+// warp), feeds up to 16 FMAs that do not depend on each other. K is a
+// template argument for the model's kernel sizes 3, 7, 15 and 31, so the
+// tap loop unrolls and the weights stay in registers; one instantiation
+// with a run-time K (weights read from shared memory) takes every other K.
+// Each output still adds its taps in k order, 0 .. K-1, as the plain
+// version does. The launcher takes 4 warps (64 steps a block) down to 1 for
+// short sequences; at the main case that is 16 x 1 x 64 = 1024 blocks of 4
+// warps. Of the shapes tried on the card, 16 outputs a thread in 4 warps
+// beat 8 in 8 warps and 4 in 8, and two loads in flight a thread beat four
+// (more registers, fewer blocks an SM).
 //
 // Plain C interface for ctypes; x, w and y are contiguous, w is fp32 (H, K).
 // Returns the cudaError_t of the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "conv_common.cuh"
 
 namespace {
 
-constexpr int kChannels = 128;   // channels a block, one a thread
-constexpr int kTimeTile = 32;    // output steps a block
+using namespace s2st_conv;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+// fp32 words of shared memory: the softmaxed rows of the heads a chunk
+// spans, padded to 16 bytes, then x's staged tile
+long long smem_words(long long C, int H, int K, int warps) {
+  return round4(static_cast<long long>(max_heads_in_chunk(C, H)) * K) +
+         staged_words(warps, K);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kChannels)
+template <typename T, int KT>
+__global__ void __launch_bounds__(kMaxWarps * kLanes, 3)
 lightconv_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                 T* __restrict__ y, int64_t T_len, int64_t C, int H, int K,
-                 int padding_l) {
-  extern __shared__ float smem[];
-  const int rows = kTimeTile + K - 1;
-  float* xs = smem;                        // rows x kChannels
-  float* ws = smem + rows * kChannels;     // K x kChannels
-  const int tid = threadIdx.x;
-  const int64_t c = static_cast<int64_t>(blockIdx.x) * kChannels + tid;
-  if (c >= C) return;
-  const int64_t t0 = static_cast<int64_t>(blockIdx.y) * kTimeTile;
+                 T* __restrict__ y, int64_t T_len, int64_t C, int H,
+                 int k_runtime, int padding_l, bool vec) {
+  constexpr bool kFixed = KT > 0;
+  const int K = kFixed ? KT : k_runtime;
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x;
+  const int warp = threadIdx.y;
+  const int tile = blockDim.y * kRows;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kLanes;
+  const int64_t t0 = static_cast<int64_t>(blockIdx.y) * tile;
   const int64_t b = blockIdx.z;
+  const int h_lo = first_head(c0, C, H);
+  const int nh = heads_in_chunk(c0, C, H);
+  float* ws = smem;                                   // nh x K
+  float* xs = smem + round4(static_cast<long long>(nh) * K);
 
-  // this channel's head row of the weights, softmaxed in fp32
-  const float* wr = w + (c / (C / H)) * K;
-  float m = wr[0];
-  for (int k = 1; k < K; ++k) m = fmaxf(m, wr[k]);
-  float s = 0.f;
-  for (int k = 0; k < K; ++k) s += expf(wr[k] - m);
-  for (int k = 0; k < K; ++k) ws[k * kChannels + tid] = expf(wr[k] - m) / s;
-
-  // x rows t0 - padding_l .. t0 - padding_l + rows - 1 of this channel
-  const T* xb = x + b * T_len * C + c;
-  for (int r = 0; r < rows; ++r) {
-    const int64_t t = t0 - padding_l + r;
-    xs[r * kChannels + tid] =
-        (t >= 0 && t < T_len) ? to_float(xb[t * C]) : 0.f;
+  // a warp a head row: its logits are loaded before x's tile, so that the
+  // two loads overlap, where a lane a tap and a warp a head suffice
+  const bool one_pass = K <= kLanes && nh <= static_cast<int>(blockDim.y);
+  float logit = 0.f;
+  if (one_pass && warp < nh && lane < K)
+    logit = w[static_cast<int64_t>(h_lo + warp) * K + lane];
+  stage_x(x + b * T_len * C, xs, T_len, C, c0, t0 - padding_l,
+          tile + K - 1, vec);
+  if (one_pass) {
+    if (warp < nh) softmax_lanes(logit, ws + warp * K, K);
+  } else {
+    for (int i = warp; i < nh; i += blockDim.y)
+      softmax_row(w + static_cast<int64_t>(h_lo + i) * K, ws + i * K, K);
   }
+  __syncthreads();
 
-  T* yb = y + b * T_len * C + c;
-  const int n_out = T_len - t0 < kTimeTile ? static_cast<int>(T_len - t0)
-                                            : kTimeTile;
-  for (int i = 0; i < n_out; ++i) {
-    float acc = 0.f;
-    for (int k = 0; k < K; ++k)
-      acc = fmaf(xs[(i + k) * kChannels + tid], ws[k * kChannels + tid], acc);
-    store(yb + (t0 + i) * C, acc);
+  const int64_t c = c0 + lane;
+  const int r0 = warp * kRows;
+  if (c >= C || t0 + r0 >= T_len) return;
+  const float* wh = ws + (c / (C / H) - h_lo) * K;
+  const float* xr = xs + r0 * kLanes + lane;
+  float acc[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+  if constexpr (kFixed) {
+    float wk[KT];
+#pragma unroll
+    for (int k = 0; k < KT; ++k) wk[k] = wh[k];
+#pragma unroll
+    for (int j = 0; j < kRows + KT - 1; ++j) {
+      const float xv = xr[j * kLanes];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int k = j - r;
+        if (k >= 0 && k < KT) acc[r] = fmaf(xv, wk[k], acc[r]);
+      }
+    }
+  } else {
+    for (int j = 0; j < kRows + K - 1; ++j) {
+      const float xv = xr[j * kLanes];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int k = j - r;
+        if (k >= 0 && k < K) acc[r] = fmaf(xv, wh[k], acc[r]);
+      }
+    }
   }
+  T* yc = y + (b * T_len + t0 + r0) * C + c;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+    if (t0 + r0 + r < T_len) store(yc + r * C, acc[r]);
 }
 
-template <typename T>
-int launch(const void* x, const float* w, void* y, long long B, long long T_len,
-           long long C, int H, int K, int padding_l, cudaStream_t stream) {
+template <typename T, int KT>
+int launch(const void* x, const float* w, void* y, long long B,
+           long long T_len, long long C, int H, int K, int padding_l,
+           int warps, bool vec, cudaStream_t stream) {
   const size_t smem =
-      static_cast<size_t>(kTimeTile + 2 * K - 1) * kChannels * sizeof(float);
+      static_cast<size_t>(smem_words(C, H, K, warps)) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        lightconv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        lightconv_kernel<T, KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  dim3 grid(static_cast<unsigned>((C + kChannels - 1) / kChannels),
-            static_cast<unsigned>((T_len + kTimeTile - 1) / kTimeTile),
+  const long long tile = static_cast<long long>(warps) * kRows;
+  dim3 grid(static_cast<unsigned>((C + kLanes - 1) / kLanes),
+            static_cast<unsigned>((T_len + tile - 1) / tile),
             static_cast<unsigned>(B));
-  lightconv_kernel<T><<<grid, kChannels, smem, stream>>>(
+  dim3 block(kLanes, warps);
+  lightconv_kernel<T, KT><<<grid, block, smem, stream>>>(
       static_cast<const T*>(x), w, static_cast<T*>(y), T_len, C, H, K,
-      padding_l);
+      padding_l, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_k(const void* x, const float* w, void* y, long long B,
+             long long T_len, long long C, int H, int K, int padding_l,
+             int warps, int vec, cudaStream_t s) {
+  if (vec && (C % Vec<T>::kN != 0 ||
+              reinterpret_cast<uintptr_t>(x) % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (K) {
+    case 3:
+      return launch<T, 3>(x, w, y, B, T_len, C, H, K, padding_l, warps, vec,
+                          s);
+    case 7:
+      return launch<T, 7>(x, w, y, B, T_len, C, H, K, padding_l, warps, vec,
+                          s);
+    case 15:
+      return launch<T, 15>(x, w, y, B, T_len, C, H, K, padding_l, warps, vec,
+                           s);
+    case 31:
+      return launch<T, 31>(x, w, y, B, T_len, C, H, K, padding_l, warps, vec,
+                           s);
+    default:
+      return launch<T, 0>(x, w, y, B, T_len, C, H, K, padding_l, warps, vec,
+                          s);
+  }
 }
 
 }  // namespace
 
-// dtype: 0 fp32, 1 bf16 (x and y).
+// dtype: 0 fp32, 1 bf16 (x and y). warps: 1, 2 or 4, the block's warps
+// over time. vec: stage x with 16-byte loads (C a multiple of 16
+// bytes' elements and x 16-byte aligned, else refused).
 extern "C" int s2st_lightconv_fwd(const void* x, const void* w, void* y,
                                   long long B, long long T_len, long long C,
                                   int H, int K, int padding_l, int dtype,
-                                  void* stream) {
+                                  int warps, int vec, void* stream) {
   if (B <= 0 || B > 65535 || T_len <= 0 || C <= 0 || H <= 0 || C % H != 0 ||
-      K <= 0 || padding_l < 0 || padding_l > K - 1 ||
-      (T_len + kTimeTile - 1) / kTimeTile > 65535 ||
-      static_cast<size_t>(kTimeTile + 2 * K - 1) * kChannels * sizeof(float) >
-          227 * 1024)
+      K <= 0 || padding_l < 0 || padding_l > K - 1 || !valid_warps(warps) ||
+      (T_len + warps * kRows - 1) / (warps * kRows) > 65535 ||
+      static_cast<size_t>(smem_words(C, H, K, warps)) * sizeof(float) >
+          kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* wf = static_cast<const float*>(w);
   if (dtype == 0)
-    return launch<float>(x, wf, y, B, T_len, C, H, K, padding_l, s);
+    return launch_k<float>(x, wf, y, B, T_len, C, H, K, padding_l, warps,
+                           vec, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, wf, y, B, T_len, C, H, K, padding_l, s);
+    return launch_k<__nv_bfloat16>(x, wf, y, B, T_len, C, H, K, padding_l,
+                                   warps, vec, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

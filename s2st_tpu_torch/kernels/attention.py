@@ -84,6 +84,15 @@ def _check_aligned(**tensors):
                              f"{_ROW_ALIGN}-byte copies: {why}")
 
 
+def takes_head_dim(d: int) -> bool:
+    """The kernels' head_dim contract: a multiple of 8 up to
+    ``_MAX_HEAD_DIM``. ``_check`` raises outside it, and
+    ``nn.attention.MultiheadAttention`` routes other head dims to the plain
+    ``attend``, as JAX's ``mha`` takes its plain path without
+    ``use_flash_attention``."""
+    return d % 8 == 0 and d <= _MAX_HEAD_DIM
+
+
 def _check(q, k, v, key_padding_mask):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
@@ -100,7 +109,7 @@ def _check(q, k, v, key_padding_mask):
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not agree")
-    if d % 8 != 0 or d > _MAX_HEAD_DIM:
+    if not takes_head_dim(d):
         raise ValueError(f"head_dim must be a multiple of 8 up to "
                          f"{_MAX_HEAD_DIM}, got {d}")
     if key_padding_mask is not None:

@@ -16,11 +16,13 @@ kernels.
 On a CUDA tensor ``lightconv`` launches ``csrc/lightconv.cu`` and
 ``dynamicconv`` launches ``csrc/dynamicconv.cu`` (built for ``sm_90a`` on
 first use, loaded with ctypes; each launch counted in ``.launches``); a call
-the kernels cannot take raises. On a CPU tensor they run the plain versions
-``lightconv_reference`` / ``dynamicconv_reference``. When a gradient is
-wanted they go through a ``torch.autograd.Function`` whose backward is the
-autograd of the plain version, as the TPU functions' ``custom_vjp`` backward
-is the VJP of their XLA references (``conv_kernels.py:110-126,190-206``).
+the kernels cannot take raises. ``launch_plan`` chooses each launch's block
+shape and load width (``DESIGNS`` says what the kernels do with them). On a
+CPU tensor they run the plain versions ``lightconv_reference`` /
+``dynamicconv_reference``. When a gradient is wanted they go through a
+``torch.autograd.Function`` whose backward is the autograd of the plain
+version, as the TPU functions' ``custom_vjp`` backward is the VJP of their
+XLA references (``conv_kernels.py:110-126,190-206``).
 """
 
 from __future__ import annotations
@@ -32,6 +34,20 @@ from . import nvcc
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Z = 65535
+# the kernels' block shape (csrc/conv_common.cuh): LANES channels a block,
+# one a lane; ROWS consecutive outputs a thread; up to 4 warps over time
+LANES, ROWS, MAX_WARPS = 32, 16, 4
+TEMPLATED_K = (3, 7, 15, 31)   # compiled in: lightconv_iwslt_de_en's sizes
+_MAX_SMEM = 227 * 1024
+DESIGNS = {
+    "lightconv": "32 channels x 64 steps a block, 16 outputs a thread; "
+                 "softmax once a block, weights in registers (K = 3, 7, 15, "
+                 "31 compiled in); x tile in shared memory by 16-byte loads",
+    "dynamicconv": "32 channels x 64 steps a block, 16 outputs a thread; "
+                   "logits staged, one softmax a (b, t, head) a thread, in "
+                   "shared memory; x window in registers (K = 3, 7, 15, 31 "
+                   "compiled in); x tile by 16-byte loads",
+}
 
 
 def _check_shapes(x: torch.Tensor, weight: torch.Tensor, padding_l: int,
@@ -93,14 +109,64 @@ def _check_cuda(x: torch.Tensor, weight: torch.Tensor) -> None:
         raise ValueError(f"batch {x.shape[0]} above {_MAX_GRID_Z}")
 
 
+def max_heads_in_chunk(c: int, heads: int) -> int:
+    """The most heads that one block's LANES channels span."""
+    per_head = c // heads
+    return max((min(c0 + LANES, c) - 1) // per_head - c0 // per_head + 1
+               for c0 in range(0, c, LANES))
+
+
+def smem_bytes(kind: str, c: int, heads: int, k: int, warps: int) -> int:
+    """Shared memory of one block (the launchers' own sum): the softmaxed
+    weights (lightconv: the heads of the chunk, padded to 4 words;
+    dynamicconv: each of the tile's steps times those heads, each row
+    padded to an odd count of 4 words), then x's tile of warps x ROWS steps
+    and its K-1 halo rows, all fp32."""
+    nh = max_heads_in_chunk(c, heads)
+    if kind == "lightconv":
+        weights = -(-nh * k // 4) * 4
+    else:       # rows of an odd count of 16-byte groups
+        groups = -(-k // 4)
+        weights = warps * ROWS * nh * 4 * (groups + 1 - groups % 2)
+    return 4 * (weights + (warps * ROWS + k - 1) * LANES)
+
+
+def launch_plan(kind: str, t: int, c: int, heads: int, k: int,
+                dtype: torch.dtype, data_ptr: int = 0) -> dict:
+    """How the kernel is launched for x (B, t, c) at kernel size k: the
+    block's warps over time (4 down to the fewest that cover t, halved
+    further while its shared memory would pass the card's 227 KiB), whether
+    x is staged with 16-byte loads (c a multiple of 16 bytes' elements and
+    x's data pointer 16-byte aligned; else one element a thread), and
+    whether k is compiled in. Raises where even one warp does not fit."""
+    warps = MAX_WARPS
+    while warps > 1 and (warps // 2) * ROWS >= t:
+        warps //= 2
+    while warps > 1 and smem_bytes(kind, c, heads, k, warps) > _MAX_SMEM:
+        warps //= 2
+    smem = smem_bytes(kind, c, heads, k, warps)
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"{kind}: K={k} over {max_heads_in_chunk(c, heads)} heads a "
+            f"{LANES}-channel block needs {smem} bytes of shared memory, "
+            f"above {_MAX_SMEM}")
+    per_vec = 16 // torch.empty((), dtype=dtype).element_size()
+    return {"warps": warps,
+            "vector": c % per_vec == 0 and data_ptr % 16 == 0,
+            "templated_k": k in TEMPLATED_K, "smem_bytes": smem}
+
+
 def _launch(name: str, x: torch.Tensor, weight: torch.Tensor, out,
             padding_l: int, heads: int, *dtypes: int) -> None:
     b, t, c = x.shape
+    k = weight.shape[-1]
+    plan = launch_plan(name, t, c, heads, k, x.dtype, x.data_ptr())
     launch = nvcc.function(name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = launch(x.data_ptr(), weight.data_ptr(), out.data_ptr(), b, t, c,
-                     heads, weight.shape[-1], padding_l, *dtypes, stream)
+                     heads, k, padding_l, *dtypes, plan["warps"],
+                     int(plan["vector"]), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 

@@ -31,9 +31,9 @@ LIBRARIES = {
                             "s2st_flash_attention_bwd",
                             [_P] * 9 + [_LL] + [_P] * 4 + [_I] * 7 + [_P]),
     "lightconv": ("lightconv.cu", "s2st_lightconv_fwd",
-                  [_P] * 3 + [_LL] * 3 + [_I] * 4 + [_P]),
+                  [_P] * 3 + [_LL] * 3 + [_I] * 6 + [_P]),
     "dynamicconv": ("dynamicconv.cu", "s2st_dynamicconv_fwd",
-                    [_P] * 3 + [_LL] * 3 + [_I] * 5 + [_P]),
+                    [_P] * 3 + [_LL] * 3 + [_I] * 7 + [_P]),
 }
 
 

@@ -3,10 +3,11 @@ cache for step-by-step decoding.
 
 Counterpart of ``s2st_tpu/nn/attention.py``. Heads are (B, T, H, D). Every
 full-sequence call that needs neither the weights nor an additive mask other
-than the causal one, and has no attention-probability dropout active, goes
-to ``kernels.attention.flash_attention`` (the gate of ``mha``, :137-140);
-the rest, and the one-query decode steps, use ``attend`` (plain PyTorch, as
-JAX leaves them to XLA).
+than the causal one, has no attention-probability dropout active and has a
+head_dim the kernels take (``kernels.attention.takes_head_dim``: a multiple
+of 8 up to 128) goes to ``kernels.attention.flash_attention`` (the gate of
+``mha``, :137-140); the rest, and the one-query decode steps, use ``attend``
+(plain PyTorch, as JAX leaves them to XLA).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..kernels.attention import NEG_INF, flash_attention
+from ..kernels.attention import NEG_INF, flash_attention, takes_head_dim
 from .core import dropout, linear
 
 
@@ -80,7 +81,9 @@ class MultiheadAttention(nn.Module):
         """Full-sequence attention (nn/attention.py:115). (B, T, C) in and
         out; q is scaled after its projection bias. Probability dropout at
         ``dropout_rate`` is active when a generator is given, and then the
-        call takes ``attend``. Returns (out, weights (B, H, Tq, Tk) fp32 or
+        call takes ``attend``, as does a head_dim the kernels do not take
+        (4 for a 64-d aux decoder with 16 heads, 256 for a 512-d encoder
+        with 2). Returns (out, weights (B, H, Tq, Tk) fp32 or
         None)."""
         b, tq, c = query.shape
         q = split_heads(linear(query, self.q_proj.weight, self.q_proj.bias)
@@ -91,7 +94,8 @@ class MultiheadAttention(nn.Module):
                         self.num_heads)
         w = None
         prob_dropout = generator is not None and dropout_rate > 0.0
-        if not need_weights and attn_mask is None and not prob_dropout:
+        if not need_weights and attn_mask is None and not prob_dropout \
+                and takes_head_dim(self.head_dim):
             out = flash_attention(q, k, v, key_padding_mask, causal=causal)
         else:
             if causal and attn_mask is None:

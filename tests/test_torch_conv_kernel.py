@@ -9,7 +9,12 @@ card, at the LightConv serving path's shapes (B=64, T up to 64, C=512, H=4,
 K = 3, 7, 15, 31, encoder padding K//2 and causal decoder padding K-1) and
 at the edge cases (T < K, T = 1, a row of zeros, H = 1, H = C, every
 padding_l, bf16 inputs with fp32 dynamic weights, non-contiguous inputs),
-and skip elsewhere. This file imports neither JAX nor ``s2st_tpu``, so on a
+and at a case for each branch of the kernels' design (a K that is not
+compiled in, K above a warp's 32 lanes, odd C for the one-element loads, T
+that is no multiple of the block's steps or a thread's 8 outputs, B = 1,
+an input that is not 16-byte aligned), and skip elsewhere. The launch plan
+(block shape, load width, compiled-in K) is chosen in Python and tested
+here on the CPU. This file imports neither JAX nor ``s2st_tpu``, so on a
 machine with a card and no JAX it runs as it is:
 
     python -m pytest tests/test_torch_conv_kernel.py --noconftest -q
@@ -40,6 +45,11 @@ CASES = {
     "H_1": (4, 40, 512, 1, 7, 3, False),
     "H_C": (2, 40, 64, 64, 5, 2, False),
     "padding_0": (3, 37, 136, 8, 5, 0, False),
+    "K_9": (4, 40, 512, 4, 9, 4, False),
+    "K_40": (4, 45, 512, 4, 40, 20, False),
+    "odd_C": (4, 37, 129, 3, 7, 3, False),
+    "T_77": (3, 77, 512, 4, 31, 15, False),
+    "B_1": (1, 64, 512, 4, 31, 15, False),
 }
 
 
@@ -116,6 +126,60 @@ def test_gradient_is_the_plain_versions_autograd(kind):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
 
 
+# case -> (dtype, data pointer, warps, 16-byte loads, K compiled in)
+PLANS = {
+    "encoder_K31": ("bfloat16", 0, 4, True, True),
+    "decoder_K31": ("float32", 0, 4, True, True),
+    "T_below_K": ("bfloat16", 0, 1, True, True),
+    "T_1": ("bfloat16", 0, 1, True, True),
+    "K_9": ("bfloat16", 0, 4, True, False),
+    "K_40": ("float32", 0, 4, True, False),
+    "odd_C": ("float32", 0, 4, False, True),
+    "padding_0": ("bfloat16", 0, 4, True, False),
+    "H_C": ("float32", 0, 4, True, False),
+    "encoder_K15": ("bfloat16", 2, 4, False, True),
+}
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("case", list(PLANS))
+def test_launch_plan(kind, case):
+    """4 warps (64 steps) a block down to the fewest that cover T; 16-byte
+    loads only where C is a multiple of 16 bytes' elements and the pointer
+    is 16-byte aligned; K compiled in for 3, 7, 15 and 31 only."""
+    _, t, c, h, k, _, _ = CASES[case]
+    dtype, ptr, warps, vector, templated = PLANS[case]
+    plan = kc.launch_plan(kind, t, c, h, k, getattr(torch, dtype), ptr)
+    assert (plan["warps"], plan["vector"], plan["templated_k"]) == \
+        (warps, vector, templated)
+    assert plan["smem_bytes"] == kc.smem_bytes(kind, c, h, k, warps)
+
+
+def test_heads_a_block_spans():
+    assert kc.max_heads_in_chunk(512, 4) == 1        # 128 channels a head
+    assert kc.max_heads_in_chunk(136, 8) == 3        # 17: 15 + 17 of 32
+    assert kc.max_heads_in_chunk(129, 3) == 2        # 43
+    assert kc.max_heads_in_chunk(64, 64) == 32       # one channel a head
+
+
+def test_launch_plan_halves_the_block_to_fit_shared_memory():
+    """dynamicconv at one channel a head keeps (steps x 32 heads x K) weights
+    a block: at K = 50 only 2 warps fit in 227 KiB, at K = 100 one; at
+    K = 300 not even one, which raises before any launch. lightconv keeps
+    one row a head and takes the largest K the wrapper ever took (211) at
+    any H."""
+    for k, warps in ((50, 2), (100, 1)):
+        plan = kc.launch_plan("dynamicconv", 100, 64, 64, k, torch.float32)
+        assert plan["warps"] == warps and plan["smem_bytes"] <= 227 * 1024
+        assert kc.smem_bytes("dynamicconv", 64, 64, k, 2 * warps) > \
+            227 * 1024
+    with pytest.raises(ValueError, match="shared memory"):
+        kc.launch_plan("dynamicconv", 100, 64, 64, 300, torch.float32)
+    for h in (1, 4, 512):
+        assert kc.launch_plan("lightconv", 100, 512, h, 211,
+                              torch.float32)["warps"] == 4
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -175,6 +239,27 @@ def test_kernel_takes_non_contiguous_input(cuda_device, kind):
     fn, plain = fns(kind)
     torch.testing.assert_close(fn(xt, w, 3, 4), plain(x, w, 3, 4),
                                atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_takes_unaligned_input(cuda_device, kind, dtype):
+    """x contiguous but 2 elements past a 16-byte boundary: the kernel
+    stages it one element a thread, with the same result."""
+    b, t, c, h, k, pad, _ = CASES["encoder_K31"]
+    dt = getattr(torch, dtype)
+    x, w = (torch.from_numpy(a).to(cuda_device) for a in
+            conv_inputs(kind, 4, t, c, h, k, seed=8))
+    flat = torch.empty(x.numel() + 2, dtype=dt, device=cuda_device)
+    xs = flat[2:].view(x.shape)
+    xs.copy_(x)
+    assert xs.is_contiguous() and xs.data_ptr() % 16
+    assert not kc.launch_plan(kind, t, c, h, k, dt, xs.data_ptr())["vector"]
+    fn, plain = fns(kind)
+    torch.testing.assert_close(fn(xs, w, pad, h).float(),
+                               plain(xs, w, pad, h).float(),
+                               **_tolerance(dt))
 
 
 @pytest.mark.cuda

@@ -411,3 +411,89 @@ def test_bf16_refuses_unaligned_views_on_card(cuda_device):
                                                kpm)
             torch.cuda.synchronize()
             torch.testing.assert_close(out, ref, **_tolerance(dt))
+
+
+# The module's route: head dims outside the kernels' contract take attend.
+@pytest.mark.parametrize("d", [4, 8, 16, 72, 128, 256])
+def test_head_dim_gate_follows_the_kernels_contract(d):
+    """True for a multiple of 8 up to 128, the head dims ``_check`` lets
+    through; false for the aux decoders' 4 (64-d, 16 heads) and the
+    encoder's 256 (512-d, 2 heads), which JAX runs on its plain path."""
+    assert ka.takes_head_dim(d) == (8 <= d <= 128)
+
+
+# (embed_dim, heads): head_dim 4 and 256 take attend, 16 and 128 the kernel
+GATE_WIDTHS = [(64, 16), (512, 2), (64, 4), (512, 4)]
+
+
+def _mha(embed, heads, device, dtype, seed=0):
+    from s2st_tpu_torch.nn.attention import MultiheadAttention
+    torch.manual_seed(seed)
+    return MultiheadAttention(embed, heads).to(device, dtype)
+
+
+def _mha_by_attend(m, x, kpm, causal):
+    """The module's function through the plain ``attend``, written out."""
+    from s2st_tpu_torch.nn.attention import attend, causal_mask, split_heads
+    from s2st_tpu_torch.nn.core import linear
+    b, t, c = x.shape
+    q = split_heads(linear(x, m.q_proj.weight, m.q_proj.bias) * m.scale,
+                    m.num_heads)
+    k = split_heads(linear(x, m.k_proj.weight, m.k_proj.bias), m.num_heads)
+    v = split_heads(linear(x, m.v_proj.weight, m.v_proj.bias), m.num_heads)
+    mask = causal_mask(t, x.device) if causal else None
+    out, _ = attend(q, k, v, kpm, mask)
+    return linear(out.reshape(b, t, c), m.out_proj.weight, m.out_proj.bias)
+
+
+@pytest.mark.parametrize("embed,heads", GATE_WIDTHS)
+def test_module_routes_by_head_dim_on_cpu(embed, heads, monkeypatch):
+    """MultiheadAttention calls flash_attention only for a head_dim the
+    kernels take, and then still matches attend."""
+    from s2st_tpu_torch.nn import attention as na
+    calls = []
+
+    def spy(*args, **kwargs):
+        calls.append(args[0].shape[-1])
+        return ka.flash_attention(*args, **kwargs)
+
+    monkeypatch.setattr(na, "flash_attention", spy)
+    m = _mha(embed, heads, "cpu", torch.float32)
+    r = np.random.RandomState(8)
+    x = torch.from_numpy(r.randn(2, 9, embed).astype(np.float32))
+    kpm = torch.from_numpy(np.arange(9)[None, :] >= np.array([[9], [6]]))
+    for causal in (False, True):
+        out, _ = m(x, x, x, kpm, causal=causal)
+        torch.testing.assert_close(out, _mha_by_attend(m, x, kpm, causal),
+                                   atol=1e-5, rtol=1e-5)
+    d = embed // heads
+    assert calls == ([d, d] if ka.takes_head_dim(d) else [])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("embed,heads", GATE_WIDTHS[:2])
+def test_module_takes_attend_for_head_dims_off_kernel_on_card(
+        cuda_device, embed, heads, dtype, causal):
+    """At head_dim 4 and 256 the module runs on the card through attend:
+    no exception, no kernel launch, and attend's result; the kernel itself
+    still refuses such a head_dim."""
+    dt = getattr(torch, dtype)
+    m = _mha(embed, heads, cuda_device, dt)
+    r = np.random.RandomState(9)
+    x = torch.from_numpy(r.randn(3, 21, embed).astype(np.float32)
+                         ).to(cuda_device, dt)
+    kpm = torch.arange(21, device=cuda_device)[None, :] >= torch.tensor(
+        [[21], [13], [5]], device=cuda_device)
+    before = ka.flash_attention.launches
+    out, _ = m(x, x, x, kpm, causal=causal)
+    ref = _mha_by_attend(m, x, kpm, causal)
+    torch.cuda.synchronize()
+    assert ka.flash_attention.launches == before
+    assert out.dtype == dt and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), **_tolerance(dt))
+    d = embed // heads
+    q = torch.zeros((3, 21, heads, d), device=cuda_device, dtype=dt)
+    with pytest.raises(ValueError, match="head_dim"):
+        ka.flash_attention(q, q, q, kpm)

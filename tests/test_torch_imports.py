@@ -191,3 +191,33 @@ def test_attention_tiles_forces_each_block_shape(w, s, tmp_path):
         strip = functools.partial(re.sub, attention_tiles._LAUNCH_SHAPE,
                                   r"\1\3", flags=re.S)
         assert strip(forced) == strip(original)
+
+
+def test_chip_smoke_conv_timing_fails_without_card():
+    """chip_smoke.py --conv-timing, the conv kernels' timing across trees,
+    exits non-zero with no result line here, with or without trees."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    for extra in ([], [str(REPO)]):
+        res = _run([str(REPO / "chip_smoke.py"), "--conv-timing", *extra])
+        assert res.returncode != 0
+        assert "conv_timing {" not in res.stdout
+
+
+def test_conv_batch_sums_follow_the_path_kernel_sizes():
+    """A beam batch sums the encoder's 7 launches (K = 3, 7, 15, 31 x 4),
+    a --score-reference batch the decoder's 6 (3, 7, 15, 31 x 3) on top."""
+    recs = {f"{side}_K{k}": {"kernel_graph_ms": k * scale,
+                             "bound_ms": scale}
+            for side, scale in (("encoder", 1.0), ("decoder", 100.0))
+            for k in (3, 7, 15, 31)}
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    sums = chip_smoke.conv_batch_sums(recs)
+    assert sums["batch_ms"] == {"beam": 149.0,
+                                "score_reference": 149.0 + 11800.0}
+    assert sums["batch_bound_ms"] == {"beam": 7.0,
+                                      "score_reference": 607.0}
