@@ -80,6 +80,23 @@ library's SASS, and the attention libraries must hold some.
 12. Run one batch of 10(a) (encode, beam loop) under torch.profiler and
    print each one's wall time, device kernel time, idle share and top
    kernels.
+13. Train through the runtime (run after 8, with 6(a)'s flags plus
+   --update-freq 2, --store-ema and --keep-last-epochs 2): time an update
+   at --update-freq 1 and 2 in the recipe's batches (a corpus of 256
+   utterances that --max-tokens 60000 cuts into 4 batches of 56-72; three
+   epochs each, no saves) and profile one update of such a batch as in
+   8; then, on 6(a)'s corpus in batches of 2 utterances, with
+   deterministic algorithms on, (A) 3 epochs uninterrupted and (B) the
+   same stopped by --max-update 3 in the
+   middle of epoch 2 with --save-interval-updates 3, then resumed from
+   checkpoint_last.npz to the end. B's checkpoint_last.npz and
+   checkpoint_last_ema.npz (parameters, statistics, Adam state, EMA) must
+   equal A's bit for bit; A must keep checkpoint2, checkpoint3,
+   checkpoint_last and checkpoint_last_ema (checkpoint1 removed); both
+   attention kernels must launch at least 27 times a microbatch in A; the
+   stage-6 average of A's last two epoch files must equal their numpy mean
+   and serve through generate_waveform. Prints ms per update, each save's
+   ms and MB, and the seconds the average took.
 
 Prints the card's name and power limit, one JSON line of kernel
 measurements, and, last, {"ok": true, "device": {...}}.
@@ -837,9 +854,11 @@ def backward_phase(card: str, train_lengths) -> dict:
     return main
 
 
-def write_train_corpus(root: Path, seed: int) -> None:
-    """8 training utterances of 80-d fbank with 80-d log-mel targets
-    (0.6 target frames a source frame), 20-40 phones and 8-20 words each,
+def write_train_corpus(root: Path, seed: int,
+                       frames=TRAIN_FRAMES) -> None:
+    """Training utterances of ``frames`` source frames (8 by default) of
+    80-d fbank with 80-d log-mel targets (0.6 target frames a source
+    frame), 20-40 phones and 8-20 words each,
     the two dictionaries, one serving utterance, GCMVN stats and the
     config.yaml get_feature_manifest.py writes (SpecAugment on train)."""
     r = np.random.RandomState(seed)
@@ -848,7 +867,7 @@ def write_train_corpus(root: Path, seed: int) -> None:
     header = ("id\tsrc_audio\ttgt_audio\tsrc_n_frames\ttgt_n_frames\t"
               "src_text\ttgt_text\tspeaker\n")
     rows, srcs, tgts = [], [], []
-    for i, n in enumerate(TRAIN_FRAMES):
+    for i, n in enumerate(frames):
         src = (r.randn(n, 80) * 3.0 + 8.0).astype(np.float32)
         tgt = (r.randn(int(0.6 * n), 80) * 2.5 - 6.0).astype(np.float32)
         np.save(feat_dir / f"utt{i}_src.npy", src)
@@ -1118,12 +1137,15 @@ def train_agreement_phase(card: str) -> None:
         raise AssertionError("train agreement: loss or grad norm differ")
 
 
-def train_profile_phase(card: str, data: Path) -> None:
-    """Phase 8: one bf16 update of 6(a)'s model and batch under
+def train_profile_phase(card: str, data: Path,
+                        label: str = "train_update") -> None:
+    """Phase 8: one bf16 update of 6(a)'s model and batch (the corpus's
+    first batch under --max-tokens 60000, as the train CLI cuts it) under
     torch.profiler, after two warm-up updates."""
     from s2st_tpu_torch.cli import train
     from s2st_tpu_torch.data.data_cfg import S2STDataConfig
     from s2st_tpu_torch.data.dictionary import Dictionary
+    from s2st_tpu_torch.data.iterators import EpochBatchIterator
     from s2st_tpu_torch.data.s2st_dataset import TrainSplit, to_device
     from s2st_tpu_torch.models.config_from_args import model_config
     from s2st_tpu_torch.models.s2st_transformer import S2STTransformer
@@ -1140,29 +1162,231 @@ def train_profile_phase(card: str, data: Path) -> None:
                        n_frames_per_step=4)
     model = S2STTransformer(cfg).init_weights(1).to("cuda")
     trainer = Trainer(model, train.loss_config(args), schedule_from_args(args),
-                      clip_norm=1.0,
-                      generator=torch.Generator("cuda").manual_seed(2))
-    batch = to_device(split.collate_indices(split.batches(60000, None, 1)[0]),
-                      "cuda")
+                      clip_norm=1.0)
+    batch = to_device(next(EpochBatchIterator(
+        split, 60000, required_batch_size_multiple=8).next_epoch_itr()),
+        "cuda")
+
+    def update():
+        return trainer.train_step(
+            batch, [torch.Generator("cuda").manual_seed(trainer.step)])
     for _ in range(2):
-        trainer.train_step(batch)
-    _, wall, busy, launches, top = _profiled(lambda: trainer.train_step(batch))
-    print(f"profile train_update: wall_ms {wall:.3f}, device_kernel_ms "
-          f"{busy:.3f} in {launches} device activities, idle share "
-          f"{1 - busy / wall:.3f} ({card})", flush=True)
+        update()
+    _, wall, busy, launches, top = _profiled(update)
+    print(f"profile {label}: rows {batch['src_speech'].shape[0]}, source "
+          f"frames {batch['src_speech'].shape[1]}, wall_ms {wall:.3f}, "
+          f"device_kernel_ms {busy:.3f} in {launches} device activities, "
+          f"idle share {1 - busy / wall:.3f} ({card})", flush=True)
     for key, ms, count in top[:6]:
-        print(f"profile train_update:   {ms:9.3f} ms  {count:6d}x  "
+        print(f"profile {label}:   {ms:9.3f} ms  {count:6d}x  "
               f"{key[:60]}", flush=True)
     attn = [(re.search(r"(flash_fwd|attn_bwd)\w*(<[\d, ]+>)?", key), ms,
              count)
             for key, ms, count in top]
     attn = [(m.group(0), ms, count) for m, ms, count in attn if m]
     attn_ms = sum(ms for _, ms, _ in attn)
-    print(f"profile train_update: attention kernels {attn_ms:.3f} ms of "
+    print(f"profile {label}: attention kernels {attn_ms:.3f} ms of "
           f"{busy:.3f} ms device time ({attn_ms / busy:.3f}): "
           + "; ".join(f"{name} {ms:.3f} ms {count}x"
                       for name, ms, count in attn)
           + f" ({card})", flush=True)
+
+
+def runtime_argv(data: Path, save: Path, *extra, small=True) -> list:
+    """Phase 13's flags: the recipe's stage-5 line with --update-freq 2,
+    the kernel configuration (--use-flash-attention --attention-dropout
+    0), EMA, --keep-last-epochs 2 and, with ``small``, batches of 2
+    utterances (on 6(a)'s corpus, 4 an epoch, 2 updates); else the
+    recipe's batches of --max-tokens 60000."""
+    return recipe_train_argv(data, save, 100000) + [
+        "--use-flash-attention", "--attention-dropout", "0",
+        "--update-freq", "2", "--store-ema", "--keep-last-epochs", "2",
+        *(["--batch-size", "2"] if small else []), *extra]
+
+
+# Phase 13's timing corpus: 256 utterances of 600-1000 source frames, which
+# --max-tokens 60000 (and --required-batch-size-multiple 8) cuts into 4
+# batches of 56, 64, 72 and 64 utterances, padded to 1024, 1024, 896 and
+# 768 frames: the recipe's batch of about 60 utterances.
+RECIPE_BATCH_FRAMES = tuple(np.random.RandomState(11).randint(600, 1001, 256))
+
+
+def run_counted(argv) -> tuple:
+    """One run of the port's train CLI with the attention kernels' counts
+    set to 0 just before it; returns (forward, backward) launches."""
+    from s2st_tpu_torch.cli import train
+    from s2st_tpu_torch.kernels import attention as ka
+    ka.flash_attention.launches = ka.flash_attention.bwd_launches = 0
+    if train.main(argv) != 0:
+        raise AssertionError(f"train {argv[-6:]} failed")
+    torch.cuda.synchronize()
+    return ka.flash_attention.launches, ka.flash_attention.bwd_launches
+
+
+class TimedSaves:
+    """Times each checkpoint the train CLI writes, from the device-to-host
+    copy of its state (``state_flat``) to the last name's link, with the
+    file's size."""
+
+    def __enter__(self):
+        from s2st_tpu_torch.cli import train
+        self.train, self.records = train, []
+        self.flat, self.save = train.state_flat, train.CheckpointManager.save
+
+        def flat(trainer):
+            torch.cuda.synchronize()
+            self.t0 = time.perf_counter()
+            return self.flat(trainer)
+
+        def save(mgr, *args, **kw):
+            paths = self.save(mgr, *args, **kw)
+            self.records.append({
+                "ms": (time.perf_counter() - self.t0) * 1e3,
+                "mb": Path(paths[0]).stat().st_size / 1e6,
+                "names": [Path(p).name for p in paths]})
+            return paths
+        train.state_flat, train.CheckpointManager.save = flat, save
+        return self
+
+    def __exit__(self, *exc):
+        self.train.state_flat = self.flat
+        self.train.CheckpointManager.save = self.save
+
+
+class Deterministic:
+    """cuDNN's deterministic convolutions and PyTorch's deterministic
+    algorithms (scatter-add by sorting), so that two runs of the same
+    updates give the same bits; the other kernels of the path (the
+    attention kernels, cuBLAS on one stream) are deterministic already."""
+
+    def __enter__(self):
+        self.cudnn = torch.backends.cudnn.deterministic
+        self.fill = torch.utils.deterministic.fill_uninitialized_memory
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.utils.deterministic.fill_uninitialized_memory = False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.deterministic = self.cudnn
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = self.fill
+
+
+def recipe_batch_timing(root: Path, card: str) -> dict:
+    """Phase 13's timing: ms per update at --update-freq 1 and 2 in the
+    recipe's batches (RECIPE_BATCH_FRAMES), 3 epochs each without saves;
+    the mean over epochs 2 and 3, where each batch shape has run once.
+    Then one update of the first batch under torch.profiler (phase 8's
+    readings at the recipe's batch)."""
+    from s2st_tpu_torch.data.iterators import batch_by_size, ordered_indices
+    data = root / "recipe_batch"
+    write_train_corpus(data, seed=5, frames=RECIPE_BATCH_FRAMES)
+    lengths = np.asarray(RECIPE_BATCH_FRAMES)
+    sizes = [len(b) for b in batch_by_size(
+        ordered_indices(lengths, True, 1, 1), lengths, 60000, None, 8)]
+    out = {"batches": sizes}
+    for uf in (1, 2):
+        save = root / f"uf{uf}"
+        save.mkdir()
+        torch.cuda.reset_peak_memory_stats()
+        run_counted(runtime_argv(data, save, "--update-freq", str(uf),
+                                 "--max-epoch", "3", "--no-save",
+                                 small=False))
+        log = [json.loads(line) for line in
+               (save / "log.jsonl").read_text().splitlines()]
+        want = 3 * len(sizes) // uf
+        if len(log) != want or not all(np.isfinite(r["loss"]) for r in log):
+            raise AssertionError(f"update-freq {uf}: {len(log)} updates in "
+                                 f"3 epochs; want {want}, finite losses")
+        steady = [r["step_ms"] for r in log if r["epoch"] > 1]
+        out[uf] = {"ms": sum(steady) / len(steady), "min_ms": min(steady),
+                   "max_ms": max(steady), "first_ms": log[0]["step_ms"],
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"train runtime: ms/update in the recipe's batches ({sizes} "
+          f"utterances, --max-tokens 60000), mean of epochs 2-3: "
+          + ", ".join(f"--update-freq {uf}: {out[uf]['ms']:.3f} (min "
+                      f"{out[uf]['min_ms']:.3f}, max {out[uf]['max_ms']:.3f}"
+                      f", first {out[uf]['first_ms']:.1f}; peak memory "
+                      f"{out[uf]['peak_gib']:.2f} GiB)" for uf in (1, 2))
+          + f" ({card})", flush=True)
+    train_profile_phase(card, data, "train_update_recipe_batch")
+    return out
+
+
+def runtime_phase(card: str, data: Path) -> dict:
+    """Phase 13: the training runtime at the recipe's width: ms per update
+    in the recipe's batches, then resume, retention and averaging on
+    6(a)'s corpus in batches of 2 utterances at --update-freq 2."""
+    from s2st_tpu_torch.cli import average_checkpoints
+    from s2st_tpu_torch.train.checkpoint import load_checkpoint_file
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_runtime_"))
+    try:
+        out = {"ms_per_update": recipe_batch_timing(root, card)}
+        with Deterministic():
+            with TimedSaves() as saves:
+                fwd, bwd = run_counted(runtime_argv(data, root / "a",
+                                                    "--max-epoch", "3"))
+            micro = 3 * 4
+            if fwd < 27 * micro or bwd < 27 * micro:
+                raise AssertionError(f"train runtime (A): {fwd} forward and "
+                                     f"{bwd} backward launches over {micro} "
+                                     f"microbatches; want >= 27 each")
+            run_counted(runtime_argv(data, root / "b", "--max-epoch", "3",
+                                     "--max-update", "3",
+                                     "--save-interval-updates", "3"))
+            run_counted(runtime_argv(data, root / "b", "--max-epoch", "3"))
+        files = sorted(p.name for p in (root / "a").glob("*.npz"))
+        want = ["checkpoint2.npz", "checkpoint3.npz", "checkpoint_last.npz",
+                "checkpoint_last_ema.npz"]
+        if files != want:
+            raise AssertionError(f"train runtime (A) kept {files}; want "
+                                 f"{want}")
+        keys = 0
+        for name in ("checkpoint_last.npz", "checkpoint_last_ema.npz"):
+            a, _ = load_checkpoint_file(str(root / "a" / name))
+            b, _ = load_checkpoint_file(str(root / "b" / name))
+            diff = sorted(k for k in a if k not in b
+                          or not np.array_equal(a[k], b[k]))
+            if diff or set(a) != set(b):
+                raise AssertionError(f"train runtime: the resumed run's "
+                                     f"{name} differs from the "
+                                     f"uninterrupted run's in {diff[:5]}")
+            keys += len(a)
+        avg = root / "avg.npz"
+        t0 = time.perf_counter()
+        if average_checkpoints.main(["--inputs", str(root / "a"),
+                                     "--num-epoch-checkpoints", "2",
+                                     "--output", str(avg)]) != 0:
+            raise AssertionError("average_checkpoints failed")
+        out["average_s"] = time.perf_counter() - t0
+        got, _ = load_checkpoint_file(str(avg))
+        pair = [load_checkpoint_file(str(root / "a" / f"checkpoint{e}.npz"))[0]
+                for e in (2, 3)]
+        for k, v in got.items():
+            if k.startswith("params::"):
+                mean = np.mean([pair[0][k].astype(np.float64),
+                                pair[1][k].astype(np.float64)], axis=0)
+                if not np.array_equal(v, mean.astype(v.dtype)):
+                    raise AssertionError(f"average: {k} is not the mean of "
+                                         f"checkpoint2 and checkpoint3")
+        serve_from_checkpoint(root, data, avg)
+        out.update(fwd_launches=fwd, bwd_launches=bwd, microbatches=micro,
+                   saves=saves.records)
+        print(f"train runtime: resumed run (stopped at update 3 in epoch 2) "
+              f"equals the uninterrupted run bit for bit in {keys} arrays "
+              f"(parameters, statistics, Adam state, EMA; deterministic "
+              f"algorithms on); A kept {files}; attention launches fwd {fwd} "
+              f"bwd {bwd} over {micro} microbatches ({card})", flush=True)
+        print(f"train runtime: checkpoint saves (device copy, write, "
+              f"links): "
+              + ", ".join(f"{r['ms']:.1f} ms for {r['mb']:.1f} MB "
+                          f"{'+'.join(r['names'])}" for r in saves.records)
+              + f"; average of 2 files {out['average_s']:.3f} s, equal to "
+              f"their numpy mean; served from the average ({card})",
+              flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # --------------------------------------------------------------------------
@@ -1706,6 +1930,7 @@ def main(argv=None) -> int:
     try:
         train_agreement_phase(card)
         train_profile_phase(card, trained["data"])
+        runtime = runtime_phase(card, trained["data"])
     finally:
         shutil.rmtree(trained["work"], ignore_errors=True)
     conv = conv_kernel_phase(card)
@@ -1727,7 +1952,8 @@ def main(argv=None) -> int:
         "design": ka.DESIGNS,
         "launches": served["launches"],
         "launches_by_path": {"serve": served["launches"],
-                             "train": a["fwd_launches"]},
+                             "train": a["fwd_launches"],
+                             "train_runtime": runtime["fwd_launches"]},
         "max_abs_err": serving["max_abs_err"],
         "ms": serving["kernel_graph_ms"],
         "plain_ms": serving["plain_graph_ms"],
@@ -1742,6 +1968,8 @@ def main(argv=None) -> int:
         "replaces": "s2st_tpu/nn/attention.py:85",
         "design": ka.DESIGNS,
         "launches": a["bwd_launches"],
+        "launches_by_path": {"train": a["bwd_launches"],
+                             "train_runtime": runtime["bwd_launches"]},
         "launches_per_update": a["bwd_launches"] / a["updates"],
         "max_abs_err": bwd["max_abs_err"],
         "ms": bwd["bwd_graph_ms"],

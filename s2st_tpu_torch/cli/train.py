@@ -1,27 +1,36 @@
-"""Training: the stage-5 entry point of the port.
+"""Training: stage 5 of the recipe through the port.
 
-Counterpart of the stage-5 part of ``s2st_tpu/cli/train.py::main``
-(:28-600) for ``--task s2s_translation --criterion s2st_loss --arch
-s2st_transformer``: dictionaries and data config from ``<data>``, a seeded
-random model, Adam with the inverse-sqrt schedule as the JAX CLI builds
-it, one update per batch, and ``<save-dir>/checkpoint_last.npz`` in the
-JAX layout at the end of every epoch and of the run. Runs on CUDA unless
-``--device`` names another device. ``--fp16`` computes in bf16 over fp32
-parameters.
+Counterpart of ``s2st_tpu/cli/train.py::main`` (:28-600) for ``--task
+s2s_translation --criterion s2st_loss --arch s2st_transformer``:
+dictionaries and data config from ``<data>``, a seeded random model, Adam
+with the inverse-sqrt schedule as the JAX CLI builds it, the JAX CLI's
+epoch batches (``data/iterators.py``) grouped by ``--update-freq`` (a list
+over epochs, :440), and its checkpoints: resume from
+``<save-dir>/checkpoint_last.npz`` or ``--restore-file`` (:234-295, with
+``--reset-optimizer`` and ``--reset-dataloader``), ``checkpoint{epoch}``
+every ``--save-interval`` epochs, ``checkpoint_{epoch}_{updates}`` every
+``--save-interval-updates`` updates with the iterator's position counted
+in consumed batches (:522-582), ``checkpoint_last`` each time, the
+retention flags, and ``checkpoint_last_ema.npz`` under ``--store-ema``
+(:317-339, :409-421). Runs on CUDA unless ``--device`` names another
+device. ``--fp16`` computes in bf16 over fp32 parameters.
 
     python -m s2st_tpu_torch.cli.train <data> --config-yaml config.yaml \\
         --train-subset train --save-dir ckpt --max-tokens 60000 \\
         --max-update 100000 --task s2s_translation --criterion s2st_loss \\
         --arch s2st_transformer <the recipe's stage-5 flags>
 
-Every ``--log-interval`` updates the step's metrics (the loss terms,
-``gnorm``, ``lr``, ``step_ms`` on the host clock with the device
-synchronised) go to stdout and, with ``--log-file``, to that file as JSON
-lines. Flags of later slices raise (``--update-freq`` > 1,
-``--restore-file``, ``--eval-inference`` without ``--disable-validation``,
-``--use-hubert True``, ``--store-ema``, ``--encoder-layerdrop``,
-``--weight-decay``); the log-format, tensorboard, validation and
-checkpoint-keeping flags are accepted and ignored with a logged line.
+Dropout and LayerDrop draw from streams of the port's own, seeded for each
+update from (seed, epoch, updates so far) and for each microbatch from its
+index, so that a resumed run draws what the uninterrupted run drew (as
+JAX's ``fold_in``, :464-465, does for its own stream). Every
+``--log-interval`` updates the update's metrics (the loss terms, ``gnorm``,
+``lr``, ``step_ms`` on the host clock with the device synchronised) go to
+stdout and, with ``--log-file``, to that file as JSON lines. Flags of
+later slices raise: validation (without ``--disable-validation``) and its
+flags, ``--write-checkpoints-asynchronously``, ``--use-hubert True``; the
+log-format, tensorboard and worker flags are accepted and ignored with a
+logged line.
 """
 
 from __future__ import annotations
@@ -35,15 +44,19 @@ import time
 from pathlib import Path
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from ..data.data_cfg import S2STDataConfig
 from ..data.dictionary import Dictionary
+from ..data.iterators import EpochBatchIterator, GroupedIterator
 from ..data.s2st_dataset import TrainSplit, to_device
 from ..models.config_from_args import add_model_args, model_config
-from ..models.jax_bridge import write_jax_checkpoint
-from ..models.s2st_transformer import S2STTransformer
+from ..models.s2st_transformer import S2STTransformer, encoder_layer_keep
 from ..nn.core import resolve_device
+from ..train.checkpoint import (CheckpointManager, ema_flat, load_ema,
+                                restore_state, state_flat, write_npz)
+from ..train.ema import EMAConfig, ema_step, init_ema
 from ..train.losses import LossConfig
 from ..train.optim import schedule_from_args
 from ..train.trainer import Trainer
@@ -51,11 +64,9 @@ from ..train.trainer import Trainer
 logger = logging.getLogger("s2st_tpu_torch.train")
 
 # accepted for the recipe's command line, with no effect in this port
-IGNORED = ("valid_subset", "num_workers", "best_checkpoint_metric",
-           "report_accuracy", "skip_invalid_size_inputs_valid_test",
-           "log_format", "tensorboard_logdir",
-           "validate_after_updates", "keep_best_checkpoints",
-           "keep_last_epochs", "load_pretrained_hubert_from")
+IGNORED = ("valid_subset", "num_workers", "report_accuracy", "log_format",
+           "tensorboard_logdir", "validate_after_updates",
+           "load_pretrained_hubert_from")
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -66,10 +77,12 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--criterion", default="s2st_loss", choices=["s2st_loss"])
     p.add_argument("--config-yaml", default="config.yaml")
     p.add_argument("--train-subset", default="train")
-    p.add_argument("--save-dir", default="checkpoints")
-    p.add_argument("--no-save", action="store_true")
     p.add_argument("--max-tokens", type=int, default=40000)
     p.add_argument("--batch-size", "--max-sentences", type=int, default=None)
+    p.add_argument("--required-batch-size-multiple", type=int, default=8)
+    p.add_argument("--num-batch-buckets", type=int, default=0)
+    p.add_argument("--skip-invalid-size-inputs-valid-test",
+                   action="store_true")
     p.add_argument("--max-update", type=int, default=0)
     p.add_argument("--max-epoch", type=int, default=0)
     p.add_argument("--seed", type=int, default=1)
@@ -82,6 +95,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--optimizer", default="adam", choices=["adam"])
     p.add_argument("--adam-betas", default="(0.9, 0.98)")
     p.add_argument("--adam-eps", type=float, default=1e-8)
+    p.add_argument("--adam-bf16-stats", action="store_true",
+                   help="store Adam's moments in bfloat16")
     p.add_argument("--weight-decay", type=float, default=0.0)
     p.add_argument("--lr", default="0.001")
     p.add_argument("--lr-scheduler", default="inverse_sqrt")
@@ -89,6 +104,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup-init-lr", type=float, default=-1.0)
     p.add_argument("--clip-norm", type=float, default=0.0)
     p.add_argument("--update-freq", default="1")
+    p.add_argument("--encoder-layerdrop", type=float, default=0.0)
     # loss (options.py:480-493)
     p.add_argument("--bce-pos-weight", type=float, default=5.0)
     p.add_argument("--use-guided-attention-loss", action="store_true")
@@ -99,12 +115,32 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--eos-loss-weight", type=float, default=1.0)
     p.add_argument("--attn-loss-weight", type=float, default=1.0)
     p.add_argument("--sentence-avg", action="store_true")
-    # later slices: raise when set
-    p.add_argument("--restore-file", default=None)
+    # checkpoints (options.py:526-556)
+    p.add_argument("--save-dir", default="checkpoints")
+    p.add_argument("--restore-file", default="checkpoint_last.npz")
+    p.add_argument("--reset-optimizer", action="store_true")
+    p.add_argument("--reset-dataloader", action="store_true")
+    p.add_argument("--save-interval", type=int, default=1)
+    p.add_argument("--save-interval-updates", type=int, default=0)
+    p.add_argument("--keep-interval-updates", type=int, default=-1)
+    p.add_argument("--keep-best-checkpoints", type=int, default=-1)
+    p.add_argument("--keep-last-epochs", type=int, default=-1)
+    p.add_argument("--no-epoch-checkpoints", action="store_true")
+    p.add_argument("--no-save", action="store_true")
+    p.add_argument("--best-checkpoint-metric", default="loss")
+    p.add_argument("--maximize-best-checkpoint-metric", action="store_true")
+    # EMA (options.py:557-562)
+    p.add_argument("--store-ema", action="store_true")
+    p.add_argument("--ema-decay", type=float, default=0.9999)
+    p.add_argument("--ema-start-update", type=int, default=0)
+    p.add_argument("--ema-update-freq", type=int, default=1)
+    # later slices: raise when they would act
     p.add_argument("--eval-inference", action="store_true")
     p.add_argument("--disable-validation", action="store_true")
-    p.add_argument("--store-ema", action="store_true")
-    p.add_argument("--encoder-layerdrop", type=float, default=0.0)
+    p.add_argument("--validate-interval-updates", type=int, default=0)
+    p.add_argument("--patience", type=int, default=-1)
+    p.add_argument("--write-checkpoints-asynchronously", "--save-async",
+                   action="store_true")
     p.add_argument("--use-flash-attention", action="store_true",
                    help="JAX's switch to its attention kernel; the port takes "
                    "its kernels wherever the function allows (no attention "
@@ -120,19 +156,14 @@ def get_parser() -> argparse.ArgumentParser:
 def check_args(args: argparse.Namespace) -> None:
     """Raise on what this slice does not port; log what it ignores."""
     later = []
-    if [x for x in str(args.update_freq).split(",") if int(x) != 1]:
-        later.append("--update-freq > 1 (gradient accumulation)")
-    if args.restore_file:
-        later.append("--restore-file (resume)")
-    if args.eval_inference and not args.disable_validation:
-        later.append("--eval-inference without --disable-validation "
-                     "(validation)")
-    if args.store_ema:
-        later.append("--store-ema")
-    if args.encoder_layerdrop > 0:
-        later.append("--encoder-layerdrop")
-    if args.weight_decay != 0.0:
-        later.append("--weight-decay")
+    if not args.disable_validation:
+        later.append("validation (pass --disable-validation)")
+    if args.validate_interval_updates > 0:
+        later.append("--validate-interval-updates (validation)")
+    if args.patience > 0:
+        later.append("--patience (validation)")
+    if args.write_checkpoints_asynchronously:
+        later.append("--write-checkpoints-asynchronously (sync saves only)")
     if later:
         raise NotImplementedError("not ported yet: " + ", ".join(later))
     for name in IGNORED:
@@ -160,6 +191,26 @@ def args_echo(args: argparse.Namespace) -> dict:
             if isinstance(v, (bool, int, float, str, type(None)))}
 
 
+def stream_seed(*words: int) -> int:
+    """A 64-bit seed from integers (numpy's SeedSequence)."""
+    return int(np.random.SeedSequence([w % 2 ** 32 for w in words])
+               .generate_state(1, np.uint64)[0])
+
+
+def update_streams(args, cfg, epoch: int, num_updates: int, n: int,
+                   device: torch.device):
+    """For each of the update's n microbatches, its dropout generator and
+    its LayerDrop decisions, from (seed, epoch, updates so far, microbatch),
+    as JAX folds the microbatch's index into the update's key
+    (s2st_tpu/train/trainer.py:509) and draws each layer's keep from it
+    (s2st_tpu/models/s2st_transformer.py:406-412)."""
+    gens = [torch.Generator(device).manual_seed(
+        stream_seed(0, args.seed, epoch, num_updates, i)) for i in range(n)]
+    keeps = [encoder_layer_keep(cfg, torch.Generator().manual_seed(
+        stream_seed(1, args.seed, epoch, num_updates, i))) for i in range(n)]
+    return gens, keeps
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     logging.basicConfig(
         level=logging.INFO,
@@ -175,32 +226,87 @@ def main(argv: Optional[List[str]] = None) -> int:
     cfg = model_config(args, len(dicts[0]), len(dicts[1]),
                        data_cfg.input_feat_per_channel)
     split = TrainSplit(args.data, data_cfg, args.train_subset, *dicts,
-                       n_frames_per_step=args.n_frames_per_step,
-                       seed=args.seed)
+                       n_frames_per_step=args.n_frames_per_step)
     model = S2STTransformer(cfg).init_weights(args.seed).to(device)
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"model params: {n_params:,}; {len(split)} utterances in "
                 f"{args.train_subset}; compute {cfg.dtype} on {device}")
-    generator = torch.Generator(device).manual_seed(args.seed + 1)
     trainer = Trainer(model, loss_config(args), schedule_from_args(args),
                       clip_norm=args.clip_norm,
                       betas=tuple(float(b) for b in
                                   str(args.adam_betas).strip("()[] ")
                                   .split(",")),
-                      eps=args.adam_eps, generator=generator)
-    save_path = Path(args.save_dir) / "checkpoint_last.npz"
-    if save_path.is_file() and not args.no_save:
-        logger.info(f"{save_path} exists and is not resumed (resume is not "
-                    f"ported); it will be overwritten")
+                      eps=args.adam_eps, weight_decay=args.weight_decay,
+                      stats_dtype=torch.bfloat16 if args.adam_bf16_stats
+                      else None)
 
-    def save(epoch: int, num_updates: int):
-        if args.no_save:
-            return
-        save_path.parent.mkdir(parents=True, exist_ok=True)
-        write_jax_checkpoint(str(save_path), model, meta={
-            "args": args_echo(args), "step": trainer.step, "epoch": epoch,
-            "num_updates": num_updates})
-        logger.info(f"saved {save_path} (step {trainer.step})")
+    mgr = None if args.no_save else CheckpointManager(
+        args.save_dir, args.best_checkpoint_metric,
+        args.maximize_best_checkpoint_metric, args.keep_best_checkpoints,
+        args.keep_last_epochs, args.keep_interval_updates,
+        args.no_epoch_checkpoints)
+    # --restore-file: the default name means <save-dir>/checkpoint_last.npz;
+    # another is looked for as given, then under --save-dir
+    restore_path, restored_from_last = None, False
+    if args.restore_file and args.restore_file not in (
+            "checkpoint_last.npz", "checkpoint_last.pt"):
+        for cand in (Path(args.restore_file),
+                     Path(args.save_dir) / args.restore_file):
+            if cand.is_file():
+                restore_path = str(cand)
+                break
+        if restore_path is None:
+            logger.warning(f"--restore-file {args.restore_file} not found; "
+                           f"starting fresh")
+    elif mgr is not None:
+        restore_path = mgr.last_checkpoint()
+        restored_from_last = restore_path is not None
+    start_epoch, itr_state = 1, None
+    if restore_path:
+        meta = restore_state(trainer, restore_path, args.reset_optimizer)
+        if not args.reset_dataloader:
+            start_epoch = int(meta.get("epoch", 0)) + 1
+            itr_state = meta.get("iterator")
+        logger.info(f"resumed from {restore_path} at step {trainer.step}")
+
+    epoch_itr = EpochBatchIterator(
+        split, args.max_tokens, args.batch_size, seed=args.seed,
+        required_batch_size_multiple=args.required_batch_size_multiple,
+        max_positions=(args.max_source_positions
+                       if args.skip_invalid_size_inputs_valid_test else None),
+        num_batch_buckets=args.num_batch_buckets)
+    if not epoch_itr.frozen_batches():
+        raise ValueError(f"no batch of {args.train_subset} fits "
+                         f"--max-tokens {args.max_tokens}")
+    if itr_state:
+        epoch_itr.load_state_dict(itr_state)
+        start_epoch = epoch_itr.epoch
+    num_updates = trainer.step
+    update_freq = [int(x) for x in str(args.update_freq).split(",")]
+
+    ema, ema_cfg = None, None
+    ema_path = Path(args.save_dir) / "checkpoint_last_ema.npz"
+    if args.store_ema:
+        ema_cfg = EMAConfig(args.ema_decay, args.ema_start_update,
+                            args.ema_update_freq)
+        ema = init_ema(trainer.params)
+        # the shadow belongs to checkpoint_last: restored only with it
+        if restored_from_last and not args.reset_optimizer and \
+                ema_path.is_file():
+            load_ema(trainer, ema, str(ema_path))
+            logger.info(f"restored EMA params from {ema_path}")
+
+    echo = args_echo(args)
+
+    def save(epoch: int, itr_sd: dict, end_of_epoch: bool,
+             updates: Optional[int] = None) -> None:
+        meta = {"iterator": itr_sd, "lr_scale": 1.0, "best_val": None,
+                "patience_left": args.patience, "args": echo}
+        mgr.save(state_flat(trainer), trainer.step, epoch,
+                 end_of_epoch=end_of_epoch, num_updates=updates,
+                 extra_meta=meta)
+        if ema is not None:
+            write_npz(str(ema_path), ema_flat(trainer, ema))
 
     def sync():
         if device.type == "cuda":
@@ -208,20 +314,24 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     max_update = args.max_update or math.inf
     max_epoch = args.max_epoch or math.inf
-    num_updates, epoch = 0, 1
-    while num_updates < max_update and epoch <= max_epoch:
-        batches = split.batches(args.max_tokens, args.batch_size, epoch)
-        if not batches:
-            raise ValueError(f"no batch of {args.train_subset} fits "
-                             f"--max-tokens {args.max_tokens}")
-        for indices in batches:
-            batch = to_device(split.collate_indices(indices, epoch), device)
+    epoch, stop = start_epoch, False
+    while not stop and epoch <= max_epoch:
+        uf = update_freq[min(epoch - 1, len(update_freq) - 1)]
+        batches_done = epoch_itr.iterations_in_epoch
+        broke_mid_epoch = False
+        for group in GroupedIterator(epoch_itr.next_epoch_itr(), uf):
+            microbatches = [to_device(b, device) for b in group]
+            gens, keeps = update_streams(args, cfg, epoch, num_updates,
+                                         len(group), device)
             sync()
             t0 = time.perf_counter()
-            metrics = trainer.train_step(batch)
+            metrics = trainer.train_step(microbatches, gens, keeps)
             sync()
             step_ms = (time.perf_counter() - t0) * 1e3
             num_updates += 1
+            batches_done += len(group)
+            if ema is not None:
+                ema_step(ema_cfg, ema, trainer.params, trainer.step)
             if not math.isfinite(metrics["gnorm"]):
                 logger.warning(f"update {num_updates}: non-finite gradient "
                                f"norm; update skipped")
@@ -234,9 +344,23 @@ def main(argv: Optional[List[str]] = None) -> int:
                 if args.log_file:
                     with open(args.log_file, "a") as f:
                         f.write(line + "\n")
+            if mgr is not None and args.save_interval_updates > 0 and \
+                    num_updates % args.save_interval_updates == 0:
+                # the iterator's position counts consumed batches
+                save(epoch, {"epoch": epoch, "iterations_in_epoch":
+                             batches_done, "shuffle": True}, False,
+                     num_updates)
             if num_updates >= max_update:
+                stop = broke_mid_epoch = True
                 break
-        save(epoch, num_updates)
+        logger.info(f"end of epoch {epoch} at update {num_updates}")
+        if mgr is not None:
+            if broke_mid_epoch:
+                save(epoch, {"epoch": epoch, "iterations_in_epoch":
+                             batches_done, "shuffle": True}, False,
+                     num_updates if args.save_interval_updates > 0 else None)
+            elif epoch % args.save_interval == 0:
+                save(epoch, epoch_itr.state_dict(), True)
         epoch += 1
     logger.info(f"done training at update {num_updates} (step "
                 f"{trainer.step})")

@@ -6,10 +6,10 @@ batching in ``s2st_tpu/data/iterators.py`` that the translation task's
 
 - a sample's batching cost is max(source, target) tokens;
 - samples go in descending cost order, ties by descending index
-  (``ordered_indices``);
+  (``iterators.ordered_indices``);
 - batches fill to ``--max-tokens`` (rows x longest cost) and
   ``--batch-size`` rows, cut to a multiple of
-  ``--required-batch-size-multiple`` (``batch_by_size``);
+  ``--required-batch-size-multiple`` (``iterators.batch_by_size``);
 - collate sorts a batch's rows by descending source length, LEFT-pads the
   sources, right-pads the targets, and builds ``prev_output_tokens`` as the
   target with its EOS moved to the front.
@@ -27,6 +27,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from .iterators import batch_by_size, ordered_indices
 
 PAD = 1
 
@@ -66,7 +68,7 @@ class LanguagePairDataset:
                 required_batch_size_multiple: int = 1,
                 max_positions: Optional[int] = None) -> List[np.ndarray]:
         lengths = self.num_tokens()
-        order = ordered_indices(lengths)
+        order = ordered_indices(lengths, False, 0, 0)
         if max_positions is not None:
             order = order[lengths[order] <= max_positions]
         return batch_by_size(order, lengths, max_tokens, max_sentences,
@@ -106,42 +108,3 @@ class LanguagePairDataset:
         batch["target_lengths"] = torch.tensor([len(it.target)
                                                 for it in items])
         return batch
-
-
-def ordered_indices(lengths: np.ndarray) -> np.ndarray:
-    """Descending length, ties by descending index
-    (``iterators.py::ordered_indices`` without shuffling)."""
-    return np.lexsort((np.arange(len(lengths)), lengths))[::-1]
-
-
-def batch_by_size(indices: np.ndarray, lengths: np.ndarray, max_tokens: int,
-                  max_sentences: Optional[int] = None,
-                  required_batch_size_multiple: int = 1
-                  ) -> List[np.ndarray]:
-    """Token-budget batches over pre-ordered indices (data_utils_fast's
-    batch_by_size_vec, as ``iterators.py::batch_by_size``): a batch costs
-    rows x its longest sample; a sample longer than ``max_tokens`` is
-    skipped; a full batch is cut to a multiple of
-    ``required_batch_size_multiple`` and its remainder starts the next."""
-    mult = required_batch_size_multiple
-    batches: List[np.ndarray] = []
-    cur: List[int] = []
-    cur_max = 0
-    for idx in indices:
-        ln = int(lengths[idx])
-        if ln > max_tokens:
-            continue
-        new_max = max(cur_max, ln)
-        if cur and ((len(cur) + 1) * new_max > max_tokens
-                    or (max_sentences and len(cur) >= max_sentences)):
-            bs = max(len(cur) // mult * mult, 1) if len(cur) >= mult \
-                else len(cur)
-            batches.append(np.asarray(cur[:bs]))
-            cur = cur[bs:]
-            cur_max = max((int(lengths[i]) for i in cur), default=0)
-            new_max = max(cur_max, ln)
-        cur.append(int(idx))
-        cur_max = new_max
-    if cur:
-        batches.append(np.asarray(cur))
-    return batches

@@ -3,16 +3,15 @@
 Reads what stages 5 and 7 read of ``s2st_tpu/data/s2st_dataset.py``: the
 TSV (``_load_tsv``, :55) with paths taken from ``audio_root``, features
 through the split's transforms (``data/feature_transforms.py``: global
-CMVN and SpecAugment) and the packed target log-mels. Batches are the JAX
-batcher's greedy length-descending split under ``max_tokens`` (longest *
-rows) and ``batch_size``; they are padded to the batch maximum, not
-bucketed.
+CMVN and SpecAugment) and the packed target log-mels. Generation batches
+are the JAX batcher's greedy length-descending split under ``max_tokens``
+(longest * rows) and ``batch_size`` (``iterators.batch_by_size``); they
+are padded to the batch maximum, not bucketed.
 """
 
 from __future__ import annotations
 
 import csv
-import logging
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -21,8 +20,7 @@ import torch
 
 from .audio_utils import get_features
 from .data_cfg import S2STDataConfig
-
-logger = logging.getLogger(__name__)
+from .iterators import batch_by_size, ordered_indices
 
 _CMVN = ("global_cmvn", "src_global_cmvn", "tgt_global_cmvn")
 
@@ -116,30 +114,6 @@ class FeatureTransforms:
         return np.asarray(x, np.float32)
 
 
-def batch_by_size(lengths: np.ndarray, max_tokens: Optional[int],
-                  batch_size: Optional[int]) -> List[List[int]]:
-    """Indices, longest first, cut greedily so that rows * longest stays
-    within max_tokens and rows within batch_size (data/iterators.py:54-90;
-    samples longer than max_tokens are skipped)."""
-    order = np.lexsort((np.arange(len(lengths)), lengths))[::-1]
-    out: List[List[int]] = []
-    cur: List[int] = []
-    for idx in order:
-        ln = int(lengths[idx])
-        if max_tokens and ln > max_tokens:
-            logger.warning(f"skipping sample {idx}: length {ln} > max_tokens")
-            continue
-        longest = int(lengths[cur[0]]) if cur else ln  # longest first
-        if cur and ((max_tokens and (len(cur) + 1) * longest > max_tokens)
-                    or (batch_size and len(cur) >= batch_size)):
-            out.append(cur)
-            cur = []
-        cur.append(int(idx))
-    if cur:
-        out.append(cur)
-    return out
-
-
 class Manifest:
     """A split's TSV rows with paths taken from ``audio_root``, and the
     split's source and target transforms."""
@@ -170,9 +144,14 @@ class GenerationSplit(Manifest):
         super().__init__(root, cfg, split)
         self.n_frames_per_step = n_frames_per_step
 
-    def batches(self, max_tokens: Optional[int],
+    def batches(self, max_tokens: int,
                 batch_size: Optional[int]) -> List[List[int]]:
-        return batch_by_size(self.src_n_frames, max_tokens, batch_size)
+        """Longest first, in ``max_tokens`` and ``batch_size`` batches,
+        unshuffled."""
+        lengths = self.src_n_frames
+        return [b.tolist() for b in batch_by_size(
+            ordered_indices(lengths, False, 0, 0), lengths, max_tokens,
+            batch_size)]
 
     def collate(self, indices: List[int], with_target: bool = False
                 ) -> Dict[str, object]:

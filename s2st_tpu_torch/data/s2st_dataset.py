@@ -1,14 +1,14 @@
-"""The training split: items, collate and shuffled batches.
+"""The training split: items and collate.
 
 Counterpart of what stage 5 reads of ``s2st_tpu/data/s2st_dataset.py``:
 ``__getitem__`` (:183-227: source and target features through the split's
-transforms, targets packed by ``n_frames_per_step``, text encoded with eos
-appended) and ``collate`` (:233-323: rows sorted by source length,
-descending; ``prev_output_tokens`` a zero BOS frame then the shifted
-target; the text shifted with eos moved to the front; the token counts).
-Batches are padded to the batch maximum. Batching is the port's own: the
-length-sorted ``max_tokens`` split of ``manifest.batch_by_size``, in an
-order shuffled anew each epoch from the seed.
+transforms, source first, both drawing SpecAugment from the item's stream;
+targets packed by ``n_frames_per_step``; text encoded with eos appended)
+and ``collate`` (:233-323: rows sorted by source length, descending;
+``prev_output_tokens`` a zero BOS frame then the shifted target; the text
+shifted with eos moved to the front; the token counts; padded to the
+given static shapes, with rows past the batch's of length 0). Batches and
+their order come from ``data/iterators.py``.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 from .audio_utils import get_features
 from .data_cfg import S2STDataConfig
 from .dictionary import Dictionary
-from .manifest import Manifest, batch_by_size, pack_frames
+from .manifest import Manifest, pack_frames
 
 PAD = 1
 
@@ -29,21 +29,21 @@ PAD = 1
 class TrainSplit(Manifest):
     def __init__(self, root: str, cfg: S2STDataConfig, split: str,
                  src_dict: Dictionary, tgt_dict: Dictionary,
-                 n_frames_per_step: int = 1, seed: int = 1):
+                 n_frames_per_step: int = 1):
         super().__init__(root, cfg, split)
         self.src_dict = src_dict
         self.tgt_dict = tgt_dict
         self.n_frames_per_step = n_frames_per_step
-        self.seed = seed
 
     def __len__(self) -> int:
         return len(self.samples)
 
-    def item(self, index: int, epoch: int = 1) -> Dict[str, np.ndarray]:
-        """One utterance; SpecAugment draws from a stream of its own,
-        seeded from (seed, epoch, index)."""
+    def item(self, index: int,
+             rng: Optional[np.random.RandomState] = None
+             ) -> Dict[str, np.ndarray]:
+        """One utterance; SpecAugment draws from ``rng`` (the item's stream
+        of ``iterators.EpochBatchIterator``; numpy's global one without)."""
         s = self.samples[index]
-        rng = np.random.RandomState([self.seed % 2 ** 32, epoch, index])
         src = self.src_transforms(get_features(s["src_audio"]), rng)
         tgt = pack_frames(self.tgt_transforms(get_features(s["tgt_audio"]),
                                               rng), self.n_frames_per_step)
@@ -51,32 +51,28 @@ class TrainSplit(Manifest):
                 "src_text": self.src_dict.encode_line(s.get("src_text", "")),
                 "tgt_text": self.tgt_dict.encode_line(s.get("tgt_text", ""))}
 
-    def batches(self, max_tokens: Optional[int], batch_size: Optional[int],
-                epoch: int) -> List[List[int]]:
-        """The epoch's batches: the max_tokens split, shuffled from
-        (seed, epoch)."""
-        out = batch_by_size(self.src_n_frames, max_tokens, batch_size)
-        order = np.random.RandomState([self.seed % 2 ** 32, epoch]
-                                      ).permutation(len(out))
-        return [out[i] for i in order]
-
-    def collate_indices(self, indices: List[int], epoch: int = 1
-                        ) -> Dict[str, Any]:
-        return collate([self.item(i, epoch) for i in indices])
+    def collate(self, items: List[Dict[str, np.ndarray]], **pads
+                ) -> Dict[str, Any]:
+        return collate(items, **pads)
 
 
-def collate(items: List[Dict[str, np.ndarray]]) -> Dict[str, Any]:
-    """Pad a list of items to the batch maxima, rows sorted by source
-    length, longest first. Tensors are on the CPU; the token counts are
+def collate(items: List[Dict[str, np.ndarray]],
+            pad_batch: Optional[int] = None, pad_src_t: Optional[int] = None,
+            pad_tgt_t: Optional[int] = None,
+            pad_src_txt: Optional[int] = None,
+            pad_tgt_txt: Optional[int] = None) -> Dict[str, Any]:
+    """Pad a list of items to the given shapes (the batch maxima by
+    default), rows sorted by source length, longest first; rows past the
+    items have length 0. Tensors are on the CPU; the token counts are
     Python ints."""
     order = np.argsort([-it["src_speech"].shape[0] for it in items],
                        kind="stable")
     items = [items[i] for i in order]
-    b = len(items)
-    src_t = max(it["src_speech"].shape[0] for it in items)
-    tgt_t = max(it["tgt_speech"].shape[0] for it in items)
-    src_n = max(len(it["src_text"]) for it in items)
-    tgt_n = max(len(it["tgt_text"]) for it in items)
+    b = pad_batch or len(items)
+    src_t = pad_src_t or max(it["src_speech"].shape[0] for it in items)
+    tgt_t = pad_tgt_t or max(it["tgt_speech"].shape[0] for it in items)
+    src_n = pad_src_txt or max(len(it["src_text"]) for it in items)
+    tgt_n = pad_tgt_txt or max(len(it["tgt_text"]) for it in items)
     feat_dim = items[0]["src_speech"].shape[1]
     out_dim = items[0]["tgt_speech"].shape[1]
 
@@ -103,7 +99,7 @@ def collate(items: List[Dict[str, np.ndarray]]) -> Dict[str, Any]:
             lens[f"{side}_text_len"][i] = len(text)
     batch: Dict[str, Any] = {
         "id": [it["index"] for it in items],
-        "nsentences": b,
+        "nsentences": len(items),
         "ntokens": int(lens["target_lengths"].sum()),
         "src_txt_ntokens": int(lens["src_text_len"].sum()),
         "tgt_txt_ntokens": int(lens["tgt_text_len"].sum()),

@@ -166,6 +166,7 @@ def model_config(args: argparse.Namespace, src_vocab_size: int,
         dropout=args.dropout,
         attention_dropout=args.attention_dropout,
         activation_dropout=args.activation_dropout,
+        encoder_layerdrop=getattr(args, "encoder_layerdrop", 0.0),
         activation_fn=args.activation_fn,
         no_scale_embedding=args.no_scale_embedding,
         max_source_positions=args.max_source_positions,

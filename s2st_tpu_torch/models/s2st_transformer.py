@@ -7,7 +7,8 @@ postnet residual), the aux ASR/ST text decoders over encoder taps and the
 CTC projection. The module tree carries fairseq ``state_dict`` names.
 ``forward`` is the teacher-forced training forward (:632-687); dropout runs
 when a ``torch.Generator`` is given, and ``train`` puts the postnet on batch
-statistics. Activations are (B, T, C).
+statistics and the encoder on LayerDrop (:404-412). Activations are
+(B, T, C).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -75,6 +76,7 @@ class S2STConfig:
     dropout: float = 0.1
     attention_dropout: float = 0.1
     activation_dropout: float = 0.01
+    encoder_layerdrop: float = 0.0
     activation_fn: str = "relu"
     no_scale_embedding: bool = False
     max_source_positions: int = 3000
@@ -148,10 +150,13 @@ class S2STEncoder(nn.Module):
 
     def forward(self, src_feats: torch.Tensor, src_lengths: torch.Tensor,
                 speaker: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                layer_keep: Optional[Sequence[bool]] = None
                 ) -> Dict[str, Any]:
-        """models/s2st_transformer.py:305 (no HuBERT, no LayerDrop, no
-        pipeline); dropout only with a generator."""
+        """models/s2st_transformer.py:305 (no HuBERT, no pipeline); dropout
+        only with a generator. ``layer_keep``: LayerDrop's decision for each
+        layer, for the whole batch; a dropped layer passes its input on
+        (and a middle-layer tap takes it)."""
         cfg = self.cfg
         x, out_lengths = self.subsample(src_feats.to(cfg.dtype), src_lengths)
         t_out = x.shape[1]
@@ -166,7 +171,8 @@ class S2STEncoder(nn.Module):
         x = dropout(x, cfg.dropout, generator)
         middle: List[torch.Tensor] = []
         for i, layer in enumerate(self.transformer_layers):
-            x = layer(x, padding_mask, generator)
+            if layer_keep is None or layer_keep[i]:
+                x = layer(x, padding_mask, generator)
             if i in cfg.middle_layers:
                 middle.append(x)
         if self.layer_norm is not None:
@@ -351,21 +357,26 @@ class S2STTransformer(nn.Module):
                             generator)
 
     def forward(self, batch: Dict[str, torch.Tensor], train: bool = False,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                layer_keep: Optional[Sequence[bool]] = None
                 ) -> Dict[str, Any]:
         """Teacher-forced forward over a collated batch (:632-687): the
         spectrogram decoder's outputs, the encoder's padding mask and
         lengths, ``new_stats`` (with ``train``), and ``ctc_logits``,
         ``asr_logits`` and ``st_logits`` where the config has those heads
         and the batch their inputs. A generator turns on the prenet's
-        dropout, and with ``train`` every other dropout site."""
+        dropout, and with ``train`` every other dropout site and the
+        encoder's LayerDrop, whose decisions the caller gives in
+        ``layer_keep`` (``encoder_layer_keep``)."""
         cfg = self.cfg
         if cfg.ctc_tgt:
             raise NotImplementedError("the MTL target-side CTC is not ported")
         speaker = batch.get("speaker")
         drop = generator if train else None
+        if drop is None:
+            layer_keep = None
         enc = self.encoder(batch["src_speech"], batch["src_speech_lens"],
-                           speaker, drop)
+                           speaker, drop, layer_keep)
         dec = self.decoder(batch["prev_output_tokens"],
                            batch["target_lengths"], enc, speaker, generator,
                            train)
@@ -434,6 +445,18 @@ class S2STTransformer(nn.Module):
             uniform(conv.bias, 1.0 / math.sqrt(cin * k))
         self.decoder.pos_emb_alpha.fill_(1.0)
         return self
+
+
+def encoder_layer_keep(cfg: S2STConfig, generator: torch.Generator
+                       ) -> Optional[List[bool]]:
+    """LayerDrop's decisions for one microbatch: layer i is kept when a
+    uniform draw is at least ``encoder_layerdrop`` (never at 1.0, always at
+    0.0); None when LayerDrop is off."""
+    if cfg.encoder_layerdrop <= 0.0:
+        return None
+    draws = torch.rand(cfg.encoder_layers, generator=generator,
+                       device=generator.device)
+    return (draws >= cfg.encoder_layerdrop).tolist()
 
 
 def cast_for_inference(model: S2STTransformer, dtype) -> S2STTransformer:

@@ -17,7 +17,7 @@ inf (or 0 with ``zero_infinity``).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -219,9 +219,19 @@ def composite_loss(net: Dict[str, Any], lcfg: LossConfig,
 
 def s2st_loss(model, lcfg: LossConfig, batch: Dict[str, Any],
               train: bool = True,
-              generator: Optional[torch.Generator] = None
+              generator: Optional[torch.Generator] = None,
+              layer_keep: Optional[Sequence[bool]] = None
               ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """``s2st_loss`` (:101-114): the model's forward, then the composite
-    loss. Dropout runs when a generator is given."""
-    net = model(batch, train=train, generator=generator)
+    loss. Dropout runs when a generator is given; ``layer_keep`` is the
+    encoder's LayerDrop decision for each layer."""
+    net = model(batch, train=train, generator=generator,
+                layer_keep=layer_keep)
     return composite_loss(net, lcfg, batch)
+
+
+# the logging values that are means over a batch (:291-294): a gradient
+# accumulation sums every value over its microbatches, then divides these
+# by their number
+MEAN_KEYS = ("loss", "l1_loss", "mse_loss", "eos_loss", "attn_loss",
+             "ctc_loss", "ctc_loss_tgt", "aux_asr_loss", "aux_st_loss")

@@ -1,9 +1,12 @@
 """Adam and the inverse-sqrt learning-rate schedule.
 
 Counterpart of ``s2st_tpu/train/optim.py``: ``inverse_sqrt_schedule``
-(:23-36) and ``adam`` (:269-281, ``optax.scale_by_adam``). The learning rate
-is applied by the trainer, as in JAX: ``p -= lr * mu_hat / (sqrt(nu_hat) +
-eps)``, with optax's bias corrections (the same as ``torch.optim.Adam``'s).
+(:23-36) and ``adam`` (:269-281): ``optax.scale_by_adam``, or
+``scale_by_adam_dtyped`` (:227-265) with the moments stored in bf16 under
+``--adam-bf16-stats``, chained with ``optax.add_decayed_weights`` under
+``--weight-decay``. The learning rate is applied as the JAX trainer does:
+``p -= lr * (mu_hat / (sqrt(nu_hat) + eps) + wd * p)``, with optax's bias
+corrections (the same as ``torch.optim.Adam``'s).
 """
 
 from __future__ import annotations
@@ -46,29 +49,47 @@ def schedule_from_args(args) -> Callable[[int], float]:
 class Adam:
     """Adam over a list of tensors, updated in place (the port's params are
     the model's own). ``step(grads, lr)`` is one optax ``scale_by_adam``
-    update followed by ``p -= lr * u``; ``count`` is the number of updates
-    taken."""
+    update, plus ``weight_decay * p``, followed by ``p -= lr * u``;
+    ``count`` is the number of updates taken. With ``stats_dtype`` the
+    moments are stored in that dtype and the update uses their fp32 values
+    before rounding, as ``scale_by_adam_dtyped`` does."""
 
     def __init__(self, params: Sequence[torch.Tensor],
-                 betas: Tuple[float, float] = (0.9, 0.98), eps: float = 1e-8):
+                 betas: Tuple[float, float] = (0.9, 0.98), eps: float = 1e-8,
+                 weight_decay: float = 0.0, stats_dtype=None):
         self.params: List[torch.Tensor] = list(params)
         self.betas = betas
         self.eps = eps
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.weight_decay = weight_decay
+        self.stats_dtype = stats_dtype
+        self.mu = [torch.zeros_like(p, dtype=stats_dtype)
+                   for p in self.params]
+        self.nu = [torch.zeros_like(p, dtype=stats_dtype)
+                   for p in self.params]
         self.count = 0
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor], lr: float) -> None:
         b1, b2 = self.betas
         self.count += 1
-        torch._foreach_mul_(self.mu, b1)
-        torch._foreach_add_(self.mu, grads, alpha=1.0 - b1)
-        torch._foreach_mul_(self.nu, b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - b2)
+        if self.stats_dtype is None:
+            mu, nu = self.mu, self.nu
+        else:
+            mu = [m.float() for m in self.mu]
+            nu = [v.float() for v in self.nu]
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
         bc1 = 1.0 - b1 ** self.count
         bc2 = 1.0 - b2 ** self.count
-        denom = torch._foreach_div(self.nu, bc2)
+        denom = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        torch._foreach_addcdiv_(self.params, self.mu, denom, value=-lr / bc1)
+        if self.weight_decay:
+            torch._foreach_add_(self.params, self.params,
+                                alpha=-lr * self.weight_decay)
+        torch._foreach_addcdiv_(self.params, mu, denom, value=-lr / bc1)
+        if self.stats_dtype is not None:
+            torch._foreach_copy_(self.mu, mu)
+            torch._foreach_copy_(self.nu, nu)

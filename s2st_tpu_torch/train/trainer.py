@@ -1,69 +1,95 @@
-"""One training update with update_freq 1.
+"""One training update over one or more microbatches.
 
-Counterpart of the fused step of ``s2st_tpu/train/trainer.py`` (:216-279):
-forward and loss, backward; the gradients multiplied by
-``1 / max(sample_size, 1)`` (as JAX does, although the composite loss is
-already a mean); their global norm; the clip factor
-``min(1, clip / (gnorm + 1e-6))``; ``lr = schedule(step + 1)``; Adam. A
-non-finite norm changes nothing: not the parameters, not Adam's moments or
-count, not the step. The postnet's running statistics come from the step
-either way, as in JAX. The step's metrics reach the host in one transfer.
+Counterpart of ``s2st_tpu/train/trainer.py``: the fused step (:254-279)
+and, for ``--update-freq`` > 1, the microbatch path of ``train_step``
+(:499-535). Each microbatch's forward and backward run at the update's
+parameters; the gradients sum over the microbatches, and the postnet's
+running statistics pass from one microbatch to the next. Then one apply
+(``apply_grads``, :216-240): the summed gradients multiplied by
+``1 / max(sample_size, 1)`` over the summed sample size (as JAX does,
+although the composite loss is already a mean); their global norm; the
+clip factor ``min(1, clip / (gnorm + 1e-6))``; ``lr = schedule(step + 1)``;
+Adam. A non-finite norm changes nothing: not the parameters, not Adam's
+moments or count, not the step. The postnet's statistics come from the
+microbatches either way, as in JAX. The logging values are summed over
+the microbatches and the loss's means divided by their number; they reach
+the host in one transfer.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence, Union
 
 import torch
 
-from .losses import LossConfig, s2st_loss
+from .losses import MEAN_KEYS, LossConfig, s2st_loss
 from .optim import Adam
+
+Batch = Dict[str, Any]
 
 
 class Trainer:
     def __init__(self, model, lcfg: LossConfig,
                  lr_schedule: Callable[[int], float], clip_norm: float = 0.0,
                  betas=(0.9, 0.98), eps: float = 1e-8,
-                 generator: Optional[torch.Generator] = None):
-        """generator: the dropout stream; None trains without dropout."""
+                 weight_decay: float = 0.0, stats_dtype=None):
         self.model = model
         self.lcfg = lcfg
         self.lr_schedule = lr_schedule
         self.clip_norm = clip_norm
-        self.generator = generator
         self.params = [p for p in model.parameters() if p.requires_grad]
-        self.optimizer = Adam(self.params, betas, eps)
+        self.optimizer = Adam(self.params, betas, eps, weight_decay,
+                              stats_dtype)
+        self.step = 0   # updates taken (skipped ones not counted)
 
-    @property
-    def step(self) -> int:
-        """Updates taken (skipped ones not counted)."""
-        return self.optimizer.count
-
-    def train_step(self, batch: Dict[str, Any]) -> Dict[str, float]:
-        """One update on a collated batch on the model's device. Returns
-        the loss's logging values, ``gnorm`` (before clipping) and ``lr``
-        as host floats."""
+    def train_step(self, microbatches: Union[Batch, Sequence[Batch]],
+                   generators: Optional[Sequence[torch.Generator]] = None,
+                   layer_keeps: Optional[Sequence[Optional[Sequence[bool]]]]
+                   = None) -> Dict[str, float]:
+        """One update on collated batches on the model's device (one batch
+        or a list). generators: one dropout stream per microbatch (None
+        trains without dropout); layer_keeps: the encoder's LayerDrop
+        decisions for each microbatch, drawn for each as JAX's encoder
+        draws them from the microbatch's key
+        (``s2st_tpu/train/trainer.py:509``). Returns the loss's
+        logging values, ``gnorm`` (before clipping), ``lr`` and
+        ``sample_size`` as host floats."""
+        if isinstance(microbatches, dict):
+            microbatches = [microbatches]
         for p in self.params:
             p.grad = None
-        loss, extras = s2st_loss(self.model, self.lcfg, batch, train=True,
-                                 generator=self.generator)
-        loss.backward()
+        sums: Dict[str, torch.Tensor] = {}
+        sample_size = None
+        postnet = self.model.decoder.postnet
+        for i, batch in enumerate(microbatches):
+            loss, extras = s2st_loss(
+                self.model, self.lcfg, batch, train=True,
+                generator=generators[i] if generators else None,
+                layer_keep=layer_keeps[i] if layer_keeps else None)
+            loss.backward()
+            postnet.load_stats(extras["new_stats"]["postnet"])
+            ss = extras["sample_size"]
+            sample_size = ss if sample_size is None else sample_size + ss
+            for k, v in extras["logging"].items():
+                v = torch.as_tensor(v, device=ss.device).float()
+                sums[k] = v if k not in sums else sums[k] + v
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         for p in self.params:
             p.grad = None
-        scale = 1.0 / extras["sample_size"].float().clamp(min=1.0)
+        scale = 1.0 / sample_size.float().clamp(min=1.0)
         torch._foreach_mul_(grads, scale)
         gnorm = torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads)))
-        self.model.decoder.postnet.load_stats(extras["new_stats"]["postnet"])
 
-        logging = extras["logging"]
-        keys = list(logging)
-        host = torch.stack([torch.as_tensor(logging[k], device=gnorm.device)
-                            .float() for k in keys] + [gnorm]).cpu().tolist()
+        sums["sample_size"] = sample_size.float()
+        keys = list(sums)
+        host = torch.stack([sums[k] for k in keys] + [gnorm]).cpu().tolist()
         metrics = dict(zip(keys, host[:-1]))
+        for k in MEAN_KEYS:
+            if k in metrics:
+                metrics[k] /= len(microbatches)
         metrics["gnorm"] = host[-1]
         metrics["lr"] = self.lr_schedule(self.step + 1)
         if math.isfinite(metrics["gnorm"]):
@@ -71,4 +97,5 @@ class Trainer:
                 torch._foreach_mul_(grads, torch.clamp(
                     self.clip_norm / (gnorm + 1e-6), max=1.0))
             self.optimizer.step(grads, metrics["lr"])
+            self.step += 1
         return metrics

@@ -51,13 +51,15 @@ def test_port_imports_neither_jax_nor_s2st_tpu():
     res = _run(_IMPORT_ALL)
     assert res.returncode == 0, res.stderr
     n, bad = res.stdout.strip().split(" ", 1)
-    assert int(n) >= 21
+    assert int(n) >= 25
     for name in ("train.losses", "train.optim", "train.trainer",
                  "data.dictionary", "data.s2st_dataset", "cli.train",
                  "kernels.nvcc", "kernels.conv", "data.indexed_dataset",
                  "data.language_pair_dataset", "tasks.translation",
                  "models.lightconv_model", "models.lightconv_args",
-                 "generate.sequence_generator", "scoring", "cli.generate"):
+                 "generate.sequence_generator", "scoring", "cli.generate",
+                 "data.iterators", "train.checkpoint", "train.ema",
+                 "cli.average_checkpoints"):
         assert f"s2st_tpu_torch.{name}" in _walk_names(), name
     assert bad == "[]", bad
 
@@ -129,9 +131,13 @@ def test_text_generate_cli_refuses_later_slices_flags(tmp_path, flags):
 
 
 def test_train_cli_refuses_later_slices_flags(tmp_path):
+    """Validation and asynchronous saves wait for later slices."""
     from s2st_tpu_torch.cli import train
-    for flags in (["--update-freq", "2"], ["--restore-file", "x.npz"],
-                  ["--eval-inference"], ["--store-ema"]):
+    off = "--disable-validation"
+    for flags in (["--eval-inference"], [],
+                  [off, "--validate-interval-updates", "5"],
+                  [off, "--patience", "3"],
+                  [off, "--write-checkpoints-asynchronously"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             train.main([str(tmp_path), "--device", "cpu", *flags])
 

@@ -285,7 +285,7 @@ def test_dictionary_and_collate_match_jax(corpus):
                               jdicts[1].encode_line(line))
     indices = [3, 0, 7, 5]
     ref = jds.collate([jds[i] for i in indices])
-    got = split.collate_indices(indices)
+    got = split.collate([split.item(i) for i in indices])
     assert got["id"] == [int(i) for i in ref["id"]]
     for key in ("src_speech", "src_speech_lens", "prev_output_tokens",
                 "tgt_speech", "target_lengths", "src_text", "src_text_len",
@@ -297,7 +297,10 @@ def test_dictionary_and_collate_match_jax(corpus):
                 "nsentences"):
         assert got[key] == ref[key], key
     # every utterance in exactly one batch of each epoch, orders differ
-    epochs = [split.batches(200, None, epoch) for epoch in (1, 2)]
+    from s2st_tpu_torch.data.iterators import EpochBatchIterator
+    itr = EpochBatchIterator(split, 200)
+    epochs = [[b.tolist() for b in itr.batches_for_epoch(epoch)]
+              for epoch in (1, 2)]
     for batches in epochs:
         assert sorted(i for b in batches for i in b) == list(range(len(split)))
         assert all(len(b) * max(split.src_n_frames[b]) <= 200
