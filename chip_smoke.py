@@ -48,7 +48,10 @@ library's SASS, and the attention libraries must hold some.
    --use-flash-attention --attention-dropout 0 for 5 updates, where both
    kernels must launch at least 27 times an update, the loss and grad norm
    stay finite, checkpoint_last.npz is written and the port's
-   generate_waveform serves an utterance from it; (b) with the recipe's
+   generate_waveform serves an utterance from it with stage 7's exact line
+   (--dump-target --dump-plots: finite target features and *_targ.wav
+   too; plots skipped with a warning where matplotlib is missing); (b)
+   with the recipe's
    exact flags (--attention-dropout 0.1) for 2 updates, where the plain
    path runs and neither kernel launches, as in JAX.
 7. Hold the card against the CPU on one fp32 update of a small model with
@@ -97,6 +100,32 @@ library's SASS, and the attention libraries must hold some.
    stage-6 average of A's last two epoch files must equal their numpy mean
    and serve through generate_waveform. Prints ms per update, each save's
    ms and MB, and the seconds the average took.
+14. Stages 10-11: write a corpus of 64 utterances (400-1000 80-d fbank
+   frames, 20-40 phones, 8-20 words) and a seeded random checkpoint of
+   the recipe's model at full width, then run the port's
+   generate_for_s2st in bf16 with the recipe's lines (--max-tokens 50000
+   --beam 5): (a) --scoring wer --wer-lowercase --wer-remove-punct, (b)
+   --scoring sacrebleu, (c) --score-reference. The attention kernel
+   launches exactly 12 times a batch in (a) and (b) (the encoder) and 14
+   in (c) (the aux ST decoder's two at D = 16); each run prints 64 finite
+   H- lines and its score line, sentences/s, encode ms and beam ms a step.
+   The first kernel call of each distinct shape in the three runs (the
+   encoder at each batch size, the D = 16 causal and cross calls of (c))
+   is kept with its inputs and held against the plain version on them.
+   Then one beam batch (encode, beam loop) under torch.profiler.
+15. Validate: the port's train CLI at full width in bf16 with 6(a)'s flags
+   and validation on (--eval-inference --best-checkpoint-metric mcd_loss
+   --valid-subset dev, no --disable-validation), 2 epochs of one update
+   on 16 utterances, each validated on a dev split of 16: each
+   validation's loss, mcd_loss, ins_rate, del_rate and the synchronised ms
+   of its loss pass, AR decode, Griffin-Lim, MFCC and DTW;
+   checkpoint_best.npz follows the second validation's mcd_loss; the
+   attention kernel launches 27 times an update and 27 + 12 a validation
+   batch; the first kernel call of each distinct shape in the run is held
+   against the plain version on its inputs. The card's DTW on the first
+   validation batch's distance matrix
+   must equal the CPU's (insertions and deletions; distortion within rtol
+   1e-5); its device time and launches under torch.profiler.
 
 Prints the card's name and power limit, one JSON line of kernel
 measurements, and, last, {"ok": true, "device": {...}}.
@@ -1004,6 +1033,11 @@ def run_train_cli(argv, save: Path, card: str, label: str) -> dict:
 
 
 def serve_from_checkpoint(work: Path, data: Path, ckpt: Path) -> None:
+    """Stage 7's exact line (recipes/run_baseline.sh:177-178, with
+    --dump-target --dump-plots) on the trained checkpoint: every utterance
+    gets finite predicted and target features and both WAVs; the plots are
+    drawn where matplotlib is importable, else skipped with a warning."""
+    import importlib.util
     from s2st_tpu_torch.cli import generate_waveform
     out = work / "served"
     argv = [str(data), "--config-yaml", "config.yaml", "--gen-subset", "tst",
@@ -1011,16 +1045,37 @@ def serve_from_checkpoint(work: Path, data: Path, ckpt: Path) -> None:
             "--results-path", str(out), "--max-iter", "30",
             "--eos-prob-threshold", "1.5", "--spec-bwd-max-iter", "8",
             "--fp16", "--dump-waveforms", "--dump-features",
-            "--device", "cuda"]
+            "--dump-target", "--dump-plots", "--device", "cuda"]
     if generate_waveform.main(argv) != 0:
         raise AssertionError("generate_waveform from the trained "
                              "checkpoint failed")
-    feat = np.load(out / "feat" / "utt3_pred.npy")
-    if feat.shape != (120, 80) or not np.isfinite(feat).all():
-        raise AssertionError(f"served features {feat.shape} not finite "
-                             f"(120, 80)")
-    print(f"train: served utt3 from {ckpt.name}: features {feat.shape} "
-          f"finite, {out / 'wav' / 'utt3_pred.wav'} written", flush=True)
+    ids = [line.split("\t")[0] for line in
+           (data / "tst.tsv").read_text().splitlines()[1:]]
+    plots = importlib.util.find_spec("matplotlib") is not None
+    for uid in ids:
+        feat = np.load(out / "feat" / f"{uid}_pred.npy")
+        if feat.shape != (120, 80) or not np.isfinite(feat).all():
+            raise AssertionError(f"served {uid} features {feat.shape} not "
+                                 f"finite (120, 80)")
+        targ = np.load(out / "feat" / f"{uid}_targ.npy")
+        if targ.ndim != 2 or targ.shape[1] != 80 or not len(targ) \
+                or not np.isfinite(targ).all():
+            raise AssertionError(f"served {uid} target features "
+                                 f"{targ.shape} not finite (T, 80)")
+        for kind, n_frames in (("pred", 120), ("targ", len(targ))):
+            with wave.open(str(out / "wav" / f"{uid}_{kind}.wav"), "rb") as w:
+                if (w.getsampwidth(), w.getnchannels(), w.getframerate(),
+                        w.getnframes()) != (2, 1, 16000, 256 * (n_frames - 1)):
+                    raise AssertionError(
+                        f"{uid}_{kind}.wav: not 16 kHz mono PCM16 of "
+                        f"{256 * (n_frames - 1)} samples")
+        if plots != (out / "plots" / f"{uid}.png").is_file():
+            raise AssertionError(f"{uid}: plot written {not plots} with "
+                                 f"matplotlib importable {plots}")
+    print(f"train: served {ids} from {ckpt.name} with stage 7's exact line: "
+          f"pred features (120, 80) and target features {targ.shape} "
+          f"finite, *_pred.wav and *_targ.wav written, plots "
+          f"{'drawn' if plots else 'skipped (no matplotlib)'}", flush=True)
 
 
 def train_phase(card: str) -> dict:
@@ -1688,10 +1743,10 @@ def run_text_cli(data: Path, ckpt: Path, out: Path, score_reference: bool,
     lines = (out / "generate-test.txt").read_text().splitlines()
     hyps = [ln for ln in lines if ln.startswith("H-")]
     scores = [float(ln.split("\t")[1]) for ln in hyps]
-    bleu = float(lines[-1].rsplit("=", 1)[1])
+    found = re.match(r"Generate test with beam=5: BLEU = (\S+) ", lines[-1])
+    bleu = float(found.group(1)) if found else float("nan")
     if len(hyps) != TEXT_PAIRS or not np.isfinite(scores).all() or \
-            not lines[-1].startswith("Generate test with beam=5: BLEU4 = ") \
-            or not np.isfinite(bleu):
+            not np.isfinite(bleu):
         raise AssertionError(f"text generate ({label}): {len(hyps)} H- lines "
                              f"(want {TEXT_PAIRS}), last line {lines[-1]!r}")
     timing = json.loads((out / "timing.json").read_text())
@@ -1861,6 +1916,379 @@ def text_profile_phase(card: str, runs: dict) -> None:
                   flush=True)
 
 
+# --------------------------------------------------------------------------
+# phases 14-15: aux-decoder text serving (stages 10-11) and validation
+# --------------------------------------------------------------------------
+
+# Phase 14's corpus: 64 utterances of 400-1000 source frames, which
+# --max-tokens 50000 (and --required-batch-size-multiple 8) cuts into
+# batches of about 48 and 16
+S2T_FRAMES = tuple(int(n) for n in
+                   np.random.RandomState(12).randint(400, 1001, 64))
+# Phase 15's dev split: 16 utterances, one batch under --max-tokens 60000
+VALID_FRAMES = tuple(int(n) for n in
+                     np.random.RandomState(13).randint(400, 1001, 16))
+
+
+def s2t_argv(data: Path, ckpt: Path, out: Path, mode: str) -> list:
+    """recipes/run_baseline.sh:213-240 (stage 10 with ``wer``, 11 with
+    ``sacrebleu``) with the recipe's values, or stage 11 scoring the
+    references."""
+    argv = [str(data), "--config-yaml", "config.yaml", "--gen-subset", "test",
+            "--task", "s2s_translation", "--path", str(ckpt),
+            "--max-tokens", "50000", "--beam", "5", "--middle-layers", "4,9",
+            "--asr-ce-weight", "0.3", "--st-ce-weight", "0.3",
+            "--encoder-normalize-before", "--decoder-normalize-before",
+            "--fp16", "--asr-decoder-layers", "1", "--st-decoder-layers", "1",
+            "--asr-decoder-embed-dim", "64", "--st-decoder-embed-dim", "64",
+            "--prenet-dim", "32", "--results-path", str(out),
+            "--device", "cuda"]
+    return argv + {"wer": ["--scoring", "wer", "--wer-lowercase",
+                           "--wer-remove-punct"],
+                   "sacrebleu": ["--scoring", "sacrebleu"],
+                   "score_reference": ["--scoring", "sacrebleu",
+                                       "--score-reference"]}[mode]
+
+
+def run_s2t_cli(argv, card: str, label: str) -> dict:
+    """One run of the port's generate_for_s2st with the attention kernel's
+    count set to 0 just before it; its lines are kept, not printed."""
+    import contextlib
+    import io
+    from s2st_tpu_torch.cli import generate_for_s2st
+    from s2st_tpu_torch.kernels import attention as ka
+    buf = io.StringIO()
+    ka.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = generate_for_s2st.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ka.flash_attention.launches
+    if rc != 0:
+        raise AssertionError(f"generate_for_s2st ({label}) returned {rc}")
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if re.match(r"^[STHDP]-|^Generate ", ln)]
+    hyps = [ln for ln in lines if ln.startswith("H-")]
+    scores = [float(ln.split("\t")[1]) for ln in hyps]
+    if len(hyps) != len(S2T_FRAMES) or not np.isfinite(scores).all():
+        raise AssertionError(f"generate_for_s2st ({label}): {len(hyps)} "
+                             f"H- lines, want {len(S2T_FRAMES)} finite")
+    timing = json.loads((Path(argv[argv.index("--results-path") + 1])
+                         / "timing.json").read_text())
+    return {"lines": lines, "launches": launches, "wall_s": wall,
+            "timing": timing, "result": lines[-1]}
+
+
+def s2t_phase(card: str) -> dict:
+    """Phase 14: stages 10 and 11 at the recipe's width in bf16 through
+    the port's generate_for_s2st, on 64 utterances, from a seeded random
+    checkpoint: (a) --scoring wer --wer-lowercase --wer-remove-punct, (b)
+    --scoring sacrebleu, (c) --score-reference. The attention kernel must
+    launch exactly 12 times a batch in (a) and (b) (the encoder; the beam's
+    one-token steps take the plain attend) and 14 in (c) (the aux ST
+    decoder's causal self- and cross-attention at D = 16). Then one beam
+    batch (encode, beam loop) under torch.profiler."""
+    from s2st_tpu_torch.data.data_cfg import S2STDataConfig
+    from s2st_tpu_torch.data.iterators import EpochBatchIterator
+    from s2st_tpu_torch.data.s2st_dataset import TrainSplit, to_device
+    from s2st_tpu_torch.generate.sequence_generator import (BeamConfig,
+                                                            beam_search_aux)
+    from s2st_tpu_torch.models.jax_bridge import write_jax_checkpoint
+    from s2st_tpu_torch.models.s2st_transformer import (S2STTransformer,
+                                                        cast_for_inference)
+    from s2st_tpu_torch.tasks.s2s_translation import load_dictionaries
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_s2t_"))
+    try:
+        data = work / "data"
+        write_train_corpus(data, seed=7, frames=S2T_FRAMES)
+        shutil.copy(data / "train.tsv", data / "test.tsv")
+        data_cfg = S2STDataConfig(data / "config.yaml")
+        dicts = load_dictionaries(str(data), data_cfg)
+        cfg = recipe_config().replace(src_vocab_size=len(dicts[0]),
+                                      tgt_vocab_size=len(dicts[1]))
+        model = S2STTransformer(cfg).init_weights(4)
+        ckpt = work / "checkpoint_random.npz"
+        write_jax_checkpoint(str(ckpt), model, meta={"args": RECIPE_ARGS})
+        # a first run warms cuBLAS/cuDNN for these shapes
+        run_s2t_cli(s2t_argv(data, ckpt, work / "warmup", "wer"), card,
+                    "warm-up")
+        runs = {}
+        with RecordAttention() as rec_attn:
+            for mode in ("wer", "sacrebleu", "score_reference"):
+                runs[mode] = run_s2t_cli(
+                    s2t_argv(data, ckpt, work / mode, mode), card, mode)
+        for mode, rec in runs.items():
+            batches = rec["timing"]["batches"]
+            per_batch = 14 if mode == "score_reference" else 12
+            if rec["launches"] != per_batch * len(batches):
+                raise AssertionError(
+                    f"generate_for_s2st ({mode}): flash_attention launched "
+                    f"{rec['launches']} times for {len(batches)} batches; "
+                    f"want {per_batch} a batch")
+            for b in batches:
+                detail = (f"forward_ms {b['forward_ms']:.3f}"
+                          if mode == "score_reference" else
+                          f"beam_ms {b['beam_ms']:.3f} over "
+                          f"{b['decode_steps']} steps "
+                          f"({b['beam_ms'] / b['decode_steps']:.3f} ms/step)")
+                print(f"s2t ({mode}) batch {b['batch']}: rows {b['rows']}, "
+                      f"source frames {b['src_frames']}, encode_ms "
+                      f"{b['encode_ms']:.3f}, {detail} ({card})", flush=True)
+            t = rec["timing"]
+            print(f"s2t ({mode}): {t['sentences']} sentences, "
+                  f"{t['sentences_per_s']:.2f} sentences/s, "
+                  f"{t['target_tokens_per_s']:.1f} tokens/s, wall "
+                  f"{rec['wall_s']:.2f} s; flash_attention launches "
+                  f"{rec['launches']} ({per_batch} a batch); "
+                  f"{rec['result']} ({card})", flush=True)
+        if not runs["wer"]["result"].startswith(
+                "Generate test with beam=5: WER: ") or not all(
+                runs[m]["result"].startswith("Generate test with beam=5: "
+                                             "BLEU = ")
+                for m in ("sacrebleu", "score_reference")):
+            raise AssertionError("generate_for_s2st: unexpected score lines "
+                                 + repr([r["result"] for r in runs.values()]))
+        runs["path_max_abs_err"] = hold_path_attention(
+            rec_attn.calls, "generate_for_s2st", card)
+
+        # one beam batch of (b) under the profiler
+        bf = cast_for_inference(
+            S2STTransformer(cfg.replace(dtype=torch.bfloat16)).to("cuda"),
+            torch.bfloat16)
+        bf.load_state_dict(model.state_dict())
+        bf.eval()
+        split = TrainSplit(str(data), data_cfg, "test", *dicts,
+                           n_frames_per_step=4)
+        batch = next(EpochBatchIterator(split, 50000, None,
+                                        required_batch_size_multiple=8,
+                                        shuffle=False).next_epoch_itr())
+        n = len(batch["id"])
+        batch = to_device({k: v[:n] for k, v in batch.items()
+                           if isinstance(v, torch.Tensor)}, "cuda")
+        bs_cfg = BeamConfig(beam=5, max_len=200)
+        with torch.inference_mode():
+            for _ in range(2):        # the second pass is the one reported
+                enc, *rec_enc = _profiled(lambda: bf.encode(
+                    batch["src_speech"], batch["src_speech_lens"]))
+                out, *rec_beam = _profiled(lambda: beam_search_aux(
+                    bf.aux_st_decoder, enc["out_middle_layers"][1],
+                    enc["encoder_padding_mask"], bs_cfg))
+        for name, (wall, busy, launches, top) in (("encode", rec_enc),
+                                                  ("beam", rec_beam)):
+            print(f"profile s2t_{name}: rows {n}, wall_ms {wall:.3f}, "
+                  f"device_kernel_ms {busy:.3f} in {launches} device "
+                  f"activities, idle share {1 - busy / wall:.3f}"
+                  + (f", {out['steps']} steps" if name == "beam" else "")
+                  + f" ({card})", flush=True)
+            for key, ms, count in top[:6]:
+                print(f"profile s2t_{name}:   {ms:9.3f} ms  {count:6d}x  "
+                      f"{key[:60]}", flush=True)
+        return runs
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+class RecordAttention:
+    """Keeps, for each distinct call of the attention forward kernel on a
+    main path (shapes, dtype, causal, with or without a key padding mask),
+    the first call's inputs and the output the path got. It launches
+    nothing; ``hold_path_attention`` then holds each against the plain
+    version."""
+
+    def __enter__(self):
+        from s2st_tpu_torch.kernels import attention as ka
+        self.ka, self.fn, self.calls = ka, ka.flash_attention_forward, {}
+
+        def record(q, k, v, kpm=None, causal=False, stats=False):
+            out = self.fn(q, k, v, kpm, causal, stats)
+            key = (tuple(q.shape), k.shape[1], str(q.dtype).split(".")[-1],
+                   bool(causal), kpm is not None)
+            if key not in self.calls:
+                self.calls[key] = tuple(
+                    None if x is None else x.detach().clone()
+                    for x in (q, k, v, kpm, out[0]))
+            return out
+        ka.flash_attention_forward = record
+        return self
+
+    def __exit__(self, *exc):
+        self.ka.flash_attention_forward = self.fn
+
+
+def hold_path_attention(calls: dict, label: str, card: str) -> float:
+    """Each recorded call's kernel output against the plain version on the
+    same inputs. fp32: atol 1e-5 + rtol 1e-5 (TOL_FP32); bf16: max abs err
+    <= 2e-2 x max(1, max |v| / 4): phase 1's bound (TOL_BF16) for its
+    unit-normal values, whose largest |v| is about 4, scaled with |v|
+    beyond that, since the output is a convex combination of v's rows
+    rounded to bf16. Returns the largest error."""
+    from s2st_tpu_torch.kernels import attention as ka
+    worst = 0.0
+    with torch.inference_mode():
+        for (shape, tk, dtype, causal, masked), (q, k, v, kpm, out) in \
+                calls.items():
+            ref = ka.flash_attention_reference(q, k, v, kpm, causal)
+            err = (out.float() - ref.float()).abs()
+            max_err = float(err.max()) if err.numel() else 0.0
+            if dtype == "float32":
+                atol, rtol = TOL_FP32
+                ok = bool((err <= atol + rtol * ref.float().abs()).all())
+                tol = f"atol {atol} + rtol {rtol}"
+            else:
+                bound = TOL_BF16 * max(1.0,
+                                       float(v.float().abs().max()) / 4)
+                ok = max_err <= bound
+                tol = f"atol {bound:.4g}"
+            ok = ok and bool(torch.isfinite(out.float()).all())
+            b, tq, h, d = shape
+            print("path_case " + json.dumps({
+                "path": label, "B": b, "Tq": tq, "Tk": tk, "H": h, "D": d,
+                "dtype": dtype, "causal": causal, "key_padding": masked,
+                "max_abs_err": max_err, "tolerance": tol, "card": card}),
+                flush=True)
+            if not ok:
+                raise AssertionError(
+                    f"{label}: the attention kernel's output at B={b} "
+                    f"Tq={tq} Tk={tk} D={d} {dtype} causal={causal} "
+                    f"disagrees with the plain version: max abs err "
+                    f"{max_err} ({tol})")
+            worst = max(worst, max_err)
+    print(f"{label}: {len(calls)} distinct attention kernel calls held "
+          f"against the plain version, max abs err {worst:.3e} ({card})",
+          flush=True)
+    return worst
+
+
+class RecordDTW:
+    """Keeps the first distance matrix (and lengths) that the validation's
+    ``batch_dtw`` is given, and its result."""
+
+    def __enter__(self):
+        from s2st_tpu_torch.ops import mcd
+        self.mcd, self.fn, self.first = mcd, mcd.batch_dtw, None
+
+        def record(dist, m_lens, n_lens):
+            out = self.fn(dist, m_lens, n_lens)
+            if self.first is None:
+                self.first = (dist.clone(), m_lens.clone(), n_lens.clone(),
+                              out)
+            return out
+        mcd.batch_dtw = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mcd.batch_dtw = self.fn
+
+
+def validate_phase(card: str) -> dict:
+    """Phase 15: the port's train CLI at the recipe's width in bf16 with
+    6(a)'s flags and validation on (--eval-inference
+    --best-checkpoint-metric mcd_loss --valid-subset dev), no
+    --disable-validation: 2 epochs of one update on 16 utterances, each
+    epoch validated on a dev split of 16. Prints each validation's loss,
+    mcd_loss, ins_rate, del_rate and the synchronised wall ms of its loss
+    pass, AR decode, Griffin-Lim, MFCC and DTW; checkpoint_best.npz must
+    follow the second validation's mcd_loss. Then the card's batch_dtw on
+    the first validation batch's distance matrix against the CPU's
+    (insertions and deletions equal, distortion within rtol 1e-5), and
+    its device time and launches under torch.profiler."""
+    from s2st_tpu_torch.kernels import attention as ka
+    from s2st_tpu_torch.ops import mcd
+    from s2st_tpu_torch.train import checkpoint as pckpt
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_valid_"))
+    try:
+        data = work / "data"
+        write_train_corpus(data, seed=9, frames=VALID_FRAMES)
+        shutil.copy(data / "train.tsv", data / "dev.tsv")
+        save = work / "ckpt"
+        save.mkdir()
+        argv = [a for a in recipe_train_argv(data, save, 100)
+                if a != "--disable-validation"]
+        i = argv.index("--validate-after-updates")
+        del argv[i:i + 2]
+        argv += ["--use-flash-attention", "--attention-dropout", "0",
+                 "--max-epoch", "2"]
+        from s2st_tpu_torch.cli import train
+        ka.flash_attention.launches = ka.flash_attention.bwd_launches = 0
+        t0 = time.perf_counter()
+        with RecordDTW() as rec, RecordAttention() as rec_attn:
+            rc = train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fwd, bwd = ka.flash_attention.launches, ka.flash_attention.bwd_launches
+        if rc != 0:
+            raise AssertionError(f"train with validation returned {rc}")
+        log = [json.loads(line) for line in
+               (save / "log.jsonl").read_text().splitlines()]
+        valid = [r for r in log if "valid" in r]
+        updates = [r for r in log if "valid" not in r]
+        if len(valid) != 2 or len(updates) != 2:
+            raise AssertionError(f"validate: {len(updates)} updates and "
+                                 f"{len(valid)} validations; want 2 and 2")
+        for v in valid:
+            st, ms = v["valid"], v["ms"]
+            if not all(np.isfinite(st[k]) for k in ("loss", "mcd_loss",
+                                                    "ins_rate", "del_rate")):
+                raise AssertionError(f"validate: non-finite stats {st}")
+            print(f"validate at update {v['num_updates']}: loss "
+                  f"{st['loss']:.4f}, mcd_loss {st['mcd_loss']:.4f}, "
+                  f"ins_rate {st['ins_rate']:.4f}, del_rate "
+                  f"{st['del_rate']:.4f}; ms: loss {ms['loss']:.1f}, decode "
+                  f"{ms['decode']:.1f}, griffin_lim {ms['griffin_lim']:.1f}, "
+                  f"mfcc {ms['mfcc']:.1f}, dtw {ms['dtw']:.1f}, total "
+                  f"{sum(ms.values()):.1f} ({card})", flush=True)
+        m1, m2 = (v["valid"]["mcd_loss"] for v in valid)
+        best = pckpt.peek_meta(str(save / "checkpoint_best.npz"))
+        want = 2 if m2 < m1 else 1
+        if best["step"] != want:
+            raise AssertionError(f"validate: checkpoint_best.npz from update "
+                                 f"{best['step']}; mcd_loss {m1} then {m2} "
+                                 f"picks update {want}")
+        # launches: 27 a training update, and per validation batch 27 in
+        # the loss pass and 12 in the AR decode's encoder
+        n_batches = 1
+        want_fwd = 27 * 2 + 2 * n_batches * (27 + 12)
+        print(f"validate: {wall:.1f} s; flash_attention launches fwd {fwd} "
+              f"(want {want_fwd}: 27 an update, 27 + 12 a validation batch)"
+              f", bwd {bwd}; checkpoint_best.npz from update {best['step']} "
+              f"(mcd_loss {m1:.4f} then {m2:.4f}) ({card})", flush=True)
+        if fwd != want_fwd or bwd != 27 * 2:
+            raise AssertionError(f"validate: flash_attention launches fwd "
+                                 f"{fwd} bwd {bwd}; want {want_fwd} and 54")
+
+        path_err = hold_path_attention(rec_attn.calls,
+                                       "train_with_validation", card)
+
+        dist, m_lens, n_lens, (dd, di, dl) = rec.first
+        cpu_d, cpu_i, cpu_l = mcd.batch_dtw(dist.cpu(), m_lens.cpu(),
+                                            n_lens.cpu())
+        err = float(((dd.cpu() - cpu_d).abs() / cpu_d.abs()).max())
+        print(f"validate: DTW on the card vs the CPU on a {tuple(dist.shape)}"
+              f" distance matrix ({dist.shape[1] + dist.shape[2] - 1} "
+              f"diagonals): nins {di.tolist()} / {cpu_i.tolist()}, ndel "
+              f"equal {bool((dl == cpu_l).all())}, distortion max rel err "
+              f"{err:.2e} (tolerance 1e-5) ({card})", flush=True)
+        if not ((di == cpu_i).all() and (dl == cpu_l).all() and err <= 1e-5):
+            raise AssertionError("validate: the card's DTW and the CPU's "
+                                 "disagree")
+        mcd.batch_dtw(dist, m_lens, n_lens)          # warm
+        _, dtw_wall, busy, launches, top = _profiled(
+            lambda: mcd.batch_dtw(dist, m_lens, n_lens))
+        print(f"profile dtw: wall_ms {dtw_wall:.3f}, device_kernel_ms "
+              f"{busy:.3f} in {launches} device activities, idle share "
+              f"{1 - busy / dtw_wall:.3f} ({card})", flush=True)
+        for key, ms, count in top[:5]:
+            print(f"profile dtw:   {ms:9.3f} ms  {count:6d}x  {key[:60]}",
+                  flush=True)
+        return {"fwd_launches": fwd, "valid": valid,
+                "path_max_abs_err": path_err,
+                "dtw": {"wall_ms": dtw_wall, "device_ms": busy,
+                        "launches": launches}}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def attention_shapes(fwd: dict, bwd: dict) -> dict:
     """The attention kernels' graph-replay times at each main shape of
     phases 1 and 5 beside SDPA's, the plain version's and the bound."""
@@ -1941,6 +2369,8 @@ def main(argv=None) -> int:
         text_profile_phase(card, text)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    s2t = s2t_phase(card)
+    validation = validate_phase(card)
 
     a = trained["a"]
     shapes = attention_shapes(fwd, bwds)
@@ -1951,10 +2381,18 @@ def main(argv=None) -> int:
         "replaces": "s2st_tpu/nn/attention.py:85",
         "design": ka.DESIGNS,
         "launches": served["launches"],
-        "launches_by_path": {"serve": served["launches"],
-                             "train": a["fwd_launches"],
-                             "train_runtime": runtime["fwd_launches"]},
+        "launches_by_path": {
+            "serve": served["launches"], "train": a["fwd_launches"],
+            "train_runtime": runtime["fwd_launches"],
+            "generate_for_s2st_wer": s2t["wer"]["launches"],
+            "generate_for_s2st_sacrebleu": s2t["sacrebleu"]["launches"],
+            "generate_for_s2st_score_reference":
+                s2t["score_reference"]["launches"],
+            "train_with_validation": validation["fwd_launches"]},
         "max_abs_err": serving["max_abs_err"],
+        "path_max_abs_err": {
+            "generate_for_s2st": s2t["path_max_abs_err"],
+            "train_with_validation": validation["path_max_abs_err"]},
         "ms": serving["kernel_graph_ms"],
         "plain_ms": serving["plain_graph_ms"],
         "bound_ms": serving["bound_ms"],

@@ -10,9 +10,14 @@ and features. Runs on CUDA unless ``--device`` names another device.
     python -m s2st_tpu_torch.cli.generate_waveform <data> \\
         --config-yaml config.yaml --gen-subset tst --path ckpt.npz \\
         --results-path out --spec-bwd-max-iter 64 --fp16 \\
-        --dump-waveforms --dump-features
+        --dump-waveforms --dump-features --dump-target --dump-plots
 
-Each batch's phase times (encode, decode, postnet, vocoder; the device is
+``--dump-target`` also vocodes each utterance's denormalised target mels
+and writes them beside the prediction (``wav/<id>_targ.wav``,
+``feat/<id>_targ.npy``); ``--dump-plots`` draws the prediction's (and the
+target's) mels into ``plots/<id>.png`` through matplotlib, and warns that
+it skipped them where matplotlib is missing, as JAX does
+(cli/generate_waveform.py:27-70, :215-240). Each batch's phase times (encode, decode, postnet, vocoder; the device is
 synchronised at each phase boundary) go to ``<results-path>/timing.json``.
 """
 
@@ -66,6 +71,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--dump-features", action="store_true")
     p.add_argument("--dump-attentions", action="store_true")
     p.add_argument("--dump-eos-probs", action="store_true")
+    p.add_argument("--dump-plots", action="store_true")
+    p.add_argument("--dump-target", action="store_true")
     p.add_argument("--device", default=None,
                    help="torch device; CUDA when not given")
     add_model_args(p)
@@ -95,11 +102,34 @@ class _PhaseClock:
         return ms
 
 
+def _plot(path: Path, pred_feat: np.ndarray,
+          targ_feat: Optional[np.ndarray]) -> None:
+    """The prediction's (and the target's) mels as one PNG."""
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        fig, axes = plt.subplots(2 if targ_feat is not None else 1, 1)
+        axes = np.atleast_1d(axes)
+        axes[0].imshow(pred_feat.T, origin="lower", aspect="auto")
+        axes[0].set_title("prediction")
+        if targ_feat is not None:
+            axes[1].imshow(targ_feat.T, origin="lower", aspect="auto")
+            axes[1].set_title("target")
+        fig.savefig(str(path))
+        plt.close(fig)
+    except Exception as e:  # matplotlib is optional
+        logger.warning(f"plot dump skipped: {e}")
+
+
 def _dump(args, sample_id: str, wave: Optional[np.ndarray], sample_rate: int,
-          feat: np.ndarray, attn: Optional[np.ndarray], eos: np.ndarray):
+          feat: np.ndarray, attn: Optional[np.ndarray], eos: np.ndarray,
+          targ_wave: Optional[np.ndarray] = None,
+          targ_feat: Optional[np.ndarray] = None):
     out = Path(args.results_path)
     for flag, sub, name, arr in (
             (args.dump_features, "feat", f"{sample_id}_pred.npy", feat),
+            (args.dump_features, "feat", f"{sample_id}_targ.npy", targ_feat),
             (args.dump_attentions, "attn", f"{sample_id}.npy", attn),
             (args.dump_eos_probs, "eos", f"{sample_id}.npy", eos)):
         if flag and arr is not None:
@@ -109,6 +139,12 @@ def _dump(args, sample_id: str, wave: Optional[np.ndarray], sample_rate: int,
         (out / "wav").mkdir(parents=True, exist_ok=True)
         write_wav(str(out / "wav" / f"{sample_id}_pred.wav"), wave,
                   sample_rate)
+        if targ_wave is not None:
+            write_wav(str(out / "wav" / f"{sample_id}_targ.wav"), targ_wave,
+                      sample_rate)
+    if args.dump_plots:
+        (out / "plots").mkdir(parents=True, exist_ok=True)
+        _plot(out / "plots" / f"{sample_id}.png", feat, targ_feat)
 
 
 @torch.inference_mode()
@@ -151,7 +187,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     n_done = 0
     for bi, indices in enumerate(split.batches(args.max_tokens,
                                                args.batch_size)):
-        batch = split.collate(indices, with_target=args.teacher_forcing)
+        batch = split.collate(indices, with_target=args.teacher_forcing
+                              or args.dump_target)
         gen = torch.Generator(device).manual_seed(args.seed * 100003 + bi)
         clock.start()
         tensors = {k: v.to(device) for k, v in batch.items()
@@ -191,10 +228,20 @@ def main(argv: Optional[List[str]] = None) -> int:
             n = int(raw_lens[row])
             if n <= 0:
                 continue
+            targ_feat = targ_wave = None
+            if args.dump_target:
+                tl = int(batch["target_lengths"][row])
+                targ = batch["tgt_speech"][row, :tl].reshape(
+                    -1, cfg.output_frame_dim)
+                if gcmvn_mean is not None:
+                    targ = targ * gcmvn_std + gcmvn_mean
+                targ_feat = targ.numpy()
+                targ_wave = vocoder(targ[None].to(device),
+                                    generator=gen)[0].float().cpu().numpy()
             _dump(args, sample_id, waves[row, :vocoder.wave_length(n)],
                   args.output_sample_rate, feats[row, :n],
                   attns[row, :int(step_lens[row])] if attns is not None
-                  else None, eos[row, :n])
+                  else None, eos[row, :n], targ_wave, targ_feat)
             n_done += 1
     Path(args.results_path).mkdir(parents=True, exist_ok=True)
     (Path(args.results_path) / "timing.json").write_text(

@@ -26,11 +26,23 @@ index, so that a resumed run draws what the uninterrupted run drew (as
 JAX's ``fold_in``, :464-465, does for its own stream). Every
 ``--log-interval`` updates the update's metrics (the loss terms, ``gnorm``,
 ``lr``, ``step_ms`` on the host clock with the device synchronised) go to
-stdout and, with ``--log-file``, to that file as JSON lines. Flags of
-later slices raise: validation (without ``--disable-validation``) and its
-flags, ``--write-checkpoints-asynchronously``, ``--use-hubert True``; the
-log-format, tensorboard and worker flags are accepted and ignored with a
-logged line.
+stdout and, with ``--log-file``, to that file as JSON lines.
+
+Validation (``validate``, :601-675) runs on ``--valid-subset`` at the end
+of every ``--validate-interval`` epochs and every
+``--validate-interval-updates`` updates, from ``--validate-after-updates``
+on, never twice at one update: the loss terms weighted by sample size and,
+with ``--eval-inference``, ``mcd_loss``, ``ins_rate`` and ``del_rate`` from
+the MCD sums of ``tasks/s2s_translation.py`` over whole padded batches. It
+prints JAX's ``valid | ...`` line and, with ``--log-file``, a JSON line
+``{"valid": {...}, "num_updates": n, "ms": {phase: ms}}``. The value of
+``--best-checkpoint-metric`` picks ``checkpoint_best.npz`` (and the
+``--keep-best-checkpoints`` files), and drives ``--patience`` and, under
+``--lr-scheduler reduce_lr_on_plateau``, the ``--lr-shrink`` of the rate
+(:345-375); ``best_val``, ``patience_left`` and ``lr_scale`` ride in each
+checkpoint's meta and come back on resume. ``--write-checkpoints-
+asynchronously`` and ``--use-hubert True`` raise; the log-format,
+tensorboard and worker flags are accepted and ignored with a logged line.
 """
 
 from __future__ import annotations
@@ -48,7 +60,6 @@ import numpy as np
 import torch
 
 from ..data.data_cfg import S2STDataConfig
-from ..data.dictionary import Dictionary
 from ..data.iterators import EpochBatchIterator, GroupedIterator
 from ..data.s2st_dataset import TrainSplit, to_device
 from ..models.config_from_args import add_model_args, model_config
@@ -58,15 +69,16 @@ from ..train.checkpoint import (CheckpointManager, ema_flat, load_ema,
                                 restore_state, state_flat, write_npz)
 from ..train.ema import EMAConfig, ema_step, init_ema
 from ..train.losses import LossConfig
-from ..train.optim import schedule_from_args
+from ..tasks.s2s_translation import build_eval_inference_fn, load_dictionaries
+from ..train.optim import PLATEAU, schedule_from_args
 from ..train.trainer import Trainer
+from .generate_waveform import _PhaseClock
 
 logger = logging.getLogger("s2st_tpu_torch.train")
 
 # accepted for the recipe's command line, with no effect in this port
-IGNORED = ("valid_subset", "num_workers", "report_accuracy", "log_format",
-           "tensorboard_logdir", "validate_after_updates",
-           "load_pretrained_hubert_from")
+IGNORED = ("num_workers", "report_accuracy", "log_format",
+           "tensorboard_logdir", "load_pretrained_hubert_from")
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -77,6 +89,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--criterion", default="s2st_loss", choices=["s2st_loss"])
     p.add_argument("--config-yaml", default="config.yaml")
     p.add_argument("--train-subset", default="train")
+    p.add_argument("--valid-subset", default="valid")
     p.add_argument("--max-tokens", type=int, default=40000)
     p.add_argument("--batch-size", "--max-sentences", type=int, default=None)
     p.add_argument("--required-batch-size-multiple", type=int, default=8)
@@ -102,6 +115,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr-scheduler", default="inverse_sqrt")
     p.add_argument("--warmup-updates", type=int, default=4000)
     p.add_argument("--warmup-init-lr", type=float, default=-1.0)
+    p.add_argument("--lr-shrink", type=float, default=0.1,
+                   help="reduce_lr_on_plateau shrink factor")
     p.add_argument("--clip-norm", type=float, default=0.0)
     p.add_argument("--update-freq", default="1")
     p.add_argument("--encoder-layerdrop", type=float, default=0.0)
@@ -134,11 +149,15 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--ema-decay", type=float, default=0.9999)
     p.add_argument("--ema-start-update", type=int, default=0)
     p.add_argument("--ema-update-freq", type=int, default=1)
-    # later slices: raise when they would act
+    # validation (options.py:80-83, :547-554)
     p.add_argument("--eval-inference", action="store_true")
+    p.add_argument("--spec-bwd-max-iter", type=int, default=8)
     p.add_argument("--disable-validation", action="store_true")
+    p.add_argument("--validate-after-updates", type=int, default=0)
+    p.add_argument("--validate-interval", type=int, default=1)
     p.add_argument("--validate-interval-updates", type=int, default=0)
     p.add_argument("--patience", type=int, default=-1)
+    # a later slice: raises
     p.add_argument("--write-checkpoints-asynchronously", "--save-async",
                    action="store_true")
     p.add_argument("--use-flash-attention", action="store_true",
@@ -155,17 +174,9 @@ def get_parser() -> argparse.ArgumentParser:
 
 def check_args(args: argparse.Namespace) -> None:
     """Raise on what this slice does not port; log what it ignores."""
-    later = []
-    if not args.disable_validation:
-        later.append("validation (pass --disable-validation)")
-    if args.validate_interval_updates > 0:
-        later.append("--validate-interval-updates (validation)")
-    if args.patience > 0:
-        later.append("--patience (validation)")
     if args.write_checkpoints_asynchronously:
-        later.append("--write-checkpoints-asynchronously (sync saves only)")
-    if later:
-        raise NotImplementedError("not ported yet: " + ", ".join(later))
+        raise NotImplementedError("not ported yet: --write-checkpoints-"
+                                  "asynchronously (sync saves only)")
     for name in IGNORED:
         if getattr(args, name) is not None:
             logger.info(f"--{name.replace('_', '-')} is accepted and ignored")
@@ -211,6 +222,57 @@ def update_streams(args, cfg, epoch: int, num_updates: int, n: int,
     return gens, keeps
 
 
+def valid_line(stats: dict) -> str:
+    """JAX's ``valid | k v | ...`` line (logging_utils.py:237-247, simple
+    format) of the values rounded to 4 decimals."""
+    return "valid | " + " | ".join(f"{k} {round(float(v), 4):.4g}"
+                                   for k, v in stats.items())
+
+
+def validate(args, trainer: Trainer, valid_itr: EpochBatchIterator,
+             eval_fn, device: torch.device, epoch: int, num_updates: int
+             ) -> tuple:
+    """One pass over the validation split (cli/train.py:601-675). Each
+    batch's loss values are weighted by its sample size; the MCD sums of
+    every batch, pad rows included, give mcd_loss, ins_rate and del_rate
+    per target frame. Returns (the stats, each phase's summed ms)."""
+    agg: dict = {}
+    weights: dict = {}
+    mcd = {"mcd_loss": 0.0, "targ_frames": 0.0, "pred_frames": 0.0,
+           "nins": 0.0, "ndel": 0.0}
+    clock = _PhaseClock(device)
+    ms: dict = {}
+
+    def lap(name):
+        ms[name] = ms.get(name, 0.0) + clock.lap()
+
+    valid_itr.epoch, valid_itr.iterations_in_epoch = 1, 0
+    for n, batch in enumerate(valid_itr.next_epoch_itr()):
+        batch = to_device(batch, device)
+        clock.start()
+        metrics = trainer.valid_step(batch, torch.Generator(device).manual_seed(
+            stream_seed(2, args.seed, epoch, num_updates, n)))
+        lap("loss")
+        ss = metrics.get("sample_size", 1.0) or 1.0
+        for k, v in metrics.items():
+            agg[k] = agg.get(k, 0.0) + v * ss
+            weights[k] = weights.get(k, 0.0) + ss
+        if eval_fn is not None:
+            sums = eval_fn(batch["src_speech"], batch["src_speech_lens"],
+                           batch["tgt_speech"], batch["target_lengths"],
+                           generator=torch.Generator(device).manual_seed(
+                               stream_seed(3, args.seed, epoch, num_updates,
+                                           n)), lap=lap)
+            for k in mcd:
+                mcd[k] += sums[k]
+    stats = {k: agg[k] / max(weights[k], 1.0) for k in agg}
+    if eval_fn is not None and mcd["targ_frames"] > 0:
+        stats["mcd_loss"] = mcd["mcd_loss"] / mcd["targ_frames"]
+        stats["ins_rate"] = mcd["nins"] / mcd["targ_frames"]
+        stats["del_rate"] = mcd["ndel"] / mcd["targ_frames"]
+    return stats, ms
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     logging.basicConfig(
         level=logging.INFO,
@@ -221,8 +283,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     check_args(args)
 
     data_cfg = S2STDataConfig(Path(args.data) / args.config_yaml)
-    dicts = [Dictionary.load(str(Path(args.data) / data_cfg.config[key]))
-             for key in ("src_vocab_filename", "tgt_vocab_filename")]
+    dicts = load_dictionaries(args.data, data_cfg)
     cfg = model_config(args, len(dicts[0]), len(dicts[1]),
                        data_cfg.input_feat_per_channel)
     split = TrainSplit(args.data, data_cfg, args.train_subset, *dicts,
@@ -261,7 +322,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     elif mgr is not None:
         restore_path = mgr.last_checkpoint()
         restored_from_last = restore_path is not None
-    start_epoch, itr_state = 1, None
+    start_epoch, itr_state, meta = 1, None, {}
     if restore_path:
         meta = restore_state(trainer, restore_path, args.reset_optimizer)
         if not args.reset_dataloader:
@@ -284,6 +345,23 @@ def main(argv: Optional[List[str]] = None) -> int:
     num_updates = trainer.step
     update_freq = [int(x) for x in str(args.update_freq).split(",")]
 
+    valid_itr = eval_fn = None
+    if not args.disable_validation:
+        valid_itr = EpochBatchIterator(
+            TrainSplit(args.data, data_cfg, args.valid_subset, *dicts,
+                       n_frames_per_step=args.n_frames_per_step),
+            args.max_tokens, args.batch_size, seed=args.seed,
+            required_batch_size_multiple=args.required_batch_size_multiple,
+            max_positions=(args.max_source_positions
+                           if args.skip_invalid_size_inputs_valid_test
+                           else None),
+            num_batch_buckets=args.num_batch_buckets, shuffle=False)
+        if args.eval_inference:
+            eval_fn = build_eval_inference_fn(
+                model, data_cfg, args.spec_bwd_max_iter,
+                max_iter=max(64, args.max_target_positions
+                             // max(args.n_frames_per_step, 1)))
+
     ema, ema_cfg = None, None
     ema_path = Path(args.save_dir) / "checkpoint_last_ema.npz"
     if args.store_ema:
@@ -296,15 +374,61 @@ def main(argv: Optional[List[str]] = None) -> int:
             load_ema(trainer, ema, str(ema_path))
             logger.info(f"restored EMA params from {ema_path}")
 
+    # the validation state (cli/train.py:345-375): the plateau's lr
+    # multiplier, the best value so far and the patience left, restored
+    # with the optimizer
+    st = {"best_val": None, "patience_left": args.patience,
+          "lr_scale": 1.0, "stop": False}
+    if restore_path and not args.reset_optimizer:
+        st["lr_scale"] = float(meta.get("lr_scale", 1.0))
+        if meta.get("best_val") is not None:
+            st["best_val"] = float(meta["best_val"])
+        st["patience_left"] = int(meta.get("patience_left", args.patience))
+
+    def handle_val_result(val):
+        """Patience and the plateau shrink (cli/train.py:352-375)."""
+        better = st["best_val"] is None or (
+            val > st["best_val"] if args.maximize_best_checkpoint_metric
+            else val < st["best_val"])
+        if better:
+            st["best_val"] = val
+            st["patience_left"] = args.patience
+        else:
+            if args.lr_scheduler in PLATEAU:
+                st["lr_scale"] *= args.lr_shrink
+                logger.info(f"plateau: lr_scale -> {st['lr_scale']:.2e}")
+            if args.patience > 0:
+                st["patience_left"] -= 1
+                if st["patience_left"] <= 0:
+                    logger.info(f"early stop: no improvement in "
+                                f"{args.patience} validations")
+                    st["stop"] = True
+
+    def run_validation(epoch: int) -> Optional[float]:
+        stats, ms = validate(args, trainer, valid_itr, eval_fn, device,
+                             epoch, num_updates)
+        logger.info(valid_line(stats))
+        if args.log_file:
+            with open(args.log_file, "a") as f:
+                f.write(json.dumps({"valid": stats,
+                                    "num_updates": num_updates,
+                                    "epoch": epoch, "ms": ms}) + "\n")
+        val = stats.get(args.best_checkpoint_metric)
+        if val is not None:
+            handle_val_result(val)
+        return val
+
     echo = args_echo(args)
 
     def save(epoch: int, itr_sd: dict, end_of_epoch: bool,
-             updates: Optional[int] = None) -> None:
-        meta = {"iterator": itr_sd, "lr_scale": 1.0, "best_val": None,
-                "patience_left": args.patience, "args": echo}
+             updates: Optional[int] = None,
+             val_metric: Optional[float] = None) -> None:
+        meta = {"iterator": itr_sd, "lr_scale": st["lr_scale"],
+                "best_val": st["best_val"],
+                "patience_left": st["patience_left"], "args": echo}
         mgr.save(state_flat(trainer), trainer.step, epoch,
-                 end_of_epoch=end_of_epoch, num_updates=updates,
-                 extra_meta=meta)
+                 val_metric=val_metric, end_of_epoch=end_of_epoch,
+                 num_updates=updates, extra_meta=meta)
         if ema is not None:
             write_npz(str(ema_path), ema_flat(trainer, ema))
 
@@ -314,6 +438,9 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     max_update = args.max_update or math.inf
     max_epoch = args.max_epoch or math.inf
+    # the update count of the last validation: the end of an epoch does
+    # not validate again at the update a mid-epoch validation ran at
+    last_validated = -1
     epoch, stop = start_epoch, False
     while not stop and epoch <= max_epoch:
         uf = update_freq[min(epoch - 1, len(update_freq) - 1)]
@@ -325,7 +452,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                                          len(group), device)
             sync()
             t0 = time.perf_counter()
-            metrics = trainer.train_step(microbatches, gens, keeps)
+            metrics = trainer.train_step(microbatches, gens, keeps,
+                                         lr_scale=st["lr_scale"])
             sync()
             step_ms = (time.perf_counter() - t0) * 1e3
             num_updates += 1
@@ -344,23 +472,39 @@ def main(argv: Optional[List[str]] = None) -> int:
                 if args.log_file:
                     with open(args.log_file, "a") as f:
                         f.write(line + "\n")
+            mid_val = None
+            if valid_itr is not None and args.validate_interval_updates > 0 \
+                    and num_updates % args.validate_interval_updates == 0 \
+                    and num_updates >= args.validate_after_updates:
+                mid_val = run_validation(epoch)
+                last_validated = num_updates
             if mgr is not None and args.save_interval_updates > 0 and \
                     num_updates % args.save_interval_updates == 0:
                 # the iterator's position counts consumed batches
                 save(epoch, {"epoch": epoch, "iterations_in_epoch":
                              batches_done, "shuffle": True}, False,
-                     num_updates)
-            if num_updates >= max_update:
+                     num_updates, mid_val)
+            if num_updates >= max_update or st["stop"]:
                 stop = broke_mid_epoch = True
                 break
         logger.info(f"end of epoch {epoch} at update {num_updates}")
+        val_metric = None
+        if valid_itr is not None and epoch % args.validate_interval == 0 \
+                and num_updates >= args.validate_after_updates \
+                and num_updates != last_validated:
+            val_metric = run_validation(epoch)
+            last_validated = num_updates
+        if st["stop"]:
+            stop = True
         if mgr is not None:
             if broke_mid_epoch:
                 save(epoch, {"epoch": epoch, "iterations_in_epoch":
                              batches_done, "shuffle": True}, False,
-                     num_updates if args.save_interval_updates > 0 else None)
+                     num_updates if args.save_interval_updates > 0 else None,
+                     val_metric)
             elif epoch % args.save_interval == 0:
-                save(epoch, epoch_itr.state_dict(), True)
+                save(epoch, epoch_itr.state_dict(), True,
+                     val_metric=val_metric)
         epoch += 1
     logger.info(f"done training at update {num_updates} (step "
                 f"{trainer.step})")

@@ -2,7 +2,8 @@
 
 The port's own copies of ``s2st_tpu/data/audio_utils.py`` ``parse_path``,
 ``get_features_or_waveform`` (:100-123, features only), ``write_wav``
-(:72-83) and ``mel_filters`` (:157-196, librosa slaney mel).
+(:72-83), ``mel_filters`` (:157-196, librosa slaney mel) and
+``mel_filters_htk`` (:198-221, torchaudio's HTK mel of the MCD metric).
 """
 
 from __future__ import annotations
@@ -96,3 +97,26 @@ def mel_filters(sample_rate: int, n_fft: int, n_mels: int, f_min: float,
     enorm = 2.0 / (hz_pts[2:n_mels + 2] - hz_pts[:n_mels])
     weights *= enorm[:, None]
     return weights.astype(np.float32)
+
+
+def hz_to_mel_htk(f):
+    return 1127.0 * np.log(1.0 + np.asarray(f, dtype=np.float64) / 700.0)
+
+
+def mel_to_hz_htk(m):
+    return 700.0 * (np.exp(np.asarray(m, np.float64) / 1127.0) - 1.0)
+
+
+def mel_filters_htk(sample_rate: int, n_fft: int, n_mels: int, f_min: float,
+                    f_max: float) -> np.ndarray:
+    """torchaudio ``melscale_fbanks(mel_scale='htk', norm=None)``:
+    (n_mels, 1 + n_fft // 2) unit-peak triangles on the HTK mel scale."""
+    fft_freqs = np.linspace(0, sample_rate / 2, 1 + n_fft // 2)
+    mel_pts = np.linspace(hz_to_mel_htk(f_min), hz_to_mel_htk(f_max),
+                          n_mels + 2)
+    hz_pts = mel_to_hz_htk(mel_pts)
+    fdiff = np.diff(hz_pts)
+    ramps = hz_pts[:, None] - fft_freqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    return np.maximum(0.0, np.minimum(lower, upper)).astype(np.float32)

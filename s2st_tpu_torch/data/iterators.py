@@ -9,7 +9,8 @@ The port's own copy of what stage 5 uses of ``s2st_tpu/data/iterators.py``:
   and batches cut to a multiple of ``required_batch_size_multiple``;
 - ``EpochBatchIterator`` (:93-393) with one shard: the max-positions
   filter, batches frozen once and shuffled each epoch with
-  ``RandomState(seed + epoch)``, each item's SpecAugment stream seeded from
+  ``RandomState(seed + epoch)`` (or, with ``shuffle=False`` as validation
+  and generation take them, in length order, ties by index), each item's SpecAugment stream seeded from
   (seed, epoch, index) (``_fetch_item``, :269-279), batches padded to the
   static shapes of ``snap_len`` or ``--num-batch-buckets`` quantiles
   (:258-307), and ``state_dict`` / ``next_epoch_itr(offset)`` for a resume
@@ -99,7 +100,7 @@ class EpochBatchIterator:
                  max_sentences: Optional[int] = None, seed: int = 1,
                  required_batch_size_multiple: int = 1,
                  max_positions: Optional[int] = None,
-                 num_batch_buckets: int = 0):
+                 num_batch_buckets: int = 0, shuffle: bool = True):
         """max_positions: drop samples with more source frames
         (``--skip-invalid-size-inputs-valid-test`` with
         ``--max-source-positions``). num_batch_buckets: pad the source time
@@ -110,6 +111,7 @@ class EpochBatchIterator:
         self.seed = seed
         self.required_batch_size_multiple = required_batch_size_multiple
         self.max_positions = max_positions
+        self.shuffle = shuffle
         self.epoch = 1
         self.iterations_in_epoch = 0
         lengths = np.asarray(dataset.src_n_frames)
@@ -120,7 +122,7 @@ class EpochBatchIterator:
     def frozen_batches(self) -> List[np.ndarray]:
         if self._frozen is None:
             lengths = np.asarray(self.dataset.src_n_frames)
-            order = ordered_indices(lengths, True, self.seed, 1)
+            order = ordered_indices(lengths, self.shuffle, self.seed, 1)
             if self.max_positions is not None:
                 keep = lengths[order] <= self.max_positions
                 if not keep.all():
@@ -135,7 +137,8 @@ class EpochBatchIterator:
 
     def batches_for_epoch(self, epoch: int) -> List[np.ndarray]:
         batches = list(self.frozen_batches())
-        np.random.RandomState(self.seed + epoch).shuffle(batches)
+        if self.shuffle:
+            np.random.RandomState(self.seed + epoch).shuffle(batches)
         return batches
 
     def __len__(self) -> int:

@@ -156,8 +156,9 @@ class GenerationSplit(Manifest):
     def collate(self, indices: List[int], with_target: bool = False
                 ) -> Dict[str, object]:
         """Pad a batch; rows longest first. src_speech (B, T, F) fp32,
-        src_speech_lens (B,); with_target adds prev_output_tokens (zero
-        first frame, shifted targets) and target_lengths, in packed frames."""
+        src_speech_lens (B,); with_target adds tgt_speech,
+        prev_output_tokens (zero first frame, shifted targets) and
+        target_lengths, in packed frames."""
         src = [self.src_transforms(get_features(self.samples[i]["src_audio"]))
                for i in indices]
         order = np.argsort([-x.shape[0] for x in src], kind="stable")
@@ -177,9 +178,12 @@ class GenerationSplit(Manifest):
                 get_features(self.samples[i]["tgt_audio"])),
                 self.n_frames_per_step) for i in indices]
             tt = max(x.shape[0] for x in tgt)
-            prev = np.zeros((b, tt, tgt[0].shape[1]), np.float32)
+            full = np.zeros((b, tt, tgt[0].shape[1]), np.float32)
+            prev = np.zeros_like(full)
             for i, x in enumerate(tgt):
+                full[i, :x.shape[0]] = x
                 prev[i, 1:x.shape[0]] = x[:-1]
+            batch["tgt_speech"] = torch.from_numpy(full)
             batch["prev_output_tokens"] = torch.from_numpy(prev)
             batch["target_lengths"] = torch.tensor([x.shape[0] for x in tgt])
         return batch

@@ -27,16 +27,31 @@ sentence is done, or at ``max_len``; a sentence that is done never changes
 again, so the output is the same. Top-k takes the lower index among equal
 scores, as ``jax.lax.top_k`` does. Sampling, diverse search, constraints,
 prefixes and ensembles are not ported: ``BeamConfig`` refuses them.
+
+The aux text decoders of the S2ST model decode through the same loop:
+``_aux_step`` (:215-236) is the step function and ``beam_search_aux``
+(:289-617) sets it up (the tap and pad mask tiled to B*K, the cross K/V of
+each layer projected once, a self-attention cache of ``max_len + 1``
+positions for each layer). ``score_sequences`` (:630-672) is the
+teacher-forced SequenceScorer and ``ctc_argmax_decode`` (:675-689) the
+best-path CTC decode.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-PAD = 1
+from ..nn.attention import cross_attn_precompute, self_attn_cache_init
+from ..nn.core import layer_norm, linear
+from ..nn.transformer import decoder_layer_step_fused, \
+    fuse_decoder_layer_params
+
+PAD, EOS = 1, 2
 NEG_INF = -1e9
 
 StepFn = Callable[[torch.Tensor, int, Dict[str, torch.Tensor]],
@@ -239,3 +254,103 @@ def beam_search(step_fn: StepFn, cache: Dict[str, torch.Tensor], b: int,
     return {"tokens": _gather_rows(fin["tokens"], idx), "scores": top,
             "lengths": torch.gather(fin["lens"], 1, idx),
             "pos_scores": _gather_rows(fin["pos"], idx), "steps": steps}
+
+
+def _aux_step(dec, fused: List[Dict[str, torch.Tensor]],
+              tokens_t: torch.Tensor, step: int,
+              caches: List[Dict[str, torch.Tensor]],
+              cross_kvs: List[Dict[str, torch.Tensor]],
+              enc_pad: Optional[torch.Tensor]) -> torch.Tensor:
+    """One decode step of an aux text decoder (``AuxTextDecoder``):
+    tokens_t (N, 1) -> fp32 log-probs (N, V); each layer's cache is
+    written at ``step``. ``fused`` holds each layer's
+    ``fuse_decoder_layer_params``: the step is the mel decoder's fused one,
+    which masks the cache positions after ``step`` as JAX's unfused
+    ``decoder_layer_step`` does. The embedding is scaled by sqrt(dim), the
+    position is step + PAD + 1 (every earlier token is a non-pad), and the
+    output projection takes fp32 products of the compute-dtype operands
+    (JAX's ``preferred_element_type``)."""
+    cfg = dec.cfg
+    x = dec.embed_tokens.weight.to(cfg.dtype)[tokens_t]
+    if not cfg.no_scale_embedding:
+        x = x * math.sqrt(dec.dim)
+    x = x + dec.pos_table[step + PAD + 1].to(cfg.dtype)
+    for lp, cache, kv in zip(fused, caches, cross_kvs):
+        x, _, _ = decoder_layer_step_fused(
+            lp, x, cache, step, kv, enc_pad, cfg.decoder_attention_heads,
+            normalize_before=cfg.decoder_normalize_before,
+            activation=cfg.activation_fn)
+    if dec.layer_norm is not None:
+        x = layer_norm(x, dec.layer_norm.weight, dec.layer_norm.bias)
+    w = dec.output_projection.weight.to(x.dtype)
+    logits = torch.matmul(x[:, 0].float(), w.float().t())
+    return torch.log_softmax(logits, dim=-1)
+
+
+@torch.no_grad()
+def beam_search_aux(dec, enc_tap: torch.Tensor,
+                    enc_pad: Optional[torch.Tensor], cfg: BeamConfig
+                    ) -> Dict[str, torch.Tensor]:
+    """Beam-decode text from one aux decoder over its encoder tap (B, Ts,
+    C) and padding mask (B, Ts). Returns ``beam_search``'s dict."""
+    k, b = cfg.beam, enc_tap.shape[0]
+    dev = enc_tap.device
+    tap_k = enc_tap.repeat_interleave(k, dim=0)
+    pad_k = enc_pad.repeat_interleave(k, dim=0) if enc_pad is not None \
+        else None
+    fused = [fuse_decoder_layer_params(layer) for layer in dec.layers]
+    cross = [cross_attn_precompute(layer.encoder_attn, tap_k)
+             for layer in dec.layers]
+    heads = dec.cfg.decoder_attention_heads
+    cache: Dict[str, torch.Tensor] = {}
+    for i in range(len(dec.layers)):
+        c = self_attn_cache_init(b * k, cfg.max_len + 1, heads,
+                                 dec.dim // heads, dec.cfg.dtype, dev)
+        cache[f"k{i}"], cache[f"v{i}"] = c["k"], c["v"]
+
+    def step_fn(tokens, t, cache):
+        layers = [{"k": cache[f"k{i}"], "v": cache[f"v{i}"]}
+                  for i in range(len(dec.layers))]
+        return _aux_step(dec, fused, tokens, t, layers, cross, pad_k), cache
+
+    vocab = dec.output_projection.weight.shape[0]
+    return beam_search(step_fn, cache, b, vocab, cfg, dev)
+
+
+@torch.no_grad()
+def score_sequences(dec, enc_tap: torch.Tensor,
+                    enc_pad: Optional[torch.Tensor], tokens: torch.Tensor,
+                    lengths: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Teacher-forced scores of given targets (SequenceScorer): tokens
+    (B, T) ending in EOS, PAD-padded; lengths (B,) counting the EOS. The
+    decoder reads them shifted, EOS first, pads kept. Returns
+    positional_scores (B, T) fp32 (0 past each length) and score (B,),
+    their mean over each length."""
+    b, tt = tokens.shape
+    prev = torch.where(tokens == PAD, PAD, torch.cat(
+        [torch.full((b, 1), EOS, dtype=tokens.dtype, device=tokens.device),
+         tokens[:, :-1]], dim=1))
+    lp = torch.log_softmax(dec(prev, enc_tap, enc_pad).float(), dim=-1)
+    pos = torch.gather(lp, 2, tokens[:, :, None].long())[:, :, 0]
+    valid = torch.arange(tt, device=tokens.device)[None, :] \
+        < lengths[:, None]
+    pos = torch.where(valid, pos, 0.0)
+    return {"positional_scores": pos,
+            "score": pos.sum(dim=1) / lengths.clamp(min=1).float()}
+
+
+@torch.no_grad()
+def ctc_argmax_decode(model, enc_tap0: torch.Tensor,
+                      enc_lens: torch.Tensor) -> List[np.ndarray]:
+    """Best-path CTC over the model's CTC head on tap 0: the argmax of
+    each frame, repeats collapsed, blanks (0) dropped, up to each
+    length."""
+    proj = model.decoder.ctc_proj
+    ids = linear(enc_tap0, proj.weight, proj.bias).argmax(dim=-1)
+    out = []
+    for row, n in zip(ids.cpu().numpy(), enc_lens.cpu().numpy()):
+        row = row[:n]
+        out.append(np.asarray([int(t) for i, t in enumerate(row)
+                               if t != 0 and (i == 0 or t != row[i - 1])],
+                              np.int32))
+    return out

@@ -50,7 +50,11 @@ def decode_loop(model: S2STTransformer, gen_cfg: GenerationConfig,
     dev = enc_out.device
     heads = cfg.decoder_attention_heads
     max_iter = gen_cfg.max_iter
-    fused = [fuse_decoder_layer_params(layer)
+    # the matmul weights in the compute dtype once for the whole loop: a
+    # no-op for a model cast for inference, one cast instead of one a step
+    # for a training model's fp32 parameters; norms stay fp32
+    fused = [{k: v if "_ln_" in k else v.to(cfg.dtype)
+              for k, v in fuse_decoder_layer_params(layer).items()}
              for layer in dec.transformer_layers]
     cross_kv = [cross_attn_precompute(layer.encoder_attn, enc_out)
                 for layer in dec.transformer_layers]

@@ -1,4 +1,4 @@
-"""Griffin-Lim and the pseudo-inverse mel, on the device.
+"""Griffin-Lim, the pseudo-inverse mel and the MFCC, on the device.
 
 Counterpart of ``s2st_tpu/ops/dsp.py``. The STFT is framing plus one
 matmul against a windowed DFT kernel trimmed to the window's support, and
@@ -6,6 +6,7 @@ the inverse is one matmul against a windowed inverse-DFT basis plus an
 overlap-add; the refinement loop carries the complex spectrum as (re, im)
 pairs in one (B, T, F) layout. The DFT products are ``torch.matmul``, as
 the JAX package leaves them to XLA. Bases are built with numpy on the host.
+``mfcc`` is the 13-coefficient MFCC of the MCD validation metric (:301-337).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..data.audio_utils import mel_filters
+from ..data.audio_utils import mel_filters, mel_filters_htk
 
 
 def hann_window(win_length: int, n_fft: int) -> np.ndarray:
@@ -182,3 +183,50 @@ def logmel_to_linear(logmel: torch.Tensor, pinv_basis: torch.Tensor
     mel = torch.exp(logmel.float())
     spec = torch.einsum("fm,btm->bft", pinv_basis.float(), mel)
     return torch.clamp(spec, min=0.0)
+
+
+@functools.lru_cache(maxsize=8)
+def _dct_matrix(n_mfcc: int, n_mels: int) -> np.ndarray:
+    """(n_mels, n_mfcc) DCT-II with the ortho norm (torchaudio create_dct)."""
+    n = np.arange(n_mels, dtype=np.float64)
+    k = np.arange(n_mfcc, dtype=np.float64)[None, :]
+    dct = np.cos(np.pi / n_mels * (n[:, None] + 0.5) * k) \
+        * np.sqrt(2.0 / n_mels)
+    dct[:, 0] *= 1.0 / np.sqrt(2.0)
+    return dct.astype(np.float32)
+
+
+# the MCD metric's MFCC: 13 coefficients of 80 mels (ops/dsp.py:310)
+MFCC_COEFFS, MFCC_MELS = 13, 80
+
+
+@functools.lru_cache(maxsize=8)
+def _mfcc_bases(sample_rate: int, n_fft: int):
+    return (hann_window(n_fft, n_fft),
+            mel_filters_htk(sample_rate, n_fft, MFCC_MELS, 20.0,
+                            sample_rate / 2.0).T.copy(),
+            _dct_matrix(MFCC_COEFFS, MFCC_MELS))
+
+
+def mfcc(wave: torch.Tensor, lengths: torch.Tensor, sample_rate: int = 16000
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """torchaudio ``MFCC(log_mels=True)`` with the MCD settings
+    (ops/dsp.py:310-337): a 50 ms hann window (= n_fft), a 12.5 ms hop,
+    reflect padding of n_fft // 2, the power spectrum, HTK mel triangles
+    from 20 Hz to sr / 2, log(mel + 1e-6) and the ortho DCT.
+    wave (B, L) padded; lengths (B,). Returns (mfcc (B, T, 13) fp32,
+    out_lengths (B,) = 1 + L // hop)."""
+    n_fft = int(0.05 * sample_rate)
+    hop = int(0.0125 * sample_rate)
+    pad = n_fft // 2
+    win_np, fb_np, dct_np = _mfcc_bases(sample_rate, n_fft)
+    dev = wave.device
+    x = F.pad(wave.float()[:, None, :], (pad, pad), mode="reflect")[:, 0]
+    n_frames = 1 + (x.shape[-1] - n_fft) // hop
+    frames = _frames_view(x, 0, n_frames, n_fft, hop) \
+        * torch.from_numpy(win_np).to(dev)
+    spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
+    power = spec.real ** 2 + spec.imag ** 2                      # (B, T, F)
+    mel = torch.matmul(power, torch.from_numpy(fb_np).to(dev))
+    out = torch.matmul(torch.log(mel + 1e-6), torch.from_numpy(dct_np).to(dev))
+    return out, 1 + torch.div(lengths, hop, rounding_mode="floor")

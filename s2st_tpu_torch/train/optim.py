@@ -1,7 +1,8 @@
 """Adam and the inverse-sqrt learning-rate schedule.
 
 Counterpart of ``s2st_tpu/train/optim.py``: ``inverse_sqrt_schedule``
-(:23-36) and ``adam`` (:269-281): ``optax.scale_by_adam``, or
+(:23-36), ``fixed_schedule`` (:39-44, the base of ``reduce_lr_on_plateau``,
+:204, whose shrink the training CLI applies) and ``adam`` (:269-281): ``optax.scale_by_adam``, or
 ``scale_by_adam_dtyped`` (:227-265) with the moments stored in bf16 under
 ``--adam-bf16-stats``, chained with ``optax.add_decayed_weights`` under
 ``--weight-decay``. The learning rate is applied as the JAX trainer does:
@@ -34,14 +35,30 @@ def inverse_sqrt_schedule(lr: float, warmup_updates: int = 4000,
     return sched
 
 
+def fixed_schedule(lr: float, warmup_updates: int = 0
+                   ) -> Callable[[int], float]:
+    """lr * min((num_updates + 1) / warmup, 1), or lr without warmup."""
+    def sched(num_updates: int) -> float:
+        if warmup_updates <= 0:
+            return lr
+        return lr * min((num_updates + 1) / warmup_updates, 1.0)
+    return sched
+
+
+PLATEAU = ("reduce_lr_on_plateau", "reduce_on_plateau")
+
+
 def schedule_from_args(args) -> Callable[[int], float]:
     """The schedule as the JAX training CLI builds it (cli/train.py:107-123):
     a negative ``--warmup-init-lr`` (the default) becomes ``--lr`` itself,
-    so the warmup holds the lr flat where fairseq ramps it from 0."""
+    so the warmup holds the lr flat where fairseq ramps it from 0;
+    ``reduce_lr_on_plateau`` is the fixed schedule with its warmup."""
+    lr = float(str(args.lr).split(",")[0])
+    if args.lr_scheduler in PLATEAU:
+        return fixed_schedule(lr, args.warmup_updates)
     if args.lr_scheduler != "inverse_sqrt":
         raise NotImplementedError(
             f"--lr-scheduler {args.lr_scheduler} is not ported")
-    lr = float(str(args.lr).split(",")[0])
     warmup_init = args.warmup_init_lr if args.warmup_init_lr >= 0 else lr
     return inverse_sqrt_schedule(lr, args.warmup_updates, warmup_init)
 

@@ -13,7 +13,9 @@ Adam. A non-finite norm changes nothing: not the parameters, not Adam's
 moments or count, not the step. The postnet's statistics come from the
 microbatches either way, as in JAX. The logging values are summed over
 the microbatches and the loss's means divided by their number; they reach
-the host in one transfer.
+the host in one transfer. ``lr_scale`` multiplies the schedule's rate (the
+plateau shrink, :231-232). ``valid_step`` (:537-543) is the loss of one
+batch in eval mode, without a gradient.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ class Trainer:
     def train_step(self, microbatches: Union[Batch, Sequence[Batch]],
                    generators: Optional[Sequence[torch.Generator]] = None,
                    layer_keeps: Optional[Sequence[Optional[Sequence[bool]]]]
-                   = None) -> Dict[str, float]:
+                   = None, lr_scale: float = 1.0) -> Dict[str, float]:
         """One update on collated batches on the model's device (one batch
         or a list). generators: one dropout stream per microbatch (None
         trains without dropout); layer_keeps: the encoder's LayerDrop
@@ -54,7 +56,8 @@ class Trainer:
         draws them from the microbatch's key
         (``s2st_tpu/train/trainer.py:509``). Returns the loss's
         logging values, ``gnorm`` (before clipping), ``lr`` and
-        ``sample_size`` as host floats."""
+        ``sample_size`` as host floats; ``lr`` is the schedule's times
+        ``lr_scale``."""
         if isinstance(microbatches, dict):
             microbatches = [microbatches]
         for p in self.params:
@@ -91,7 +94,7 @@ class Trainer:
             if k in metrics:
                 metrics[k] /= len(microbatches)
         metrics["gnorm"] = host[-1]
-        metrics["lr"] = self.lr_schedule(self.step + 1)
+        metrics["lr"] = self.lr_schedule(self.step + 1) * lr_scale
         if math.isfinite(metrics["gnorm"]):
             if self.clip_norm > 0:
                 torch._foreach_mul_(grads, torch.clamp(
@@ -99,3 +102,21 @@ class Trainer:
             self.optimizer.step(grads, metrics["lr"])
             self.step += 1
         return metrics
+
+    @torch.no_grad()
+    def valid_step(self, batch: Batch,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, float]:
+        """The loss's logging values of one batch (sorted by name, as
+        JAX's device_get returns them) as host floats: the postnet on its
+        running statistics, dropout off but for the prenet's, which
+        ``generator`` draws (JAX passes its valid step a key). On a CUDA
+        tensor every attention of the forward takes the kernel."""
+        _, extras = s2st_loss(self.model, self.lcfg, batch, train=False,
+                              generator=generator)
+        logging = extras["logging"]
+        keys = sorted(logging)
+        dev = extras["sample_size"].device
+        host = torch.stack([torch.as_tensor(logging[k], device=dev).float()
+                            for k in keys]).cpu().tolist()
+        return dict(zip(keys, host))

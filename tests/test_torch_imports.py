@@ -1,10 +1,11 @@
 """The port stands alone, and its entry points never fall back to the CPU.
 
 - Importing every module of s2st_tpu_torch (and chip_smoke.py) in a fresh
-  interpreter loads neither jax nor any module of s2st_tpu.
-- Without a CUDA card the serving, training and text generation CLIs raise
-  unless ``--device cpu`` is given, and chip_smoke.py exits non-zero with no
-  result line, as it does from a directory that holds nothing else of the
+  interpreter loads neither jax nor any module of s2st_tpu, nor sacrebleu
+  or matplotlib (the card's machine has neither).
+- Without a CUDA card the serving, training, text generation and
+  generate_for_s2st CLIs raise unless ``--device cpu`` is given, and
+  chip_smoke.py exits non-zero with no result line, as it does from a directory that holds nothing else of the
   repository.
 - The tests' shared helper keeps the JAX CLIs' compilation cache inside
   the test process.
@@ -33,7 +34,8 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "s2st_tpu" or m.startswith("s2st_tpu."))
+             or m == "s2st_tpu" or m.startswith("s2st_tpu.")
+             or m.split(".")[0] in ("sacrebleu", "matplotlib"))
 print(len(names), bad)
 """
 
@@ -59,7 +61,8 @@ def test_port_imports_neither_jax_nor_s2st_tpu():
                  "models.lightconv_model", "models.lightconv_args",
                  "generate.sequence_generator", "scoring", "cli.generate",
                  "data.iterators", "train.checkpoint", "train.ema",
-                 "cli.average_checkpoints"):
+                 "cli.average_checkpoints", "tasks.s2s_translation",
+                 "ops.mcd", "cli.generate_for_s2st"):
         assert f"s2st_tpu_torch.{name}" in _walk_names(), name
     assert bad == "[]", bad
 
@@ -109,6 +112,14 @@ def test_train_cli_raises_without_cuda(tmp_path):
         train.main([str(tmp_path)])
 
 
+def test_generate_for_s2st_cli_raises_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from s2st_tpu_torch.cli import generate_for_s2st
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate_for_s2st.main([str(tmp_path), "--path", "x.npz"])
+
+
 def test_text_generate_cli_raises_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -131,15 +142,20 @@ def test_text_generate_cli_refuses_later_slices_flags(tmp_path, flags):
 
 
 def test_train_cli_refuses_later_slices_flags(tmp_path):
-    """Validation and asynchronous saves wait for later slices."""
+    """Asynchronous saves wait for a later slice, with validation on or
+    off; validation and its flags are ported and pass the check."""
     from s2st_tpu_torch.cli import train
     off = "--disable-validation"
-    for flags in (["--eval-inference"], [],
-                  [off, "--validate-interval-updates", "5"],
-                  [off, "--patience", "3"],
+    for flags in (["--write-checkpoints-asynchronously"],
                   [off, "--write-checkpoints-asynchronously"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             train.main([str(tmp_path), "--device", "cpu", *flags])
+    for flags in (["--eval-inference"], [],
+                  ["--validate-interval-updates", "5"], ["--patience", "3"],
+                  ["--valid-subset", "dev", "--validate-after-updates",
+                   "10", "--lr-scheduler", "reduce_lr_on_plateau"]):
+        train.check_args(train.get_parser().parse_args(
+            [str(tmp_path), "--device", "cpu", *flags]))
 
 
 @pytest.mark.parametrize("where", ["repo", "bare"])

@@ -9,16 +9,14 @@
   lengths identical, scores and per-position scores within 1e-5, with
   ``--lenpen``, ``--min-len``, per-sentence ``--max-len-a/-b``,
   ``--no-repeat-ngram-size`` and the forced-EOS finish at ``max_len``.
-- BLEU against the JAX package's own n-gram counts.
+- BLEU against the JAX package's scorer, which prints sacrebleu's line.
 - End to end: one corpus written by JAX's ``cli/preprocess.py``, one
   checkpoint written by JAX's checkpoint code for each conv type, one run of
   ``s2st_tpu.cli.generate`` and one of the port's CLI with the same flags,
   with and without ``--score-reference``. The S-/T-/H-/D-/P- lines hold the
   same tokens, and every printed score agrees to its 4 decimals (within
   one unit of the last: fp32 values that differ in the 7th digit can round
-  to neighbouring 4th decimals). The BLEU lines differ in form only where
-  JAX uses the ``sacrebleu`` package; the port's BLEU equals JAX's own
-  counts on the same strings.
+  to neighbouring 4th decimals). The BLEU lines are equal.
 """
 
 import argparse
@@ -33,13 +31,11 @@ import torch
 from s2st_tpu.data import indexed_dataset as jid
 from s2st_tpu.data.dictionary import Dictionary as JDictionary
 from s2st_tpu.generate import sequence_generator as jsg
-from s2st_tpu.scoring import bleu_from_counts, corpus_bleu_counts
 from s2st_tpu_torch.data import indexed_dataset as pid
 from s2st_tpu_torch.data.dictionary import Dictionary as PDictionary
 from s2st_tpu_torch.generate import sequence_generator as psg
 from s2st_tpu_torch.models.lightconv_args import arch_args
 from s2st_tpu_torch.scoring import BleuScorer
-from s2st_tpu_torch.scoring import corpus_bleu_counts as p_counts
 from s2st_tpu_torch.tasks.translation import TranslationTask
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -229,17 +225,20 @@ def test_beam_config_refuses_unported_strategies():
 
 
 def test_bleu_matches_jax_counts():
+    """The port's BLEU is what JAX's scorer prints with the installed
+    sacrebleu: ``corpus_bleu(hyps, [refs], tokenize="13a")``."""
+    from s2st_tpu.scoring import BleuScorer as JBleuScorer
     r = np.random.RandomState(2)
     refs = [" ".join(f"w{i}" for i in r.randint(0, 6, r.randint(3, 12)))
             for _ in range(30)]
     hyps = [" ".join(w if r.rand() < 0.7 else f"w{r.randint(0, 6)}"
                      for w in ref.split()[:r.randint(2, 12)]) for ref in refs]
-    scorer = BleuScorer()
+    scorer, ref_scorer = BleuScorer(), JBleuScorer()
     for ref, hyp in zip(refs, hyps):
         scorer.add_string(ref, hyp)
-    split = ([s.split() for s in refs], [s.split() for s in hyps])
-    assert p_counts(*split) == corpus_bleu_counts(*split)
-    assert scorer.score() == bleu_from_counts(*corpus_bleu_counts(*split))
+        ref_scorer.add_string(ref, hyp)
+    assert scorer.result_string() == ref_scorer.result_string()
+    assert scorer.score() == ref_scorer.score()
     assert 0 < scorer.score() < 100
 
 
@@ -329,13 +328,8 @@ def test_cli_prints_the_lines_of_jax_generate(corpus, conv_type,
         assert got[key][1] == text, key
         np.testing.assert_allclose(got[key][0], scores, atol=1.01e-4,
                                    rtol=0, err_msg=str(key))
-    # the BLEU line: the port's score is JAX's own count on the same strings
-    assert plines[-1].startswith("Generate test with beam=3: BLEU4 = ")
-    refs = [want[("T", sid, 0)][1] for (kind, sid, n) in want if kind == "S"]
-    hyps = [want[("D" if not score_reference else "H", sid, 0)][1]
-            for (kind, sid, n) in want if kind == "S"]
-    bleu = bleu_from_counts(*corpus_bleu_counts(
-        [r.split() for r in refs], [h.split() for h in hyps]))
-    assert plines[-1].endswith(f"BLEU4 = {bleu:.2f}")
+    # the BLEU line: JAX's, sacrebleu's form
+    assert plines[-1].startswith("Generate test with beam=3: BLEU = ")
+    assert plines[-1] == jlines[-1]
     timing = (tmp_path / "p" / "timing.json").read_text()
     assert ('"forward_ms"' if score_reference else '"beam_ms"') in timing
