@@ -126,6 +126,32 @@ library's SASS, and the attention libraries must hold some.
    validation batch's distance matrix
    must equal the CPU's (insertions and deletions; distortion within rtol
    1e-5); its device time and launches under torch.profiler.
+16. The frozen HuBERT frontend (--use-hubert True) at hubert-base width
+   (7 convs of 512 channels, 12 post-LN layers of 768-d, 12 heads, FFN
+   3072) before the recipe's model: (a) the attention kernel at the
+   frontend's shape (B=16, T'=511 keys of which 199-499 valid, H=12,
+   D=64), fp32 (the path's type: the frontend computes in fp32 past its
+   GroupNorm, as JAX's does) and bf16, held against the plain version and
+   timed by graph replay beside SDPA and the bound (``shape`` lines); (b) a
+   small frontend of head_dim 64 on the card against the CPU in fp32
+   (atol 1e-4); (c) on 16 source WAVs of 10 s down to 4 s (a ``src_orig``
+   column; ``src_n_frames`` the fbank frames stage 3 writes), a seeded
+   hubert-base .pt in fairseq's layout (weight_g/weight_v and the
+   pretraining leaves): the port's train CLI with the recipe's flags,
+   --fp16, --use-hubert True --load-pretrained-hubert-from for 3 updates,
+   validated after the third with --eval-inference on a dev split of the
+   16, where the kernel launches 12 times an update (the frontend; the
+   recipe's attention dropout keeps the S2ST layers plain) and 39 + 24 in
+   the validation, and the frontend's parameters stay bit-unchanged with
+   zero Adam moments;
+   generate_waveform with stage 7's line plus --use-hubert True (24
+   launches a batch: frontend and encoder); generate_for_s2st --scoring
+   wer with --use-hubert True (24 a batch). The first kernel call of each
+   distinct shape of the three runs is held against the plain version.
+   Prints launches by path, peak memory, and the wall and device ms and
+   idle share of one served batch's frontend, encoder (device ms by graph
+   replay) and 30-step decode (torch.profiler's sum); a device time past
+   the wall fails the phase.
 
 Prints the card's name and power limit, one JSON line of kernel
 measurements, and, last, {"ok": true, "device": {...}}.
@@ -269,9 +295,9 @@ def grad_graph_ms(forward, leaves, g) -> float:
                     stream=side)
 
 
-def attention_inputs(b, tq, tk, lengths, dtype, seed, d=HEAD_DIM):
+def attention_inputs(b, tq, tk, lengths, dtype, seed, d=HEAD_DIM, h=HEADS):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    shape_q, shape_k = (b, tq, HEADS, d), (b, tk, HEADS, d)
+    shape_q, shape_k = (b, tq, h, d), (b, tk, h, d)
     q = (torch.randn(shape_q, generator=g, device="cuda")
          * d ** -0.5).to(dtype)
     k = torch.randn(shape_k, generator=g, device="cuda").to(dtype)
@@ -283,29 +309,34 @@ def attention_inputs(b, tq, tk, lengths, dtype, seed, d=HEAD_DIM):
 
 def attention_bound_ms(q, k, kpm, causal, backward=False) -> tuple:
     """Least time for the function on this card: each input read once and
-    each output written once, against the products this data needs (a
-    causal row that has a valid key needs only the keys up to itself).
+    each output written once, against the products this data needs. A
+    query row needs the valid keys it may see (those up to itself where
+    causal); a row that sees none needs every key, since its output is
+    the mean of all of v. Only the rows of k and v that some query needs
+    are read: a batch row's valid keys, or all tk where it has none.
     Forward: q, k, v in, o out; 2 products. Backward: q, k, v, o, dO and
-    the fp32 row statistics in, dq, dk, dv out; 5 products (S recomputed,
-    dV, dP, dQ, dK)."""
+    the fp32 row statistics in, dq, dk, dv out (dk and dv in full); 5
+    products (S recomputed, dV, dP, dQ, dK)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     size = q.element_size()
-    if backward:
-        nbytes = (4 * q.numel() + 4 * k.numel()) * size + kpm.numel() \
-            + 2 * 4 * b * h * tq
-    else:
-        nbytes = (2 * q.numel() + 2 * k.numel()) * size + kpm.numel()
-    pad = kpm.cpu().numpy()
-    pairs = 0
+    valid = ~kpm.cpu().numpy()
+    seen = np.cumsum(valid, axis=1)          # valid keys 0..j of each row
+    pairs = kv_rows = 0
     for bi in range(b):
-        if not causal:
-            pairs += tq * tk
-            continue
-        first_valid = np.flatnonzero(~pad[bi])
-        for i in range(tq):
-            ok = first_valid.size and first_valid[0] <= i
-            pairs += min(i + 1, tk) if ok else tk
+        n_valid = int(seen[bi, -1])
+        kv_rows += n_valid or tk
+        if causal:
+            sees = seen[bi, np.minimum(np.arange(tq), tk - 1)]
+        else:
+            sees = np.full(tq, n_valid)
+        pairs += int(np.where(sees > 0, sees, tk).sum())
+    kv_bytes = 2 * kv_rows * h * d * size
+    if backward:
+        nbytes = (4 * q.numel() + 2 * k.numel()) * size + kv_bytes \
+            + kpm.numel() + 2 * 4 * b * h * tq
+    else:
+        nbytes = 2 * q.numel() * size + kv_bytes + kpm.numel()
     ops = (10.0 if backward else 4.0) * h * d * pairs
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[q.dtype]
@@ -328,8 +359,9 @@ def sdpa_fn(q, k, v, kpm, causal):
 
 
 def check_case(ka, name, b, tq, tk, lengths, causal, dtype, card,
-               device_times=False):
-    q, k, v, kpm = attention_inputs(b, tq, tk, lengths, dtype, seed=tq + tk)
+               device_times=False, h=HEADS, d=HEAD_DIM):
+    q, k, v, kpm = attention_inputs(b, tq, tk, lengths, dtype, seed=tq + tk,
+                                    d=d, h=h)
     out = ka.flash_attention(q, k, v, kpm, causal=causal)
     ref = ka.flash_attention_reference(q, k, v, kpm, causal=causal)
     torch.cuda.synchronize()
@@ -346,7 +378,7 @@ def check_case(ka, name, b, tq, tk, lengths, causal, dtype, card,
         tol = f"atol {TOL_BF16}"
     rec = {
         "case": name, "dtype": str(dtype).split(".")[-1],
-        "B": b, "Tq": tq, "Tk": tk, "H": HEADS, "D": HEAD_DIM,
+        "B": b, "Tq": tq, "Tk": tk, "H": h, "D": d,
         "causal": causal, "max_abs_err": max_err, "tolerance": tol}
     # device times by CUDA-graph replay; with device_times also
     # torch.profiler's sum beside each
@@ -992,8 +1024,8 @@ def recipe_train_argv(data: Path, save: Path, max_update: int) -> list:
 
 def run_train_cli(argv, save: Path, card: str, label: str) -> dict:
     """One run of the port's train CLI with every kernel count set to 0
-    just before it; returns the counts, the per-update log and peak
-    memory."""
+    just before it; returns the counts, the per-update log, the
+    validations' records and peak memory."""
     from s2st_tpu_torch.cli import train
     from s2st_tpu_torch.kernels import attention as ka
     save.mkdir(parents=True)
@@ -1008,6 +1040,8 @@ def run_train_cli(argv, save: Path, card: str, label: str) -> dict:
         raise AssertionError(f"train ({label}) returned {rc}")
     log = [json.loads(line) for line in
            (save / "log.jsonl").read_text().splitlines()]
+    valid = [rec for rec in log if "valid" in rec]
+    log = [rec for rec in log if "valid" not in rec]
     for rec in log:
         if not (np.isfinite(rec["loss"]) and np.isfinite(rec["gnorm"])):
             raise AssertionError(f"train ({label}): non-finite loss or grad "
@@ -1020,7 +1054,7 @@ def run_train_cli(argv, save: Path, card: str, label: str) -> dict:
            "first_step_ms": log[0]["step_ms"],
            "step_ms": sum(steady) / len(steady),
            "losses": [r["loss"] for r in log],
-           "gnorms": [r["gnorm"] for r in log]}
+           "gnorms": [r["gnorm"] for r in log], "valid": valid}
     out["target_frames_per_s"] = frames / (out["step_ms"] / 1e3)
     print(f"train ({label}): {out['updates']} updates in {wall:.1f} s; "
           f"{out['step_ms']:.3f} ms/update after the first "
@@ -1032,11 +1066,13 @@ def run_train_cli(argv, save: Path, card: str, label: str) -> dict:
     return out
 
 
-def serve_from_checkpoint(work: Path, data: Path, ckpt: Path) -> None:
+def serve_from_checkpoint(work: Path, data: Path, ckpt: Path,
+                          extra: tuple = ()) -> None:
     """Stage 7's exact line (recipes/run_baseline.sh:177-178, with
-    --dump-target --dump-plots) on the trained checkpoint: every utterance
-    gets finite predicted and target features and both WAVs; the plots are
-    drawn where matplotlib is importable, else skipped with a warning."""
+    --dump-target --dump-plots, and ``extra``) on the trained checkpoint:
+    every utterance gets finite predicted and target features and both
+    WAVs; the plots are drawn where matplotlib is importable, else skipped
+    with a warning."""
     import importlib.util
     from s2st_tpu_torch.cli import generate_waveform
     out = work / "served"
@@ -1045,7 +1081,7 @@ def serve_from_checkpoint(work: Path, data: Path, ckpt: Path) -> None:
             "--results-path", str(out), "--max-iter", "30",
             "--eos-prob-threshold", "1.5", "--spec-bwd-max-iter", "8",
             "--fp16", "--dump-waveforms", "--dump-features",
-            "--dump-target", "--dump-plots", "--device", "cuda"]
+            "--dump-target", "--dump-plots", "--device", "cuda", *extra]
     if generate_waveform.main(argv) != 0:
         raise AssertionError("generate_waveform from the trained "
                              "checkpoint failed")
@@ -1950,9 +1986,11 @@ def s2t_argv(data: Path, ckpt: Path, out: Path, mode: str) -> list:
                                        "--score-reference"]}[mode]
 
 
-def run_s2t_cli(argv, card: str, label: str) -> dict:
-    """One run of the port's generate_for_s2st with the attention kernel's
-    count set to 0 just before it; its lines are kept, not printed."""
+def run_s2t_cli(argv, card: str, label: str,
+                n_rows: int = len(S2T_FRAMES)) -> dict:
+    """One run of the port's generate_for_s2st over ``n_rows`` utterances
+    with the attention kernel's count set to 0 just before it; its lines
+    are kept, not printed."""
     import contextlib
     import io
     from s2st_tpu_torch.cli import generate_for_s2st
@@ -1971,9 +2009,9 @@ def run_s2t_cli(argv, card: str, label: str) -> dict:
              if re.match(r"^[STHDP]-|^Generate ", ln)]
     hyps = [ln for ln in lines if ln.startswith("H-")]
     scores = [float(ln.split("\t")[1]) for ln in hyps]
-    if len(hyps) != len(S2T_FRAMES) or not np.isfinite(scores).all():
+    if len(hyps) != n_rows or not np.isfinite(scores).all():
         raise AssertionError(f"generate_for_s2st ({label}): {len(hyps)} "
-                             f"H- lines, want {len(S2T_FRAMES)} finite")
+                             f"H- lines, want {n_rows} finite")
     timing = json.loads((Path(argv[argv.index("--results-path") + 1])
                          / "timing.json").read_text())
     return {"lines": lines, "launches": launches, "wall_s": wall,
@@ -2289,6 +2327,343 @@ def validate_phase(card: str) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# Phase 16: the frozen HuBERT frontend (--use-hubert True) at hubert-base
+# width in front of the recipe's model. 16 source WAVs of 10 s down to 4 s
+# at 16 kHz: one batch of the recipe's --max-tokens 60000 over their fbank
+# frames, padded to 163840 samples, so the frontend's self-attention runs at
+# B=16, T'=511 keys (199-499 valid), 12 heads of head_dim 64
+HUBERT_SECONDS = tuple(float(x) for x in np.linspace(10.0, 4.0, 16))
+HUBERT_HEADS, HUBERT_HEAD_DIM = 12, 64
+HUBERT_FLAGS = ("--use-hubert", "True")     # hubert-base widths by default
+# the frontend card vs CPU: fp32 sums in another order through 2 layers
+TOL_HUBERT_AGREEMENT = 1e-4
+
+
+def hubert_samples() -> list:
+    return [int(round(sec * 16000)) for sec in HUBERT_SECONDS]
+
+
+def hubert_lengths() -> tuple:
+    """(the frontend's valid frames of each utterance, the batch's frames:
+    the padded waveform's, padded as the port's iterators pad it)."""
+    from s2st_tpu_torch.data.iterators import snap_len
+    from s2st_tpu_torch.models.hubert import HubertConfig
+    cfg, samples = HubertConfig(), hubert_samples()
+    return ([cfg.output_length(n) for n in samples],
+            cfg.output_length(snap_len(max(samples))))
+
+
+def hubert_kernel_phase(card: str) -> dict:
+    """16(a): the attention kernel at the frontend's shape, fp32 (the path's
+    type: past its GroupNorm the frontend computes in fp32, as JAX's does)
+    and bf16, against the plain version, timed by graph replay beside SDPA
+    and the bound."""
+    from s2st_tpu_torch.kernels import attention as ka
+    lengths, t = hubert_lengths()
+    recs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = f"hubert_encoder_self_D64_{str(dtype).split('.')[-1]}"
+        rec = check_case(ka, name, len(lengths), t, t, lengths, False, dtype,
+                         card, h=HUBERT_HEADS, d=HUBERT_HEAD_DIM)
+        print("shape " + json.dumps({
+            "name": name, "B": rec["B"], "T": t, "H": HUBERT_HEADS,
+            "D": HUBERT_HEAD_DIM, "valid_keys": [min(lengths), max(lengths)],
+            "ms": rec["kernel_graph_ms"], "plain_ms": rec["plain_graph_ms"],
+            "library_ms": rec["library_graph_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "max_abs_err": rec["max_abs_err"], "card": card}), flush=True)
+        recs[name] = rec
+    return recs
+
+
+def hubert_agreement_phase(card: str) -> None:
+    """16(b): a small frontend (3 convs of 32 channels, 2 layers of 128-d
+    with 2 heads of head_dim 64) on the card (the kernel inside) against the
+    CPU (the plain attention), fp32, on rows of 1, 0.75 and 0.4 s."""
+    from s2st_tpu_torch.kernels import attention as ka
+    from s2st_tpu_torch.models.hubert import HubertConfig, HubertModel
+    cfg = HubertConfig(conv_layers=((32, 10, 5), (32, 3, 2), (32, 2, 2)),
+                       encoder_layers=2, encoder_embed_dim=128,
+                       encoder_ffn_embed_dim=256, encoder_attention_heads=2,
+                       conv_pos=16, conv_pos_groups=4)
+    model = HubertModel(cfg).init_weights(
+        torch.Generator().manual_seed(5)).eval()
+    lengths = torch.tensor([16000, 12000, 6400])
+    src = np.random.RandomState(5).randn(3, 16000).astype(np.float32) * 0.1
+    for i, n in enumerate(lengths.tolist()):
+        src[i, n:] = 0.0
+    src = torch.from_numpy(src)
+    with torch.no_grad():
+        cpu, cpu_lens = model.extract_features(src, lengths)
+        model.to("cuda")
+        ka.flash_attention.launches = 0
+        gpu, gpu_lens = model.extract_features(src.cuda(), lengths.cuda())
+        torch.cuda.synchronize()
+    launched = ka.flash_attention.launches
+    err = float((gpu.cpu() - cpu).abs().max())
+    print(f"hubert agreement: card vs CPU frontend (fp32, head_dim 64) max "
+          f"abs err {err:.3e}, tolerance {TOL_HUBERT_AGREEMENT}; kernel "
+          f"launches {launched} ({card})", flush=True)
+    if not (err <= TOL_HUBERT_AGREEMENT and launched == 2
+            and gpu_lens.tolist() == cpu_lens.tolist()):
+        raise AssertionError(f"hubert agreement: err {err}, {launched} "
+                             f"launches, lengths {gpu_lens.tolist()} vs "
+                             f"{cpu_lens.tolist()}")
+
+
+def write_hubert_pt(path: Path, seed: int) -> dict:
+    """A seeded hubert-base frontend in fairseq's checkpoint layout:
+    pos_conv as weight_g/weight_v, the pretraining leaves of
+    hubert_base_ls960.pt (mask_emb, final_proj 768 -> 256,
+    label_embs_concat 504 x 256) and a plain-dict cfg. Returns the
+    port reader's state dict of it."""
+    from s2st_tpu_torch.models import hubert as hub
+    g = torch.Generator().manual_seed(seed)
+    sd = dict(hub.HubertModel(hub.HubertConfig()).init_weights(g)
+              .state_dict())
+    w = sd.pop("encoder.pos_conv.0.weight")
+    sd["encoder.pos_conv.0.weight_g"] = w.pow(2).sum(
+        dim=(0, 1), keepdim=True).sqrt()
+    sd["encoder.pos_conv.0.weight_v"] = w
+    sd["mask_emb"] = torch.rand(768, generator=g)
+    sd["final_proj.weight"] = torch.randn(256, 768, generator=g) / 768 ** 0.5
+    sd["final_proj.bias"] = torch.zeros(256)
+    sd["label_embs_concat"] = torch.rand(504, 256, generator=g)
+    torch.save({"model": sd, "cfg": {"model": {
+        "conv_feature_layers": "[(512,10,5)] + [(512,3,2)] * 4 + "
+                               "[(512,2,2)] * 2",
+        "encoder_layers": 12, "encoder_embed_dim": 768,
+        "encoder_ffn_embed_dim": 3072, "encoder_attention_heads": 12,
+        "conv_pos": 128, "conv_pos_groups": 16, "layer_norm_first": False}}},
+        str(path))
+    return hub.load_torch_hubert(str(path))[0]
+
+
+def write_hubert_corpus(root: Path, seed: int) -> None:
+    """Phase 6's corpus layout over the 16 utterances, each with a source
+    WAV (PCM16, seeded noise) in a ``src_orig`` column beside its fbank
+    (``src_n_frames`` the fbank's 25 ms / 10 ms frames, as stage 3 writes
+    them); train, dev, tst and test list all 16."""
+    from s2st_tpu_torch.data.audio_utils import write_wav
+    samples = hubert_samples()
+    write_train_corpus(root, seed, frames=tuple(1 + (n - 400) // 160
+                                                for n in samples))
+    r = np.random.RandomState(seed)
+    (root / "wavs").mkdir()
+    for i, n in enumerate(samples):
+        write_wav(str(root / "wavs" / f"utt{i}.wav"),
+                  np.clip(r.randn(n) * 0.1, -1.0, 1.0), 16000)
+    header, *rows = (root / "train.tsv").read_text().splitlines()
+    lines = [header + "\tsrc_orig"] + [f"{row}\twavs/utt{i}.wav"
+                                      for i, row in enumerate(rows)]
+    for split in ("train", "dev", "tst", "test"):
+        (root / f"{split}.tsv").write_text("\n".join(lines) + "\n")
+
+
+def hubert_frontend_state(ckpt: Path):
+    """(the port model a checkpoint holds, on the CPU, built as
+    generate_waveform builds it, and its flat arrays)."""
+    from s2st_tpu_torch.cli.generate_waveform import get_parser
+    from s2st_tpu_torch.models.config_from_args import (
+        build_model_config, model_args_from_checkpoint)
+    from s2st_tpu_torch.models.jax_bridge import read_jax_checkpoint
+    from s2st_tpu_torch.models.s2st_transformer import from_jax_variables
+    from s2st_tpu_torch.train import checkpoint as pckpt
+    variables, meta = read_jax_checkpoint(str(ckpt))
+    args = get_parser().parse_args([".", "--path", str(ckpt),
+                                    "--results-path", "."])
+    cfg = build_model_config(model_args_from_checkpoint(args, meta),
+                             variables, 80)
+    return from_jax_variables(cfg, variables), \
+        pckpt.load_checkpoint_file(str(ckpt))[0]
+
+
+def hubert_phase(card: str) -> dict:
+    """16(c): train 3 updates with the recipe's flags, --fp16 and
+    --use-hubert True --load-pretrained-hubert-from a seeded hubert-base
+    .pt, validated once with --eval-inference; serve the checkpoint with
+    stage 7's line plus --use-hubert True; run stage 10 (--scoring wer) on
+    it; hold the first kernel call of each distinct attention shape of the
+    three runs against the plain version; then the wall ms of one served
+    batch's frontend, encoder and decode, their device ms and idle
+    share."""
+    from s2st_tpu_torch.data.manifest import GenerationSplit
+    from s2st_tpu_torch.generate.speech_generator import (GenerationConfig,
+                                                          decode_loop)
+    from s2st_tpu_torch.kernels import attention as ka
+    from s2st_tpu_torch.models.jax_bridge import jax_layout
+    from s2st_tpu_torch.models.s2st_transformer import cast_for_inference
+    from s2st_tpu_torch.tasks.s2s_translation import data_config
+    from s2st_tpu_torch.train import checkpoint as pckpt
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_hubert_"))
+    try:
+        data = work / "data"
+        write_hubert_corpus(data, seed=13)
+        pt = work / "hubert_base.pt"
+        trunk = write_hubert_pt(pt, seed=14)
+        save = work / "ckpt"
+        # the recipe's flags with its validation (--eval-inference
+        # --best-checkpoint-metric mcd_loss) once, after the third update
+        argv = [a for a in recipe_train_argv(data, save, 3)
+                if a != "--disable-validation"]
+        i = argv.index("--validate-after-updates")
+        del argv[i:i + 2]
+        argv += [*HUBERT_FLAGS, "--load-pretrained-hubert-from", str(pt),
+                 "--save-interval", "3", "--validate-interval", "3"]
+        with RecordAttention() as rec_attn:
+            trained = run_train_cli(argv, save, card, "hubert: the recipe's "
+                                    "flags + --use-hubert True")
+            # the frontend's 12 an update (the recipe's attention dropout
+            # keeps the S2ST model's attention plain in training, as in
+            # JAX); the validation's loss pass 12 + 27, its decode's
+            # encode 12 + 12
+            want = 12 * 3 + (12 + 27) + (12 + 12)
+            if trained["updates"] != 3 or \
+                    trained["fwd_launches"] != want or \
+                    trained["bwd_launches"]:
+                raise AssertionError(
+                    f"train (hubert): {trained['updates']} updates, kernel "
+                    f"launches fwd {trained['fwd_launches']} bwd "
+                    f"{trained['bwd_launches']}; want 3, {want}, 0")
+            st = trained["valid"][0]
+            if len(trained["valid"]) != 1 or not all(
+                    np.isfinite(st["valid"][k])
+                    for k in ("loss", "mcd_loss", "ins_rate", "del_rate")):
+                raise AssertionError(f"train (hubert): validations "
+                                     f"{trained['valid']}")
+            print(f"validate (hubert) at update {st['num_updates']}: loss "
+                  f"{st['valid']['loss']:.4f}, mcd_loss "
+                  f"{st['valid']['mcd_loss']:.4f}; ms: "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in st["ms"].items())
+                  + f" ({card})", flush=True)
+            ckpt = save / "checkpoint_last.npz"
+            model, flat = hubert_frontend_state(ckpt)
+            frontend = model.encoder.hubert.state_dict()
+            if set(frontend) != set(trunk) or not all(
+                    torch.equal(frontend[k], trunk[k]) for k in trunk):
+                raise AssertionError("train (hubert): the frontend's "
+                                     "parameters moved")
+            keys = [key for name, key, _ in jax_layout(model)
+                    if name.startswith("encoder.hubert.")]
+            if any(flat[pckpt.opt_key(m, key)].any()
+                   for key in keys for m in ("mu", "nu")):
+                raise AssertionError("train (hubert): the frontend's Adam "
+                                     "moments are not 0")
+            print(f"train (hubert): the frontend's {len(keys)} parameter "
+                  f"arrays ({sum(v.numel() for v in trunk.values()):,} "
+                  f"values) bit-unchanged over 3 updates, their Adam "
+                  f"moments 0 ({card})", flush=True)
+            del model, flat
+
+            torch.cuda.reset_peak_memory_stats()
+            ka.flash_attention.launches = 0
+            serve_from_checkpoint(work, data, ckpt, HUBERT_FLAGS)
+            torch.cuda.synchronize()
+            serve_launches = ka.flash_attention.launches
+            serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            served = json.loads((work / "served" / "timing.json").read_text())
+            # 12 in the frontend (fp32) and 12 in the encoder (bf16)
+            if serve_launches != 24 * len(served):
+                raise AssertionError(f"serve (hubert): {serve_launches} "
+                                     f"kernel launches for {len(served)} "
+                                     f"batches; want 24 a batch")
+            s2t = run_s2t_cli(s2t_argv(data, ckpt, work / "s2t", "wer")
+                              + list(HUBERT_FLAGS), card, "hubert wer",
+                              n_rows=len(HUBERT_SECONDS))
+            n_s2t = len(s2t["timing"]["batches"])
+            if s2t["launches"] != 24 * n_s2t or not s2t["result"].startswith(
+                    "Generate test with beam=5: WER: "):
+                raise AssertionError(f"generate_for_s2st (hubert): "
+                                     f"{s2t['launches']} launches for "
+                                     f"{n_s2t} batches, {s2t['result']}")
+        print(f"hubert launches by path: train {trained['fwd_launches']} "
+              f"(3 updates), serve {serve_launches} ({len(served)} batch), "
+              f"generate_for_s2st {s2t['launches']} ({n_s2t} batch); peak "
+              f"memory train {trained['peak_gib']:.2f} GiB, serve "
+              f"{serve_peak:.2f} GiB; generate_for_s2st {s2t['result']} "
+              f"({card})", flush=True)
+        for rec in served:
+            print(f"serve_timing (hubert) batch {rec['batch']}: rows "
+                  f"{rec['rows']}, source samples {rec['src_frames']}, "
+                  f"encode_ms {rec['encode_ms']:.3f} (frontend + encoder), "
+                  f"decode_ms {rec['decode_ms']:.3f} over "
+                  f"{rec['decode_steps']} steps ({card})", flush=True)
+        path_err = hold_path_attention(rec_attn.calls, "hubert", card)
+
+        # one served batch, phase by phase, as generate_waveform runs it
+        model, _ = hubert_frontend_state(ckpt)
+        model = cast_for_inference(model.to("cuda").eval(),
+                                   model.cfg.dtype)
+        args = argparse.Namespace(data=str(data), config_yaml="config.yaml",
+                                  use_hubert=True)
+        split = GenerationSplit(str(data), data_config(args), "tst", 4)
+        batch = split.collate(list(range(len(split.ids))))
+        src = batch["src_speech"].cuda()
+        lens = batch["src_speech_lens"].cuda()
+        gen_cfg = GenerationConfig(max_iter=30, eos_prob_threshold=1.5)
+        g = torch.Generator("cuda").manual_seed(0)
+        hub = model.encoder.hubert
+
+        def frontend():
+            return hub.extract_features(src, lens)
+
+        def encoder():
+            return model.encode(feats, flens)
+
+        def wall_ms(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        timing = {}
+        with torch.inference_mode():
+            feats, flens = frontend()
+            model.encoder.hubert = None          # the encoder alone
+            enc = encoder()
+            # the frontend and the encoder: the host's wall ms of an eager
+            # call (the second of two), and the device ms of the same call
+            # by graph replay, which no host gap or profiler loss enters;
+            # the top kernels from torch.profiler, for their names
+            for name, fn in (("frontend", frontend), ("encoder", encoder)):
+                for _ in range(2):
+                    _, wall = wall_ms(fn)
+                busy = graph_ms(fn, iters=2, replays=3)
+                _, _, _, launches, top = _profiled(fn)
+                timing[name] = (wall, busy, launches, top, "graph replay")
+            model.encoder.hubert = hub
+            # the decode: a host loop that reads the device each step, so
+            # no graph; the device ms are torch.profiler's sum
+            for _ in range(2):       # the second pass is the one reported
+                _, wall, busy, launches, top = _profiled(
+                    lambda: decode_loop(model, gen_cfg, enc, generator=g))
+            timing["decode"] = (wall, busy, launches, top, "profiler sum")
+        for name, (wall, busy, launches, top, how) in timing.items():
+            timing[name] = {"wall_ms": wall, "device_ms": busy,
+                            "idle_share": 1 - busy / wall}
+            print(f"profile hubert_{name}: rows {src.shape[0]}, samples "
+                  f"{src.shape[1]}, wall_ms {wall:.3f}, device_ms "
+                  f"{busy:.3f} ({how}; {launches} device activities under "
+                  f"the profiler), device / wall {busy / wall:.3f}, idle "
+                  f"share {1 - busy / wall:.3f} ({card})", flush=True)
+            for key, ms, count in top[:6]:
+                print(f"profile hubert_{name}:   {ms:9.3f} ms  {count:6d}x  "
+                      f"{key[:60]}", flush=True)
+            if busy > wall:
+                raise AssertionError(f"hubert_{name}: device {busy} ms "
+                                     f"inside a wall of {wall} ms")
+        return {"train_launches": trained["fwd_launches"],
+                "train_bwd_launches": trained["bwd_launches"],
+                "serve_launches": serve_launches,
+                "s2t_launches": s2t["launches"],
+                "path_max_abs_err": path_err, "timing": timing,
+                "peak_gib": {"train": trained["peak_gib"],
+                             "serve": serve_peak}}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def attention_shapes(fwd: dict, bwd: dict) -> dict:
     """The attention kernels' graph-replay times at each main shape of
     phases 1 and 5 beside SDPA's, the plain version's and the bound."""
@@ -2371,9 +2746,12 @@ def main(argv=None) -> int:
         shutil.rmtree(work, ignore_errors=True)
     s2t = s2t_phase(card)
     validation = validate_phase(card)
+    hubert_kernel = hubert_kernel_phase(card)
+    hubert_agreement_phase(card)
+    hubert = hubert_phase(card)
 
     a = trained["a"]
-    shapes = attention_shapes(fwd, bwds)
+    shapes = attention_shapes({**fwd, **hubert_kernel}, bwds)
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -2388,11 +2766,15 @@ def main(argv=None) -> int:
             "generate_for_s2st_sacrebleu": s2t["sacrebleu"]["launches"],
             "generate_for_s2st_score_reference":
                 s2t["score_reference"]["launches"],
-            "train_with_validation": validation["fwd_launches"]},
+            "train_with_validation": validation["fwd_launches"],
+            "train_hubert": hubert["train_launches"],
+            "serve_hubert": hubert["serve_launches"],
+            "generate_for_s2st_hubert": hubert["s2t_launches"]},
         "max_abs_err": serving["max_abs_err"],
         "path_max_abs_err": {
             "generate_for_s2st": s2t["path_max_abs_err"],
-            "train_with_validation": validation["path_max_abs_err"]},
+            "train_with_validation": validation["path_max_abs_err"],
+            "hubert": hubert["path_max_abs_err"]},
         "ms": serving["kernel_graph_ms"],
         "plain_ms": serving["plain_graph_ms"],
         "bound_ms": serving["bound_ms"],
@@ -2407,7 +2789,8 @@ def main(argv=None) -> int:
         "design": ka.DESIGNS,
         "launches": a["bwd_launches"],
         "launches_by_path": {"train": a["bwd_launches"],
-                             "train_runtime": runtime["bwd_launches"]},
+                             "train_runtime": runtime["bwd_launches"],
+                             "train_hubert": hubert["train_bwd_launches"]},
         "launches_per_update": a["bwd_launches"] / a["updates"],
         "max_abs_err": bwd["max_abs_err"],
         "ms": bwd["bwd_graph_ms"],

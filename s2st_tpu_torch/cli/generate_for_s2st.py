@@ -23,6 +23,9 @@ second go to ``<results-path>/timing.json``. Runs on CUDA unless
         --path ckpt.npz --max-tokens 50000 --beam 5 --fp16 \\
         --scoring wer --wer-lowercase --wer-remove-punct
 
+With ``--use-hubert True`` the sources are the split's raw waveforms, as
+in training, and the checkpoint's model runs its HuBERT frontend.
+
 Ensembles (``--path a:b``), sampling, diverse beam and siblings search,
 constraints and ``--prefix-size`` are not ported and raise.
 """
@@ -39,18 +42,17 @@ from typing import List, Optional
 
 import torch
 
-from ..data.data_cfg import S2STDataConfig
 from ..data.iterators import EpochBatchIterator
 from ..data.s2st_dataset import TrainSplit
 from ..generate.sequence_generator import (EOS, BeamConfig, beam_search_aux,
                                            score_sequences)
 from ..models.config_from_args import (add_model_args, build_model_config,
                                        model_args_from_checkpoint)
-from ..models.jax_bridge import load_jax_variables, read_jax_checkpoint
-from ..models.s2st_transformer import S2STTransformer, cast_for_inference
+from ..models.jax_bridge import read_jax_checkpoint
+from ..models.s2st_transformer import cast_for_inference, from_jax_variables
 from ..nn.core import resolve_device
 from ..scoring import build_scorer
-from ..tasks.s2s_translation import load_dictionaries
+from ..tasks.s2s_translation import data_config, load_dictionaries
 from .generate_waveform import _PhaseClock
 
 logger = logging.getLogger("s2st_tpu_torch.generate_for_s2st")
@@ -119,7 +121,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     _refuse_unported(args)
     device = resolve_device(args.device)
 
-    data_cfg = S2STDataConfig(Path(args.data) / args.config_yaml)
+    data_cfg = data_config(args)
     src_dict, tgt_dict = load_dictionaries(args.data, data_cfg)
     variables, meta = read_jax_checkpoint(args.path)
     margs = model_args_from_checkpoint(args, meta)
@@ -133,9 +135,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if which not in params:
         raise ValueError(f"{args.path} has no {which}; train with the "
                          f"matching ce-weight")
-    model = S2STTransformer(cfg)
-    load_jax_variables(model, variables)
-    model = cast_for_inference(model.to(device).eval(), cfg.dtype)
+    model = cast_for_inference(
+        from_jax_variables(cfg, variables).to(device).eval(), cfg.dtype)
     dec = getattr(model, which)
     out_dict = src_dict if use_asr else tgt_dict
     logger.info(f"loaded {args.path} (step {meta.get('step', '?')}): "

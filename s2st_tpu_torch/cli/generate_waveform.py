@@ -12,6 +12,12 @@ and features. Runs on CUDA unless ``--device`` names another device.
         --results-path out --spec-bwd-max-iter 64 --fp16 \\
         --dump-waveforms --dump-features --dump-target --dump-plots
 
+With ``--use-hubert True`` (stage 7's line plus that flag, for a model
+trained with the HuBERT frontend) the sources are the raw waveforms of the
+split's ``src_orig`` (else ``src_audio``) column, padded as JAX's iterator
+pads them. Batches are cut as JAX's are, to a multiple of
+``--required-batch-size-multiple`` (8) rows where they are larger.
+
 ``--dump-target`` also vocodes each utterance's denormalised target mels
 and writes them beside the prediction (``wav/<id>_targ.wav``,
 ``feat/<id>_targ.npy``); ``--dump-plots`` draws the prediction's (and the
@@ -35,7 +41,6 @@ import numpy as np
 import torch
 
 from ..data.audio_utils import write_wav
-from ..data.data_cfg import S2STDataConfig
 from ..data.manifest import GenerationSplit
 from ..generate.speech_generator import (GenerationConfig, decode_loop,
                                          postprocess,
@@ -43,9 +48,10 @@ from ..generate.speech_generator import (GenerationConfig, decode_loop,
 from ..generate.vocoder import GriffinLimVocoder
 from ..models.config_from_args import (add_model_args, build_model_config,
                                        model_args_from_checkpoint)
-from ..models.jax_bridge import load_jax_variables, read_jax_checkpoint
-from ..models.s2st_transformer import S2STTransformer, cast_for_inference
+from ..models.jax_bridge import read_jax_checkpoint
+from ..models.s2st_transformer import cast_for_inference, from_jax_variables
 from ..nn.core import resolve_device
+from ..tasks.s2s_translation import data_config
 
 logger = logging.getLogger("s2st_tpu_torch.generate_waveform")
 
@@ -61,6 +67,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--results-path", required=True)
     p.add_argument("--max-tokens", type=int, default=40000)
     p.add_argument("--batch-size", "--max-sentences", type=int, default=None)
+    p.add_argument("--required-batch-size-multiple", type=int, default=8)
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--max-iter", type=int, default=1500)
     p.add_argument("--eos-prob-threshold", type=float, default=0.5)
@@ -156,14 +163,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = get_parser().parse_args(argv)
     device = resolve_device(args.device)
 
-    data_cfg = S2STDataConfig(Path(args.data) / args.config_yaml)
+    data_cfg = data_config(args)
     variables, meta = read_jax_checkpoint(args.path.split(":")[0])
     margs = model_args_from_checkpoint(args, meta)
     cfg = build_model_config(margs, variables,
                              data_cfg.input_feat_per_channel)
-    model = S2STTransformer(cfg)
-    load_jax_variables(model, variables)
-    model = cast_for_inference(model.to(device).eval(), cfg.dtype)
+    model = cast_for_inference(
+        from_jax_variables(cfg, variables).to(device).eval(), cfg.dtype)
     logger.info(f"loaded {args.path} (step {meta.get('step', '?')}) on "
                 f"{device}, compute {cfg.dtype}")
 
@@ -185,8 +191,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     clock = _PhaseClock(device)
     timing = []
     n_done = 0
-    for bi, indices in enumerate(split.batches(args.max_tokens,
-                                               args.batch_size)):
+    for bi, indices in enumerate(split.batches(
+            args.max_tokens, args.batch_size,
+            args.required_batch_size_multiple)):
         batch = split.collate(indices, with_target=args.teacher_forcing
                               or args.dump_target)
         gen = torch.Generator(device).manual_seed(args.seed * 100003 + bi)

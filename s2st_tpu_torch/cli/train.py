@@ -41,8 +41,16 @@ prints JAX's ``valid | ...`` line and, with ``--log-file``, a JSON line
 ``--lr-scheduler reduce_lr_on_plateau``, the ``--lr-shrink`` of the rate
 (:345-375); ``best_val``, ``patience_left`` and ``lr_scale`` ride in each
 checkpoint's meta and come back on resume. ``--write-checkpoints-
-asynchronously`` and ``--use-hubert True`` raise; the log-format,
-tensorboard and worker flags are accepted and ignored with a logged line.
+asynchronously`` raises; the log-format, tensorboard and worker flags are
+accepted and ignored with a logged line.
+
+``--use-hubert True`` trains over raw waveforms through the frozen HuBERT
+frontend (``--hubert-hidden/-layers/-ffn/-heads``), and
+``--load-pretrained-hubert-from`` a fairseq ``.pt`` replaces its random
+init before the optimizer is built (:169-180). The frontend's parameters
+stay in Adam with zero gradients, as in JAX: their moments stay 0 and
+they do not move unless ``--weight-decay`` decays them; they and their
+moments are in every checkpoint.
 """
 
 from __future__ import annotations
@@ -59,17 +67,18 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..data.data_cfg import S2STDataConfig
 from ..data.iterators import EpochBatchIterator, GroupedIterator
 from ..data.s2st_dataset import TrainSplit, to_device
 from ..models.config_from_args import add_model_args, model_config
+from ..models.hubert import load_torch_hubert
 from ..models.s2st_transformer import S2STTransformer, encoder_layer_keep
 from ..nn.core import resolve_device
 from ..train.checkpoint import (CheckpointManager, ema_flat, load_ema,
                                 restore_state, state_flat, write_npz)
 from ..train.ema import EMAConfig, ema_step, init_ema
 from ..train.losses import LossConfig
-from ..tasks.s2s_translation import build_eval_inference_fn, load_dictionaries
+from ..tasks.s2s_translation import (build_eval_inference_fn, data_config,
+                                     load_dictionaries)
 from ..train.optim import PLATEAU, schedule_from_args
 from ..train.trainer import Trainer
 from .generate_waveform import _PhaseClock
@@ -78,7 +87,7 @@ logger = logging.getLogger("s2st_tpu_torch.train")
 
 # accepted for the recipe's command line, with no effect in this port
 IGNORED = ("num_workers", "report_accuracy", "log_format",
-           "tensorboard_logdir", "load_pretrained_hubert_from")
+           "tensorboard_logdir")
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -282,13 +291,21 @@ def main(argv: Optional[List[str]] = None) -> int:
     device = resolve_device(args.device)
     check_args(args)
 
-    data_cfg = S2STDataConfig(Path(args.data) / args.config_yaml)
+    data_cfg = data_config(args)
     dicts = load_dictionaries(args.data, data_cfg)
     cfg = model_config(args, len(dicts[0]), len(dicts[1]),
                        data_cfg.input_feat_per_channel)
     split = TrainSplit(args.data, data_cfg, args.train_subset, *dicts,
                        n_frames_per_step=args.n_frames_per_step)
-    model = S2STTransformer(cfg).init_weights(args.seed).to(device)
+    model = S2STTransformer(cfg).init_weights(args.seed)
+    if cfg.use_hubert and args.load_pretrained_hubert_from:
+        sd, _ = load_torch_hubert(args.load_pretrained_hubert_from)
+        model.encoder.hubert.carry_pretraining(
+            {k: tuple(v.shape) for k, v in sd.items()})
+        model.encoder.hubert.load_state_dict(sd, strict=True)
+        logger.info(f"loaded pretrained hubert from "
+                    f"{args.load_pretrained_hubert_from}")
+    model = model.to(device)
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"model params: {n_params:,}; {len(split)} utterances in "
                 f"{args.train_subset}; compute {cfg.dtype} on {device}")

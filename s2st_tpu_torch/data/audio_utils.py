@@ -1,8 +1,9 @@
-"""Feature reads, PCM16 WAV writes and the mel filterbank.
+"""Feature and waveform reads, PCM16 WAV writes and the mel filterbank.
 
-The port's own copies of ``s2st_tpu/data/audio_utils.py`` ``parse_path``,
-``get_features_or_waveform`` (:100-123, features only), ``write_wav``
-(:72-83), ``mel_filters`` (:157-196, librosa slaney mel) and
+The port's own copies of ``s2st_tpu/data/audio_utils.py`` ``read_wav``
+(:41-69), ``parse_path`` and ``get_features_or_waveform`` (:100-123:
+``.npy`` features, ``.wav`` files and zip slices holding either),
+``write_wav`` (:72-83), ``mel_filters`` (:157-196, librosa slaney mel) and
 ``mel_filters_htk`` (:198-221, torchaudio's HTK mel of the MCD metric).
 """
 
@@ -12,14 +13,43 @@ import io
 import mmap
 import wave
 from pathlib import Path
-from typing import List, Tuple
+from typing import BinaryIO, List, Tuple, Union
 
 import numpy as np
 
+AUDIO_OR_FEATURE_SUFFIXES = {".npy", ".wav", ".flac", ".ogg"}
+
+
+def read_wav(path_or_fp: Union[str, BinaryIO], normalization: bool = True
+             ) -> Tuple[np.ndarray, int]:
+    """(waveform (T,) float32, sample rate) of a PCM WAV of 8, 16 or 32
+    bits, channels averaged. ``normalization`` scales to [-1, 1); without
+    it the samples keep the 16-bit integer scale."""
+    with wave.open(path_or_fp, "rb") as w:
+        sr, n = w.getframerate(), w.getnframes()
+        width, channels = w.getsampwidth(), w.getnchannels()
+        raw = w.readframes(n)
+    if width == 2:
+        data, scale = np.frombuffer(raw, "<i2").astype(np.float32), 2.0 ** 15
+    elif width == 4:
+        data, scale = np.frombuffer(raw, "<i4").astype(np.float32), 2.0 ** 31
+    elif width == 1:
+        data = np.frombuffer(raw, np.uint8).astype(np.float32) - 128.0
+        scale = 2.0 ** 7
+    else:
+        raise ValueError(f"unsupported sample width {width}")
+    if channels > 1:
+        data = data.reshape(-1, channels).mean(axis=1)
+    if normalization:
+        data = data / scale
+    elif width != 2:
+        data = data / scale * 2.0 ** 15
+    return data, sr
+
 
 def parse_path(path: str) -> Tuple[str, List[int]]:
-    """``file.npy`` or ``archive.zip:offset:length``."""
-    if Path(path).suffix == ".npy":
+    """``file.npy`` (or ``.wav``) or ``archive.zip:offset:length``."""
+    if Path(path).suffix in AUDIO_OR_FEATURE_SUFFIXES:
         return path, []
     _path, *slice_ptr = path.split(":")
     if not Path(_path).is_file():
@@ -32,17 +62,27 @@ def parse_path(path: str) -> Tuple[str, List[int]]:
 def get_features(path: str) -> np.ndarray:
     """(T, F) features from an ``.npy`` file or an ``.npy`` member stored
     uncompressed in a zip, addressed by byte offset and length."""
+    feats = get_features_or_waveform(path)
+    if feats.ndim != 2:
+        raise ValueError(f"{path} does not hold (T, F) features")
+    return feats
+
+
+def get_features_or_waveform(path: str, need_waveform: bool = False
+                             ) -> np.ndarray:
+    """``.npy`` features, or a WAV's samples (scaled to [-1, 1) with
+    ``need_waveform``) from a file or a zip slice."""
     _path, slice_ptr = parse_path(path)
     if not slice_ptr:
-        if Path(_path).suffix != ".npy":
-            raise ValueError(f"not a feature file: {path}")
-        return np.load(_path)
+        if Path(_path).suffix == ".npy":
+            return np.load(_path)
+        return read_wav(_path, normalization=need_waveform)[0]
     with open(_path, "rb") as f:
         with mmap.mmap(f.fileno(), length=0, access=mmap.ACCESS_READ) as mm:
             data = mm[slice_ptr[0]:slice_ptr[0] + slice_ptr[1]]
-    if data[:2] != b"\x93N":
-        raise ValueError(f"{path} does not hold .npy data")
-    return np.load(io.BytesIO(data))
+    if data[:2] == b"\x93N":
+        return np.load(io.BytesIO(data))
+    return read_wav(io.BytesIO(data), normalization=need_waveform)[0]
 
 
 def write_wav(path: str, waveform: np.ndarray, sample_rate: int) -> None:

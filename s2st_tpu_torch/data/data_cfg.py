@@ -2,7 +2,8 @@
 
 Counterpart of ``s2st_tpu/data/data_cfg.py``: the ``features`` block, the
 src/tgt transform lists with their split wildcards, the global CMVN stats
-paths, ``audio_root`` and ``input_feat_per_channel``. The file is read
+paths, ``audio_root``, ``input_feat_per_channel`` and ``use_hubert``
+(:24, :35-36). The file is read
 with a small reader for the block-style YAML that ``yaml.dump`` and the
 recipe write (nested maps, ``- item`` lists, scalars, flow lists), so the
 port needs no YAML package.
@@ -94,6 +95,12 @@ class S2STDataConfig:
             raise FileNotFoundError(f"{yaml_path.as_posix()} not found")
         self.config = parse_yaml(yaml_path.read_text()) or {}
         self.root = yaml_path.parent
+        self.use_hubert = False
+
+    def set_use_hubert(self, use_hubert: bool) -> None:
+        """Raw-waveform sources for the HuBERT frontend (the task sets it
+        from ``--use-hubert``, tasks/s2s_translation.py:49)."""
+        self.use_hubert = bool(use_hubert)
 
     def abs_path(self, x: Optional[str]) -> Optional[str]:
         """A relative path that does not exist as given is taken from the

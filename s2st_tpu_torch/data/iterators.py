@@ -13,7 +13,8 @@ The port's own copy of what stage 5 uses of ``s2st_tpu/data/iterators.py``:
   and generation take them, in length order, ties by index), each item's SpecAugment stream seeded from
   (seed, epoch, index) (``_fetch_item``, :269-279), batches padded to the
   static shapes of ``snap_len`` or ``--num-batch-buckets`` quantiles
-  (:258-307), and ``state_dict`` / ``next_epoch_itr(offset)`` for a resume
+  (:258-307; a waveform source's time pad counts its samples, :296-300),
+  and ``state_dict`` / ``next_epoch_itr(offset)`` for a resume
   in the middle of an epoch;
 - ``GroupedIterator`` (:396-413) for ``--update-freq``.
 

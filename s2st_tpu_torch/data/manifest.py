@@ -3,10 +3,16 @@
 Reads what stages 5 and 7 read of ``s2st_tpu/data/s2st_dataset.py``: the
 TSV (``_load_tsv``, :55) with paths taken from ``audio_root``, features
 through the split's transforms (``data/feature_transforms.py``: global
-CMVN and SpecAugment) and the packed target log-mels. Generation batches
-are the JAX batcher's greedy length-descending split under ``max_tokens``
-(longest * rows) and ``batch_size`` (``iterators.batch_by_size``); they
-are padded to the batch maximum, not bucketed.
+CMVN and SpecAugment) and the packed target log-mels. With the data
+config's ``use_hubert`` the source is instead the raw waveform of the
+``src_orig`` column (``src_audio`` where it is empty), untransformed
+(:158-166). Generation batches are the JAX batcher's greedy
+length-descending split under ``max_tokens`` (longest * rows),
+``batch_size`` and ``required_batch_size_multiple``
+(``iterators.batch_by_size``); feature batches are padded to the batch
+maximum, waveform batches to ``snap_len`` of it, as JAX's iterator pads
+them: the frontend's GroupNorm takes its statistics over the padded
+samples too, so the pad is part of the result.
 """
 
 from __future__ import annotations
@@ -18,9 +24,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .audio_utils import get_features
+from .audio_utils import get_features, get_features_or_waveform
 from .data_cfg import S2STDataConfig
-from .iterators import batch_by_size, ordered_indices
+from .iterators import batch_by_size, ordered_indices, snap_len
 
 _CMVN = ("global_cmvn", "src_global_cmvn", "tgt_global_cmvn")
 
@@ -125,9 +131,10 @@ class Manifest:
         self.samples = load_tsv(tsv)
         audio_root = Path(cfg.audio_root)
         for s in self.samples:
-            for k in ("src_audio", "tgt_audio"):
+            for k in ("src_audio", "tgt_audio", "src_orig"):
                 if s.get(k) and not s[k].startswith("/"):
                     s[k] = (audio_root / s[k]).as_posix()
+        self.use_hubert = cfg.use_hubert
         self.ids = [s["id"] for s in self.samples]
         self.src_n_frames = np.array([int(s["src_n_frames"])
                                       for s in self.samples])
@@ -137,6 +144,18 @@ class Manifest:
         self.tgt_transforms = FeatureTransforms(
             cfg, cfg.transforms_for("tgt_transforms", split, is_train))
 
+    def source(self, index: int,
+               rng: Optional[np.random.RandomState] = None) -> np.ndarray:
+        """One utterance's source: the (L,) waveform in [-1, 1) under
+        ``use_hubert``, else (T, F) features through the source
+        transforms (SpecAugment drawing from ``rng``)."""
+        s = self.samples[index]
+        if self.use_hubert:
+            return np.asarray(get_features_or_waveform(
+                s.get("src_orig") or s["src_audio"], need_waveform=True),
+                np.float32)
+        return self.src_transforms(get_features(s["src_audio"]), rng)
+
 
 class GenerationSplit(Manifest):
     def __init__(self, root: str, cfg: S2STDataConfig, split: str,
@@ -144,28 +163,30 @@ class GenerationSplit(Manifest):
         super().__init__(root, cfg, split)
         self.n_frames_per_step = n_frames_per_step
 
-    def batches(self, max_tokens: int,
-                batch_size: Optional[int]) -> List[List[int]]:
+    def batches(self, max_tokens: int, batch_size: Optional[int],
+                required_batch_size_multiple: int = 1) -> List[List[int]]:
         """Longest first, in ``max_tokens`` and ``batch_size`` batches,
         unshuffled."""
         lengths = self.src_n_frames
         return [b.tolist() for b in batch_by_size(
             ordered_indices(lengths, False, 0, 0), lengths, max_tokens,
-            batch_size)]
+            batch_size, required_batch_size_multiple)]
 
     def collate(self, indices: List[int], with_target: bool = False
                 ) -> Dict[str, object]:
-        """Pad a batch; rows longest first. src_speech (B, T, F) fp32,
+        """Pad a batch; rows longest first. src_speech (B, T, F) fp32, or
+        (B, L) waveforms padded to ``snap_len`` of the longest,
         src_speech_lens (B,); with_target adds tgt_speech,
         prev_output_tokens (zero first frame, shifted targets) and
         target_lengths, in packed frames."""
-        src = [self.src_transforms(get_features(self.samples[i]["src_audio"]))
-               for i in indices]
+        src = [self.source(i) for i in indices]
         order = np.argsort([-x.shape[0] for x in src], kind="stable")
         indices = [indices[i] for i in order]
         src = [src[i] for i in order]
         b, t = len(src), max(x.shape[0] for x in src)
-        src_speech = np.zeros((b, t, src[0].shape[1]), np.float32)
+        if self.use_hubert:
+            t = snap_len(t)
+        src_speech = np.zeros((b, t) + src[0].shape[1:], np.float32)
         for i, x in enumerate(src):
             src_speech[i, :x.shape[0]] = x
         batch: Dict[str, object] = {

@@ -3,12 +3,15 @@
 Counterpart of what stage 5 reads of ``s2st_tpu/data/s2st_dataset.py``:
 ``__getitem__`` (:183-227: source and target features through the split's
 transforms, source first, both drawing SpecAugment from the item's stream;
+under the data config's ``use_hubert`` the source is the raw waveform,
+which the item keeps under ``src_speech`` where JAX keeps ``src_orig``;
 targets packed by ``n_frames_per_step``; text encoded with eos appended)
 and ``collate`` (:233-323: rows sorted by source length, descending;
 ``prev_output_tokens`` a zero BOS frame then the shifted target; the text
 shifted with eos moved to the front; the token counts; padded to the
-given static shapes, with rows past the batch's of length 0). Batches and
-their order come from ``data/iterators.py``.
+given static shapes, with rows past the batch's of length 0; waveforms
+collate to a (B, L) source, :260-275). Batches and their order come from
+``data/iterators.py``, whose pads then count samples.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ class TrainSplit(Manifest):
         """One utterance; SpecAugment draws from ``rng`` (the item's stream
         of ``iterators.EpochBatchIterator``; numpy's global one without)."""
         s = self.samples[index]
-        src = self.src_transforms(get_features(s["src_audio"]), rng)
+        src = self.source(index, rng)
         tgt = pack_frames(self.tgt_transforms(get_features(s["tgt_audio"]),
                                               rng), self.n_frames_per_step)
         return {"index": index, "src_speech": src, "tgt_speech": tgt,
@@ -73,10 +76,10 @@ def collate(items: List[Dict[str, np.ndarray]],
     tgt_t = pad_tgt_t or max(it["tgt_speech"].shape[0] for it in items)
     src_n = pad_src_txt or max(len(it["src_text"]) for it in items)
     tgt_n = pad_tgt_txt or max(len(it["tgt_text"]) for it in items)
-    feat_dim = items[0]["src_speech"].shape[1]
+    feat_shape = items[0]["src_speech"].shape[1:]
     out_dim = items[0]["tgt_speech"].shape[1]
 
-    src_speech = np.zeros((b, src_t, feat_dim), np.float32)
+    src_speech = np.zeros((b, src_t) + feat_shape, np.float32)
     tgt_speech = np.zeros((b, tgt_t, out_dim), np.float32)
     prev_output = np.zeros((b, tgt_t, out_dim), np.float32)
     texts = {k: np.full((b, n), PAD, np.int64) for k, n in (

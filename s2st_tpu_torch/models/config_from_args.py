@@ -1,7 +1,8 @@
 """Model flags and the model config a checkpoint implies.
 
 Counterpart of ``s2st_tpu/options.py``: the model flags with the same names
-and defaults (:222-303, :484-488), ``model_args_from_checkpoint`` (:2371),
+and defaults (:222-303, :484-488, the HuBERT frontend's :70-75),
+``model_args_from_checkpoint`` (:2371),
 which lets the checkpoint's own flag echo (``__meta__["args"]``) override
 the command line for every architectural key, and ``build_model_config``
 (:2445-2509). ``model_config`` takes the vocabulary sizes from the caller
@@ -42,6 +43,13 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--max-source-positions", type=int, default=3000)
     p.add_argument("--max-target-positions", type=int, default=2400)
     p.add_argument("--use-hubert", type=_str2bool, default=False)
+    p.add_argument("--load-pretrained-hubert-from", default=None,
+                   help="a fairseq HuBERT .pt; the train CLI loads its trunk "
+                   "into the frontend")
+    p.add_argument("--hubert-hidden", type=int, default=768)
+    p.add_argument("--hubert-layers", type=int, default=12)
+    p.add_argument("--hubert-ffn", type=int, default=3072)
+    p.add_argument("--hubert-heads", type=int, default=12)
     p.add_argument("--encoder-layers", type=int, default=12)
     p.add_argument("--encoder-embed-dim", type=int, default=512)
     p.add_argument("--encoder-ffn-embed-dim", type=int, default=2048)
@@ -124,8 +132,6 @@ def model_config(args: argparse.Namespace, src_vocab_size: int,
                  num_speakers: int = 0) -> S2STConfig:
     if getattr(args, "arch", "s2st_transformer") != "s2st_transformer":
         raise NotImplementedError(f"arch {args.arch} is not ported")
-    if getattr(args, "use_hubert", False):
-        raise NotImplementedError("the HuBERT frontend is not ported")
     return S2STConfig(
         src_vocab_size=src_vocab_size,
         tgt_vocab_size=tgt_vocab_size,
@@ -171,5 +177,10 @@ def model_config(args: argparse.Namespace, src_vocab_size: int,
         no_scale_embedding=args.no_scale_embedding,
         max_source_positions=args.max_source_positions,
         max_target_positions=args.max_target_positions,
+        use_hubert=bool(getattr(args, "use_hubert", False)),
+        hubert_hidden=getattr(args, "hubert_hidden", 768),
+        hubert_layers=getattr(args, "hubert_layers", 12),
+        hubert_ffn=getattr(args, "hubert_ffn", 3072),
+        hubert_heads=getattr(args, "hubert_heads", 12),
         dtype=torch.bfloat16 if (args.fp16 or args.bf16) else torch.float32,
     )

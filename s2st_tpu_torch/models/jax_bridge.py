@@ -26,8 +26,20 @@ maps as:
   decoder.embed_tokens.weight                  params::decoder::embed::w
   decoder.embed_out (V, D)                     params::decoder::out_proj::w (D, V)
 
-with (T) a transposed (out, in) weight and layer norms' weight/bias as
-scale/bias.
+The HuBERT frontend (``models/hubert.py``, fairseq ``HubertModel`` names
+under ``encoder.hubert``) maps to JAX's top-level ``params::hubert``
+subtree:
+
+  feature_extractor.conv_layers.i.0 (Cout, Cin, K)  hubert::extractor::convi::w (K, Cin, Cout)
+  feature_extractor.conv_layers.0.2 (GroupNorm)     hubert::extractor::gn0
+  layer_norm / post_extract_proj                    hubert::feat_ln / post_proj
+  encoder.pos_conv.0 (768, 48, 128)                 hubert::pos_conv (128, 48, 768)
+  encoder.layer_norm                                hubert::enc_ln
+  encoder.layers.i (fairseq layer names)            hubert::layeri::<as above>
+  mask_emb / final_proj / label_embs_concat         hubert::mask_emb / final_proj / label_embs
+
+with (T) a transposed (out, in) weight and layer and group norms'
+weight/bias as scale/bias.
 
 - ``state_dict_from_jax`` / ``load_jax_variables``: JAX tree (numpy) ->
   port ``state_dict``, loaded with ``strict=True``.
@@ -50,6 +62,17 @@ SEP = "::"
 
 # torch module name -> JAX module path, first match wins
 _MODULE_RULES = [
+    # the HuBERT frontend (fairseq HubertModel names under encoder.hubert)
+    (r"^encoder\.hubert\.feature_extractor\.conv_layers\.0\.2$",
+     r"hubert::extractor::gn0"),
+    (r"^encoder\.hubert\.feature_extractor\.conv_layers\.(\d+)\.0$",
+     r"hubert::extractor::conv\1"),
+    (r"^encoder\.hubert\.layer_norm$", r"hubert::feat_ln"),
+    (r"^encoder\.hubert\.post_extract_proj$", r"hubert::post_proj"),
+    (r"^encoder\.hubert\.encoder\.pos_conv\.0$", r"hubert::pos_conv"),
+    (r"^encoder\.hubert\.encoder\.layer_norm$", r"hubert::enc_ln"),
+    (r"^encoder\.hubert\.encoder\.layers\.(\d+)(\.|$)", r"hubert::layer\1\2"),
+    (r"^encoder\.hubert(\.|$)", r"hubert\1"),
     # LightConv (fairseq LightConvEncoderLayer / LightConvDecoderLayer)
     (r"^(encoder|decoder)\.layers\.(\d+)\.layer_norms\.0$", r"\1::layer\2::conv_ln"),
     (r"^(encoder|decoder)\.layers\.(\d+)\.layer_norms\.1$", r"\1::layer\2::final_ln"),
@@ -119,7 +142,8 @@ def jax_layout(model: nn.Module) -> List[Tuple[str, str, str]]:
                 kind = "conv" if pname == "weight" else "same"
             elif isinstance(mod, nn.Embedding):
                 leaf = "w"
-            elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d)) and \
+            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm,
+                                  nn.BatchNorm1d)) and \
                     pname in ("weight", "bias"):
                 leaf = {"weight": "scale", "bias": "bias"}[pname]
             elif isinstance(mod, nn.BatchNorm1d):

@@ -3,8 +3,10 @@
 Counterpart of ``s2st_tpu/models/s2st_transformer.py``: conv1d-GLU
 subsampler, transformer encoder with middle-layer taps, the autoregressive
 spectrogram decoder (prenet -> transformer -> feat/eos projections ->
-postnet residual), the aux ASR/ST text decoders over encoder taps and the
-CTC projection. The module tree carries fairseq ``state_dict`` names.
+postnet residual), the aux ASR/ST text decoders over encoder taps, the
+CTC projection and, with ``use_hubert``, the frozen HuBERT frontend over the
+raw waveform (``models/hubert.py``). The module tree carries fairseq
+``state_dict`` names.
 ``forward`` is the teacher-forced training forward (:632-687); dropout runs
 when a ``torch.Generator`` is given, and ``train`` puts the postnet on batch
 statistics and the encoder on LayerDrop (:404-412). Activations are
@@ -21,6 +23,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from . import hubert as hub
+from .jax_bridge import load_jax_variables
 from ..nn.attention import MultiheadAttention
 from ..nn.core import (conv1d, dropout, glu, layer_norm,
                        lengths_to_padding_mask, linear)
@@ -81,6 +85,12 @@ class S2STConfig:
     no_scale_embedding: bool = False
     max_source_positions: int = 3000
     max_target_positions: int = 2400
+    # the frozen HuBERT frontend (hubert-base widths)
+    use_hubert: bool = False
+    hubert_hidden: int = 768
+    hubert_layers: int = 12
+    hubert_ffn: int = 3072
+    hubert_heads: int = 12
     dtype: Any = torch.bfloat16
 
     @property
@@ -100,7 +110,8 @@ class S2STConfig:
 class Conv1dSubsampler(nn.Module):
     def __init__(self, cfg: S2STConfig):
         super().__init__()
-        in_ch = cfg.input_feat_per_channel * cfg.input_channels
+        in_ch = cfg.hubert_hidden if cfg.use_hubert \
+            else cfg.input_feat_per_channel * cfg.input_channels
         n = len(cfg.conv_kernel_sizes)
         self.conv_layers = nn.ModuleList(
             nn.Conv1d(in_ch if i == 0 else cfg.conv_channels // 2,
@@ -128,6 +139,10 @@ class S2STEncoder(nn.Module):
     def __init__(self, cfg: S2STConfig):
         super().__init__()
         self.cfg = cfg
+        # the frozen frontend: fairseq's encoder.hubert, JAX's
+        # params["hubert"]
+        self.hubert = hub.HubertModel(hub.frontend_config(cfg)) \
+            if cfg.use_hubert else None
         self.subsample = Conv1dSubsampler(cfg)
         self.transformer_layers = nn.ModuleList(
             TransformerEncoderLayer(cfg.encoder_embed_dim,
@@ -153,11 +168,18 @@ class S2STEncoder(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 layer_keep: Optional[Sequence[bool]] = None
                 ) -> Dict[str, Any]:
-        """models/s2st_transformer.py:305 (no HuBERT, no pipeline); dropout
-        only with a generator. ``layer_keep``: LayerDrop's decision for each
-        layer, for the whole batch; a dropped layer passes its input on
-        (and a middle-layer tap takes it)."""
+        """models/s2st_transformer.py:305 (no pipeline); dropout only with
+        a generator. ``layer_keep``: LayerDrop's decision for each layer,
+        for the whole batch; a dropped layer passes its input on (and a
+        middle-layer tap takes it). With the HuBERT frontend, src_feats is
+        the (B, L) waveform and src_lengths its samples; the frontend runs
+        without a gradient and keeps no activation for the backward
+        (:319-334)."""
         cfg = self.cfg
+        if self.hubert is not None:
+            with torch.no_grad():
+                src_feats, src_lengths = self.hubert.extract_features(
+                    src_feats, src_lengths)
         x, out_lengths = self.subsample(src_feats.to(cfg.dtype), src_lengths)
         t_out = x.shape[1]
         if not cfg.no_scale_embedding:
@@ -444,7 +466,21 @@ class S2STTransformer(nn.Module):
             xavier(conv.weight, cin * k, cout * k, gain)
             uniform(conv.bias, 1.0 / math.sqrt(cin * k))
         self.decoder.pos_emb_alpha.fill_(1.0)
+        if self.encoder.hubert is not None:
+            self.encoder.hubert.init_weights(g)
         return self
+
+
+def from_jax_variables(cfg: S2STConfig, variables: Dict[str, Any]
+                       ) -> S2STTransformer:
+    """A model of ``cfg`` holding a JAX ``{"params", "stats"}`` tree of
+    numpy arrays (strict both ways); a HuBERT frontend first takes the
+    pretraining leaves the tree carries (``HubertModel.carry_pretraining``)."""
+    model = S2STTransformer(cfg)
+    if model.encoder.hubert is not None:
+        model.encoder.hubert.carry_pretraining(hub.pretraining_shapes(
+            variables["params"].get("hubert", {})))
+    return load_jax_variables(model, variables)
 
 
 def encoder_layer_keep(cfg: S2STConfig, generator: torch.Generator
@@ -462,9 +498,14 @@ def encoder_layer_keep(cfg: S2STConfig, generator: torch.Generator
 def cast_for_inference(model: S2STTransformer, dtype) -> S2STTransformer:
     """Cast matmul and conv weights to the compute dtype once; norm
     parameters, running stats and position tables stay fp32 (as the JAX
-    decode loop pre-casts, generate/speech_generator.py:66-77)."""
+    decode loop pre-casts, generate/speech_generator.py:66-77). The HuBERT
+    frontend keeps its fp32 weights: JAX computes it in fp32 past its
+    GroupNorm (``models/hubert.py``)."""
+    frontend = set(model.encoder.hubert.modules()) \
+        if model.encoder.hubert is not None else set()
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Embedding)):
+        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Embedding)) \
+                and mod not in frontend:
             mod.to(dtype)
     return model
 

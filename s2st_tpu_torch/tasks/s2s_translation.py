@@ -1,7 +1,10 @@
 """Validation with inference for the S2ST task: MCD-DTW on generated speech.
 
-Counterpart of ``s2st_tpu/tasks/s2s_translation.py``: ``gcmvn_stats``
-(:300) and ``build_eval_inference_fn`` (:312-372). For a validation batch
+Counterpart of ``s2st_tpu/tasks/s2s_translation.py``: the data config as
+``setup_task`` reads it (:47-49, ``--use-hubert`` switching the sources to
+raw waveforms), ``gcmvn_stats`` (:300) and ``build_eval_inference_fn``
+(:312-372), which takes fbank or waveform batches alike. For a validation
+batch
 the function decodes the model's log-mels autoregressively (prenet dropout
 on, as fairseq's inference keeps it), maps them and the batch's
 denormalised target mels to linear magnitudes, vocodes both with the same
@@ -26,6 +29,15 @@ from ..ops.mcd import batch_mcd
 
 # the decode's stop threshold; JAX's train CLI never passes its own
 EOS_PROB_THRESHOLD = 0.5
+
+
+def data_config(args) -> S2STDataConfig:
+    """``<data>/<config-yaml>`` with the CLI's ``--use-hubert`` (the
+    command line's, not a checkpoint's: JAX's data loading keeps the CLI's
+    choices, options.py:2385-2386)."""
+    cfg = S2STDataConfig(Path(args.data) / args.config_yaml)
+    cfg.set_use_hubert(getattr(args, "use_hubert", False))
+    return cfg
 
 
 def load_dictionaries(data: str, data_cfg: S2STDataConfig

@@ -62,7 +62,7 @@ def test_port_imports_neither_jax_nor_s2st_tpu():
                  "generate.sequence_generator", "scoring", "cli.generate",
                  "data.iterators", "train.checkpoint", "train.ema",
                  "cli.average_checkpoints", "tasks.s2s_translation",
-                 "ops.mcd", "cli.generate_for_s2st"):
+                 "ops.mcd", "cli.generate_for_s2st", "models.hubert"):
         assert f"s2st_tpu_torch.{name}" in _walk_names(), name
     assert bad == "[]", bad
 
