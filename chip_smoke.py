@@ -12,16 +12,19 @@ a source, all started together; the build prints ptxas's report
 library's SASS, and the attention libraries must hold some.
 
 1. Hold csrc/flash_attention.cu's kernel against its plain PyTorch
-   version at the serving path's shapes, in fp32 (scalar kernel) and bf16
-   (tensor-core kernel), with its device time by CUDA-graph replay beside
-   the plain version's, SDPA's (a yardstick only) and the card's bound;
-   at the serving shape also torch.profiler's sums beside them. In bf16
-   also at the encoder shapes of the training batch (B=8) and of batches
-   of the recipe's size (B=60 to train, B=100 to serve, T'=250). Then
-   MultiheadAttention at head_dims the kernel does not take, 4 (64-d, 16
-   heads) and 256 (512-d, 2 heads), fp32 and bf16, causal and not, with key
-   padding: it must run through attend, launch no kernel and match attend,
-   while flash_attention itself refuses those head_dims.
+   version at the serving path's shapes, in fp32 (the CUDA-core design:
+   register tiles, a cp.async ring, head_dim compiled in) at head_dim 128,
+   16 (the aux decoders') and 64 (the HuBERT frontend's, 12 heads) and in
+   bf16 (the tensor-core design) at 128, with its device time by
+   CUDA-graph replay beside the plain version's, SDPA's (a yardstick only)
+   and the card's bound; at the bf16 serving shape also torch.profiler's
+   sums beside them. At the serving encoder shape (B=4) in fp32 too; in
+   bf16 also at the encoder shapes of the training batch (B=8) and of
+   batches of the recipe's size (B=60 to train, B=100 to serve, T'=250).
+   Then MultiheadAttention at head_dims the kernel does not take, 4 (64-d,
+   16 heads) and 256 (512-d, 2 heads), fp32 and bf16, causal and not, with
+   key padding: it must run through attend, launch no kernel and match
+   attend, while flash_attention itself refuses those head_dims.
 2. Serve: write a small corpus (4 utterances of 80-d fbank), its GCMVN
    stats and a seeded random checkpoint of the recipe's model at full width
    (12 + 6 layers, 512-d, 4 heads, 2048 FFN, 1024 conv channels, prenet 32,
@@ -131,8 +134,9 @@ library's SASS, and the attention libraries must hold some.
    3072) before the recipe's model: (a) the attention kernel at the
    frontend's shape (B=16, T'=511 keys of which 199-499 valid, H=12,
    D=64), fp32 (the path's type: the frontend computes in fp32 past its
-   GroupNorm, as JAX's does) and bf16, held against the plain version and
-   timed by graph replay beside SDPA and the bound (``shape`` lines); (b) a
+   GroupNorm, as JAX's does; the CUDA-core design) and bf16, held against
+   the plain version and timed by graph replay beside SDPA and the bound
+   (``shape`` lines, which name the design); (b) a
    small frontend of head_dim 64 on the card against the CPU in fp32
    (atol 1e-4); (c) on 16 source WAVs of 10 s down to 4 s (a ``src_orig``
    column; ``src_n_frames`` the fbank frames stage 3 writes), a seeded
@@ -515,7 +519,8 @@ def head_dim_gate_cases(ka, card: str) -> None:
 
 
 def kernel_phase(card: str, main_lengths, train_lengths) -> dict:
-    """Phase 1; returns the bf16 records of the main shapes by case."""
+    """Phase 1; returns the records of the main shapes by case (bf16, and
+    fp32 at the serving encoder's)."""
     from s2st_tpu_torch.kernels import attention as ka
     cases = []
     for t in (75, 150, 300):
@@ -530,6 +535,12 @@ def kernel_phase(card: str, main_lengths, train_lengths) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for case in cases:
             check_case(ka, *case, dtype=dtype, card=card)
+    # fp32 also at the aux decoders' head_dim 16 (64-d, 4 heads) and the
+    # HuBERT frontend's 64 (768-d, 12 heads)
+    for d, h in ((16, 4), (64, 12)):
+        for name, *case in cases:
+            check_case(ka, f"{name}_D{d}", *case, dtype=torch.float32,
+                       card=card, h=h, d=d)
     # in bf16 the main path's encoder self-attention shapes: the served
     # batch, the training batch, and batches of the recipe's size
     main = {}
@@ -541,6 +552,10 @@ def kernel_phase(card: str, main_lengths, train_lengths) -> dict:
         main[name] = check_case(ka, name, len(lengths), t, t, lengths, False,
                                 torch.bfloat16, card,
                                 device_times=name == "serving_encoder_self")
+    t = main_lengths[0]
+    main["serving_encoder_self_fp32"] = check_case(
+        ka, "serving_encoder_self_fp32", len(main_lengths), t, t,
+        main_lengths, False, torch.float32, card)
     head_dim_gate_cases(ka, card)
     return main
 
@@ -2362,12 +2377,14 @@ def hubert_kernel_phase(card: str) -> dict:
     lengths, t = hubert_lengths()
     recs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        name = f"hubert_encoder_self_D64_{str(dtype).split('.')[-1]}"
+        kind = str(dtype).split('.')[-1]
+        name = f"hubert_encoder_self_D64_{kind}"
         rec = check_case(ka, name, len(lengths), t, t, lengths, False, dtype,
                          card, h=HUBERT_HEADS, d=HUBERT_HEAD_DIM)
         print("shape " + json.dumps({
-            "name": name, "B": rec["B"], "T": t, "H": HUBERT_HEADS,
-            "D": HUBERT_HEAD_DIM, "valid_keys": [min(lengths), max(lengths)],
+            "name": name, "design": ka.DESIGNS[kind], "B": rec["B"],
+            "T": t, "H": HUBERT_HEADS, "D": HUBERT_HEAD_DIM,
+            "valid_keys": [min(lengths), max(lengths)],
             "ms": rec["kernel_graph_ms"], "plain_ms": rec["plain_graph_ms"],
             "library_ms": rec["library_graph_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],

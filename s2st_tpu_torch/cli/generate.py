@@ -41,7 +41,7 @@ from ..models.jax_bridge import load_jax_variables, read_jax_checkpoint
 from ..models.lightconv_args import (add_lightconv_model_args, apply_arch,
                                      build_lightconv_config)
 from ..models.lightconv_model import LightConvModel, cast_for_inference
-from ..nn.core import resolve_device
+from ..nn.core import disable_tf32, resolve_device
 from ..scoring import build_scorer
 from ..tasks.translation import TranslationTask
 from .generate_waveform import _PhaseClock
@@ -143,6 +143,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = apply_arch(get_parser().parse_args(argv), argv)
     _refuse_unported(args)
+    disable_tf32()
     device = resolve_device(args.device)
 
     task = TranslationTask.setup_task(args)

@@ -50,7 +50,7 @@ from ..models.config_from_args import (add_model_args, build_model_config,
                                        model_args_from_checkpoint)
 from ..models.jax_bridge import read_jax_checkpoint
 from ..models.s2st_transformer import cast_for_inference, from_jax_variables
-from ..nn.core import resolve_device
+from ..nn.core import disable_tf32, resolve_device
 from ..scoring import build_scorer
 from ..tasks.s2s_translation import data_config, load_dictionaries
 from .generate_waveform import _PhaseClock
@@ -119,6 +119,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         stream=sys.stdout)
     args = get_parser().parse_args(argv)
     _refuse_unported(args)
+    disable_tf32()
     device = resolve_device(args.device)
 
     data_cfg = data_config(args)

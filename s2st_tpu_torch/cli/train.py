@@ -72,7 +72,7 @@ from ..data.s2st_dataset import TrainSplit, to_device
 from ..models.config_from_args import add_model_args, model_config
 from ..models.hubert import load_torch_hubert
 from ..models.s2st_transformer import S2STTransformer, encoder_layer_keep
-from ..nn.core import resolve_device
+from ..nn.core import disable_tf32, resolve_device
 from ..train.checkpoint import (CheckpointManager, ema_flat, load_ema,
                                 restore_state, state_flat, write_npz)
 from ..train.ema import EMAConfig, ema_step, init_ema
@@ -288,6 +288,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         format="%(asctime)s | %(levelname)s | %(name)s | %(message)s",
         stream=sys.stdout)
     args = get_parser().parse_args(argv)
+    disable_tf32()
     device = resolve_device(args.device)
     check_args(args)
 

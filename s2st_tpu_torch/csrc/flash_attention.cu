@@ -69,11 +69,9 @@
 // nothing. The wrapper guarantees 16-byte aligned rows (data pointers and
 // batch/time/head strides) for cp.async.
 //
-// fp32 (the parity paths): the scalar kernel of the first port, one block per
-// (b, h, 64-query tile) with scalar fp32 FMAs on the CUDA cores. The tensor
-// cores would take fp32 as TF32, with about three decimal digits, which
-// cannot hold the 1e-5 agreement the fp32 checks (card against CPU, kernel
-// against the plain version) ask for; fp32 sums in another order can.
+// fp32 (the HuBERT frontend and every fp32 run): fp32 FMAs on the CUDA
+// cores from register tiles, K and V streamed through a cp.async ring, the
+// head_dim compiled in; the note at the head of the fp32 section below.
 //
 // Layout: q (B, Tq, H, D), k and v (B, Tk, H, D), o (B, Tq, H, D), read and
 // written through their batch/time/head strides (unit stride over D), so the
@@ -117,185 +115,400 @@ struct Params {
 };
 
 // ---------------------------------------------------------------- fp32 ----
+//
+// The fp32 design replaces the same TPU kernel (the Pallas flash forward
+// behind s2st_tpu/nn/attention.py::attend_flash, :44-88) where the input is
+// fp32: the HuBERT frontend's 12 self-attention layers (under --fp16 it
+// computes in fp32 past its GroupNorm, as JAX's does; B=16, T'=511 keys of
+// which 199-499 are valid, H=12, D=64) and every fp32 run. Products are
+// fp32 FMAs on the CUDA cores: the tensor cores would take fp32 as TF32,
+// with about three decimal digits, which cannot hold the 1e-5 agreement
+// the fp32 checks ask for; fp32 sums in another order can.
+//
+// Bound at the HuBERT shape: operations. The valid keys' 4 * H * D FLOPs a
+// (query, key) pair come to 8.76 GFLOP, 0.1308 ms at the card's 67 TFLOP/s
+// of fp32 FMAs; its bytes (q, k, v, o, 50 MB) take 0.015 ms.
+//
+// What held the first (scalar) design back, at 9.65x that bound and 2.6x
+// SDPA: the head_dim was read at run time, so at D=64 half of the P V
+// FMAs were masked zeros; each thread read every operand from shared
+// memory as a 4-byte scalar (8 reads for 16 FMAs in S = Q K^T, 12 for 32 in
+// P V), so shared memory, not the FMA pipes, set the rate; K, the scores,
+// the softmax (one row a warp, 10 shuffles a row) and V ran one after
+// another behind four __syncthreads a tile; no key tile was skipped; and
+// global loads were scalar with an integer division an element.
+//
+// What this design does about each:
+//   - The head_dim Dp is a template argument, 16, 64 or 128 (the widths on
+//     the paths: the aux decoders', HuBERT's, the encoder's); a head_dim
+//     below it is zero-filled in shared memory, so the loops unroll with
+//     no mask and no run-time bound.
+//   - Register tiles fed by 16-byte shared reads. A block of 128 threads
+//     owns 64 queries (32 on grids too small to fill the card, rows_for)
+//     and streams 32-key tiles; thread (ty, tx) = (tid / 8, tid % 8) owns
+//     the 4 x 4 scores (2 x 4 in a 32-query block) of rows ty + 16 i and
+//     keys tx + 8 j and the 4 x Dp / 8 outputs of the same rows. Q, K and V are staged
+//     row-major (a row a query or key, d along it) with rows of Dp + 4
+//     floats, so one ld.shared.v4 gives 4 values of d: S takes 8 of them
+//     (4 of Q, 4 of K) for 64 FMAs, and P V 12 (4 of P, 8 of V) for 128 at
+//     D=64. K need not be staged transposed: 16-byte cp.async cannot
+//     transpose, and K's rows read along d feed the FMAs as well. The
+//     row padding puts the 8 keys that a quarter-warp reads, and the 4
+//     rows that the 4 quarters read, in distinct banks; the P tile's rows
+//     of 40 floats do the same for P's writes and reads.
+//   - K and V stream through a 2-stage ring of 16-byte cp.async: tile
+//     i + 1 is copied while tile i's products run, and a tile costs two
+//     __syncthreads (the tile has landed; P is in place). Each row's
+//     running max and sum stay in the registers of the 8 threads (one
+//     quarter-warp) that own it: the max is reduced over those 8 lanes
+//     (3 shuffles a row a tile), each thread keeps its share of the sum,
+//     and the shares are added once, at the end. P goes through shared
+//     memory for P V: each thread needs its rows' 32 probabilities, which
+//     8 lanes hold; shuffles would take 4 a key for 32 FMAs, where shared
+//     memory takes one 16-byte read for 4 keys.
+//   - Tiles are skipped exactly where the bf16 design skips them
+//     (attention_tc.cuh::live_keys): padded tail tiles when the batch row
+//     has a valid key (non-causal) or key 0 is valid (causal), and causal
+//     tiles wholly above the block's diagonal; a row with no valid key
+//     skips nothing. A tile's key padding is a ballot word that every
+//     warp builds from the tile's 32 mask bytes, read while the previous
+//     tile's products run; a tile inside Tk with no padded key and not
+//     above any row's diagonal skips the masks.
+//   - Global reads are 16-byte cp.async with the head_dim known at
+//     compile time (no division), outputs 16-byte stores (8-byte at
+//     Dp = 16); the wrapper guarantees 16-byte aligned rows in fp32 too.
+// expf stays (about 8 instructions a score, against 2 Dp FMAs): ex2 of
+// log2(e)-scaled scores would save most of them but adds the rounding of
+// the scaled score, |s - m| * 2^-24 relative, to every probability.
+//
+// Tiles of 32 keys, not 64: at Dp = 64 a 64-query block then takes 62,464
+// bytes of shared memory, so three blocks (12 warps) share an SM, not two,
+// and at Dp = 128 (111,616 bytes) two, not one. The extra warps hide the
+// latency of the shared reads and of each block's barriers, which paid
+// more than the 64-key tile's fewer reads a product (attention_tiles.py
+// --fp32-tiles, PERF.md).
 
-constexpr int kBlockM = 64;     // queries per block
-constexpr int kBlockN = 64;     // keys per tile
-constexpr int kThreads = 256;   // 8 warps
+namespace fp32 {
 
-// Shared memory, in floats: Q tile and K/V tile with rows padded to D + 1
-// (column reads across a warp hit distinct banks), the score/probability tile
-// padded to kBlockN + 1, and per-row rescale factors and final sums.
-__host__ __device__ inline int smem_floats(int D) {
-  return 2 * kBlockM * (D + 1) + kBlockM * (kBlockN + 1) + 2 * kBlockM;
+constexpr int kKeys = 32;      // keys a streamed tile
+constexpr int kThreads = 128;  // 16 row groups x 8 key/column groups
+constexpr int kStages = 2;     // K/V tiles in the ring
+constexpr int kLdP = kKeys + 8;
+constexpr int kWords = kKeys / 32;  // ballot words of a tile's padding
+
+// The head_dim a kernel is built for.
+inline int width_for(int D) { return D <= 16 ? 16 : D <= 64 ? 64 : 128; }
+
+// Queries a block: 32 when blocks of 32 number at most one an SM (a
+// served batch of 4 utterances at D = 128: 16 heads of 8 such blocks), so
+// that twice the SMs share the work; else 64, whose 4 rows a thread feed
+// more FMAs a shared read (attention_tiles.py --fp32-tiles, PERF.md).
+inline int rows_for(int bh, int Tq) {
+  return (Tq + 31) / 32 * bh <= attn_tc::sm_count() ? 32 : 64;
 }
 
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd_fp32(Params p) {
-  extern __shared__ float smem[];
-  const int D = p.D;
-  const int ld = D + 1;
-  const int lp = kBlockN + 1;
+__host__ __device__ constexpr int smem_bytes(int Dp, int R) {
+  return 4 * ((R + kStages * 2 * kKeys) * (Dp + 4) + R * kLdP);
+}
+
+// Blocks an SM: as many as shared memory holds (232,448 bytes, 1 KB a
+// block reserved), at most 3 so that a thread may keep 168 registers.
+__host__ __device__ constexpr int blocks_per_sm(int Dp, int R) {
+  return 232448 / (smem_bytes(Dp, R) + 1024) < 3
+             ? 232448 / (smem_bytes(Dp, R) + 1024)
+             : 3;
+}
+
+// Copy rows t0 .. t0+Rows-1 of a (T, D) fp32 slice with row stride st
+// into a staged tile of rows of Dp + 4 floats, 16 bytes a cp.async; rows at
+// or past n are zero-filled, columns D .. Dp-1 are not written. Thread i
+// copies chunk i % (Dp / 4) of rows i / (Dp / 4), ... (a compile-time
+// power of two: no division).
+template <int Dp, int Rows>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                          long long st, int t0, int n, int D,
+                                          int tid) {
+  constexpr int kChunks = Dp / 4;
+  for (int idx = tid; idx < Rows * kChunks; idx += kThreads) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    if (c * 4 >= D) continue;
+    const int t = t0 + r;
+    const bool ok = t < n;
+    attn_tc::cp_async16(dst + r * (Dp + 4) + c * 4,
+                        src + (ok ? t * st : 0) + c * 4, ok);
+  }
+}
+
+// Zero columns D .. Dp-1 (multiples of 8) of `rows` staged rows.
+template <int Dp>
+__device__ __forceinline__ void zero_cols(float* dst, int rows, int D,
+                                          int tid) {
+  const int chunks = (Dp - D) / 4;
+  for (int idx = tid; idx < rows * chunks; idx += kThreads) {
+    const int r = idx / chunks, c = idx - r * chunks;
+    *reinterpret_cast<float4*>(dst + r * (Dp + 4) + D + c * 4) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// R queries a block (64 or 32), rows ty + 16 i of it a thread.
+template <int Dp, int R>
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(Dp, R))
+    flash_fwd_fp32(Params p) {
+  using namespace attn_tc;
+  constexpr int kI = R / 16;                   // rows a thread
+  constexpr int kLd = Dp + 4;
+  constexpr int kCols = Dp / 8;                // output columns a thread
+  constexpr int kVec = kCols >= 4 ? 4 : 2;     // floats a read of V
+  constexpr int kChunks = kCols / kVec;        // reads of V a key
+  constexpr int kJ = kKeys / 8;                // scores a thread a row
+  extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
-  float* KVs = Qs + kBlockM * ld;
-  float* Ps = KVs + kBlockN * ld;
-  float* row_scale = Ps + kBlockM * lp;
-  float* row_sum = row_scale + kBlockM;
+  float* KV = Qs + R * kLd;                    // [stage][K, V][kKeys][kLd]
+  float* Ps = KV + kStages * 2 * kKeys * kLd;  // [R][kLdP]
+  int* red = reinterpret_cast<int*>(Ps);       // live_keys', before P
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int q0 = blockIdx.x * kBlockM;
+  const int ty = tid >> 3;  // rows ty + 16 i
+  const int tx = tid & 7;   // keys tx + 8 j; columns 8 kVec c + kVec tx + x
+  const int q0 = blockIdx.x * R;
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
-
+  const int D = p.D;
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
   float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
   const uint8_t* kpm = p.kpm ? p.kpm + b * p.kpm_sb : nullptr;
+  auto ring = [&](int st, int kv) {
+    return KV + (st * 2 + kv) * kKeys * kLd;
+  };
+  auto load_tile = [&](int j, int st) {
+    stage_rows<Dp, kKeys>(ring(st, 0), k, p.k_st, j * kKeys, p.Tk, D, tid);
+    stage_rows<Dp, kKeys>(ring(st, 1), v, p.v_st, j * kKeys, p.Tk, D, tid);
+  };
 
-  for (int idx = tid; idx < kBlockM * D; idx += kThreads) {
-    const int r = idx / D, d = idx - (idx / D) * D;
-    const int t = q0 + r;
-    Qs[r * ld + d] = t < p.Tq ? q[t * p.q_st + d] : 0.f;
-  }
+  // Q and the first tile are in flight while the block finds the keys it
+  // must visit
+  zero_cols<Dp>(Qs, R + kStages * 2 * kKeys, D, tid);
+  stage_rows<Dp, R>(Qs, q, p.q_st, q0, p.Tq, D, tid);
+  load_tile(0, 0);
+  cp_async_commit();
+  bool pad[kWords];
+#pragma unroll
+  for (int w = 0; w < kWords; ++w)
+    pad[w] = key_padded(kpm, 32 * w + lane, p.Tk);
+  bool causal_skip;
+  int kend = live_keys(kpm, p.Tk, p.causal != 0, &causal_skip, red);
+  if (causal_skip) kend = min(kend, q0 + R);
+  const int n_tiles = (kend + kKeys - 1) / kKeys;
+  // the tile's padded keys: bit b of word w is key 32 w + b
+  uint32_t pm[kWords];
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) pm[w] = __ballot_sync(0xffffffffu, pad[w]);
 
-  // thread tile: rows ty*4 .. ty*4+3; score columns tx + 16*j; output
-  // columns tx + 16*c
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-  float acc[4][8];
+  float acc[kI][kCols];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kI; ++i)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
-  // running max and sum of the 8 rows this warp owns (replicated over lanes)
-  float m_run[8], l_run[8];
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+  float m_run[kI], l_run[kI];  // l_run: this thread's share of the row sum
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < kI; ++i) {
     m_run[i] = -INFINITY;
     l_run[i] = 0.f;
   }
 
-  for (int k0 = 0; k0 < p.Tk; k0 += kBlockN) {
-    __syncthreads();  // Q is loaded; the previous tile's V is consumed
-    for (int idx = tid; idx < kBlockN * D; idx += kThreads) {
-      const int r = idx / D, d = idx - (idx / D) * D;
-      const int t = k0 + r;
-      KVs[r * ld + d] = t < p.Tk ? k[t * p.k_st + d] : 0.f;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    const int k0 = it * kKeys;
+    cp_async_wait<0>();
+    __syncthreads();  // tile it landed; the last tile's P and ring reads done
+    bool next[kWords] = {};
+    if (it + 1 < n_tiles) {
+      load_tile(it + 1, st ^ 1);
+      cp_async_commit();
+#pragma unroll
+      for (int w = 0; w < kWords; ++w)
+        next[w] = key_padded(kpm, k0 + kKeys + 32 * w + lane, p.Tk);
     }
-    __syncthreads();
+    const float* Kt = ring(st, 0);
+    const float* Vt = ring(st, 1);
 
-    float s[4][4];
+    // S = Q K^T, kI x kJ a thread
+    float s[kI][kJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+      for (int j = 0; j < kJ; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < Dp; d += 4) {
+      float4 qv[kI], kv[kJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * ld + d];
+      for (int i = 0; i < kI; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * kLd +
+                                                 d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = KVs[(tx + 16 * j) * ld + d];
+      for (int j = 0; j < kJ; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(Kt + (tx + 8 * j) * kLd +
+                                                 d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        float x = s[i][j];
-        if (kj >= p.Tk) {
-          x = -INFINITY;  // outside the sequence: no weight at all
-        } else {
-          if (p.causal && kj > qi) x += kNegInf;
-          if (kpm && kpm[kj]) x = kNegInf;
+        for (int j = 0; j < kJ; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
         }
-        Ps[(ty * 4 + i) * lp + tx + 16 * j] = x;
-      }
     }
-    __syncthreads();  // scores written; K no longer needed
 
-    for (int idx = tid; idx < kBlockN * D; idx += kThreads) {
-      const int r = idx / D, d = idx - (idx / D) * D;
-      const int t = k0 + r;
-      KVs[r * ld + d] = t < p.Tk ? v[t * p.v_st + d] : 0.f;
+    // masks, skipped (a block-uniform branch) for a tile of valid keys
+    // inside Tk that is not above any of the block's rows' diagonals
+    uint32_t any_pad = 0;
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) any_pad |= pm[w];
+    const bool unmasked = any_pad == 0 && k0 + kKeys <= p.Tk &&
+                          !(p.causal && k0 + kKeys - 1 > q0);
+    if (!unmasked) {
+#pragma unroll
+      for (int i = 0; i < kI; ++i)
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          const int kj = k0 + tx + 8 * j;
+          float x = s[i][j];
+          if (kj >= p.Tk) {
+            x = -INFINITY;  // outside the sequence: no weight at all
+          } else {
+            if (p.causal && kj > q0 + ty + 16 * i) x += kNegInf;
+            if ((pm[j / 4] >> (tx + 8 * (j & 3))) & 1u) x = kNegInf;
+          }
+          s[i][j] = x;
+        }
     }
-    // online softmax: warp w updates rows 8w .. 8w+7, two columns a lane
+
+    // the online softmax: a row's max over the 8 lanes that own it
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = warp * 8 + i;
-      float* prow = Ps + r * lp;
-      const float s0 = prow[lane], s1 = prow[lane + 32];
-      float mx = fmaxf(s0, s1);
+    for (int i = 0; i < kI; ++i) {
+      float mx = s[i][0];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      for (int j = 1; j < kJ; ++j) mx = fmaxf(mx, s[i][j]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
       const float m_new = fmaxf(m_run[i], mx);
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
       const float alpha = expf(m_run[i] - m_new);
-      l_run[i] = l_run[i] * alpha + sum;
       m_run[i] = m_new;
-      prow[lane] = p0;
-      prow[lane + 32] = p1;
-      if (lane == 0) row_scale[r] = alpha;
-    }
-    __syncthreads();  // probabilities, rescale factors and V are in place
-
+      float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = row_scale[ty * 4 + i];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] *= a;
-    }
-    for (int j = 0; j < kBlockN; ++j) {
-      float pv[4], vv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * lp + j];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int col = tx + 16 * c;
-        vv[c] = col < D ? KVs[j * ld + col] : 0.f;
+      for (int j = 0; j < kJ; ++j) {
+        const float pr = expf(s[i][j] - m_new);
+        sum += pr;
+        Ps[(ty + 16 * i) * kLdP + tx + 8 * j] = pr;
       }
+      l_run[i] = l_run[i] * alpha + sum;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
     }
+    __syncthreads();  // P is in place
+
+    // O += P V: 4 keys of P a 16-byte read
+#pragma unroll 4
+    for (int kk = 0; kk < kKeys; kk += 4) {
+      float4 pv[kI];
+#pragma unroll
+      for (int i = 0; i < kI; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * kLdP +
+                                                 kk);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* vrow = Vt + (kk + e) * kLd + kVec * tx;
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          float vv[kVec];
+          if constexpr (kVec == 4) {
+            const float4 x =
+                *reinterpret_cast<const float4*>(vrow + 8 * kVec * c);
+            vv[0] = x.x; vv[1] = x.y; vv[2] = x.z; vv[3] = x.w;
+          } else {
+            const float2 x =
+                *reinterpret_cast<const float2*>(vrow + 8 * kVec * c);
+            vv[0] = x.x; vv[1] = x.y;
+          }
+#pragma unroll
+          for (int i = 0; i < kI; ++i) {
+            const float pr = e == 0 ? pv[i].x : e == 1 ? pv[i].y
+                           : e == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+            for (int x = 0; x < kVec; ++x)
+              acc[i][c * kVec + x] = fmaf(pr, vv[x], acc[i][c * kVec + x]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < kWords; ++w)
+      pm[w] = __ballot_sync(0xffffffffu, next[w]);
   }
 
-  if (lane == 0) {
+  // each row's sum over its 8 lanes; the outputs and the statistics
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = warp * 8 + i;
-      row_sum[r] = l_run[i];
-      const int t = q0 + r;
-      if (p.row_max && t < p.Tq) {
-        const long long at = static_cast<long long>(blockIdx.y) * p.Tq + t;
-        p.row_max[at] = m_run[i];
-        p.row_logsum[at] = logf(l_run[i]);
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    const int t = q0 + r;
+  for (int i = 0; i < kI; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l += __shfl_xor_sync(0xffffffffu, l, 4);
+    const int t = q0 + ty + 16 * i;
     if (t >= p.Tq) continue;
-    const float inv = 1.f / row_sum[r];
+    const float inv = 1.f / l;
+    float* orow = o + t * p.o_st + kVec * tx;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) o[t * p.o_st + col] = acc[i][c] * inv;
+    for (int c = 0; c < kChunks; ++c) {
+      if (8 * kVec * c + kVec * tx >= D) continue;
+      const int n = c * kVec;
+      if constexpr (kVec == 4)
+        *reinterpret_cast<float4*>(orow + 8 * kVec * c) =
+            make_float4(acc[i][n] * inv, acc[i][n + 1] * inv,
+                        acc[i][n + 2] * inv, acc[i][n + 3] * inv);
+      else
+        *reinterpret_cast<float2*>(orow + 8 * kVec * c) =
+            make_float2(acc[i][n] * inv, acc[i][n + 1] * inv);
     }
+    if (tx == 0 && p.row_max) {
+      const long long at = static_cast<long long>(blockIdx.y) * p.Tq + t;
+      p.row_max[at] = m_run[i];
+      p.row_logsum[at] = logf(l);
+    }
+  }
+}
+
+template <int Dp, int R>
+cudaError_t launch_rows(const Params& p, int B, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes(Dp, R);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_fp32<Dp, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Tq + R - 1) / R, B * p.H);
+  flash_fwd_fp32<Dp, R><<<grid, kThreads, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The block shape rows_for picks for this grid.
+template <int Dp>
+cudaError_t launch_width(const Params& p, int B, cudaStream_t stream) {
+  return rows_for(B * p.H, p.Tq) == 32 ? launch_rows<Dp, 32>(p, B, stream)
+                                       : launch_rows<Dp, 64>(p, B, stream);
+}
+
+}  // namespace fp32
+
+cudaError_t launch_fp32(const Params& p, int B, cudaStream_t stream) {
+  switch (fp32::width_for(p.D)) {
+    case 16: return fp32::launch_width<16>(p, B, stream);
+    case 64: return fp32::launch_width<64>(p, B, stream);
+    default: return fp32::launch_width<128>(p, B, stream);
   }
 }
 
@@ -559,17 +772,6 @@ __global__ void __launch_bounds__(32 * W * S) flash_fwd_bf16(Params p) {
       p.row_logsum[at] = logf(l);
     }
   }
-}
-
-cudaError_t launch_fp32(const Params& p, int B, cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * smem_floats(p.D);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_fp32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Tq + kBlockM - 1) / kBlockM, B * p.H);
-  flash_fwd_fp32<<<grid, kThreads, bytes, stream>>>(p);
-  return cudaGetLastError();
 }
 
 template <int W, int S, int NK>

@@ -10,10 +10,12 @@ on first use and loaded with ctypes); on a CPU tensor it runs
 other path: a CUDA call the kernels cannot take raises.
 
 Each kernel has two designs, chosen by the input type (``DESIGNS``): bf16
-runs on the tensor cores (mma.sync with tiles streamed by 16-byte cp.async,
-so every (b, t, h) row of q, k, v, o and dO must start 16-byte aligned:
-``misalignment`` says why a tensor does not), fp32 on the scalar kernels,
-which keep fp32 exact to its rounding.
+runs on the tensor cores (mma.sync), the fp32 forward on the CUDA cores'
+fp32 FMAs from register tiles, which keep fp32 exact to its rounding, and
+the fp32 backward on scalar kernels. Both forwards and the bf16 backward
+stream their tiles with 16-byte cp.async, so every (b, t, h) row of q, k,
+v, o and dO must start 16-byte aligned, in either type: ``misalignment``
+says why a tensor does not, and the wrapper raises on it.
 
 Semantics (those of ``s2st_tpu/nn/attention.py::attend``): q is pre-scaled;
 a causal mask of -1e9 is added strictly above the diagonal; key padding
@@ -35,9 +37,11 @@ NEG_INF = -1e9
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
-_ROW_ALIGN = 16     # bytes: one cp.async of the bf16 kernels
+_ROW_ALIGN = 16     # bytes: one cp.async of the kernels
 DESIGNS = {"bfloat16": "tensor cores (mma.sync m16n8k16, cp.async ring)",
-           "float32": "scalar fp32 FMAs"}
+           "float32": "CUDA-core fp32 FMAs from register tiles, 32-key "
+                      "cp.async ring, 64- or 32-query blocks, head_dim "
+                      "16/64/128 compiled in; scalar backward"}
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -61,7 +65,7 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 
 def misalignment(t: torch.Tensor) -> Optional[str]:
-    """Why the bf16 kernels cannot copy the (b, t, h) rows of a (B, T, H, D)
+    """Why the kernels cannot copy the (b, t, h) rows of a (B, T, H, D)
     tensor with 16-byte cp.async, or None: the data pointer, and the batch,
     time and head strides of every dimension longer than 1, must be
     multiples of 16 bytes."""
@@ -78,9 +82,9 @@ def misalignment(t: torch.Tensor) -> Optional[str]:
 
 def _check_aligned(**tensors):
     for name, t in tensors.items():
-        why = t.dtype == torch.bfloat16 and misalignment(t)
+        why = misalignment(t)
         if why:
-            raise ValueError(f"{name} cannot be read by the bf16 kernels' "
+            raise ValueError(f"{name} cannot be read by the kernels' "
                              f"{_ROW_ALIGN}-byte copies: {why}")
 
 

@@ -26,6 +26,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def disable_tf32() -> None:
+    """Run fp32 matmuls and cuDNN convolutions in full fp32. PyTorch runs
+    cuDNN's fp32 convolutions in TF32 by default, which keeps about three
+    decimal digits and cannot hold the port's fp32 agreement with JAX.
+    Every CLI calls this before it builds a model."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def _as(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
     return t if t is None or t.dtype == dtype else t.to(dtype)
 

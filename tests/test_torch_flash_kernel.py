@@ -28,6 +28,13 @@ decide which tiles they skip, grids of several sizes, run-to-run
 reproducibility and rows that are not 16-byte aligned. With a single key,
 dq and dk are 0 in exact arithmetic, so their bound is taken from dv's
 magnitude instead (the kernel's dP - D is then fp32 rounding).
+
+The fp32 forward (CUDA-core FMAs; blocks of 64 queries, 32-key streamed
+tiles, head_dim 16, 64 or 128 compiled in) is held the same way at fp32's
+tolerances: every head_dim from 8 to 128 in steps of 8, T on both sides
+of its tiles, cross-attention, the key masks that decide which tiles it
+skips, B*H up to 400, its row statistics against the plain version's
+row max and log-sum-exp, and the fp32 backward run on those statistics.
 """
 
 import numpy as np
@@ -138,7 +145,7 @@ def test_kernel_matches_plain_on_card(cuda_device, case, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [8, 64, 72])
+@pytest.mark.parametrize("d", [8, 64, 72, 16, 128])
 def test_kernel_reads_strided_heads_on_card(cuda_device, d):
     """q, k and v as slices of wider (B, T, H, 3D) and (B, T, 3H, D)
     buffers: the kernel reads them through their strides, and head_dim
@@ -235,6 +242,17 @@ def test_split_heads_rows_are_16_byte_aligned(c, h):
     heads = split_heads(x, h)
     assert heads.shape == (3, 7, h, c // h)
     assert ka.misalignment(heads) is None
+    assert ka.misalignment(split_heads(x[:, 2:], h)) is None
+
+
+@pytest.mark.parametrize("c,h", [(768, 12), (512, 4), (64, 4)])
+def test_split_heads_rows_are_16_byte_aligned_in_fp32(c, h):
+    """The same in fp32, whose forward kernel copies rows with 16-byte
+    cp.async too: the HuBERT frontend's 768-d / 12 heads (its attention runs
+    in fp32) and the recipe's widths."""
+    from s2st_tpu_torch.nn.attention import split_heads
+    x = torch.nn.functional.linear(torch.zeros(3, 7, c), torch.zeros(c, c))
+    assert ka.misalignment(split_heads(x, h)) is None
     assert ka.misalignment(split_heads(x[:, 2:], h)) is None
 
 
@@ -381,36 +399,132 @@ def test_bf16_key_masks_on_card(cuda_device, pattern, causal, d):
 
 @pytest.mark.cuda
 def test_bf16_refuses_unaligned_views_on_card(cuda_device):
-    """A bf16 view whose rows do not start 16-byte aligned raises (the
-    kernels copy rows with 16-byte cp.async), forward and backward; the same
-    view in fp32 runs on the scalar kernels."""
+    """A view whose rows do not start 16-byte aligned raises, forward and
+    backward: the kernels copy rows with 16-byte cp.async, in bf16 and, since
+    the fp32 forward streams its tiles the same way, in fp32."""
     b, t, h, d = 2, 33, 2, 16
     kpm = torch.zeros((b, t), dtype=torch.bool, device=cuda_device)
     for dt in (torch.bfloat16, torch.float32):
-        wide = torch.randn(b, t, h * d + 4, device=cuda_device).to(dt)
+        extra = 64 // torch.finfo(dt).bits   # 8 bytes of elements
+        wide = torch.randn(b, t, h * d + extra, device=cuda_device).to(dt)
         heads = [wide[..., i:i + h * d].unflatten(-1, (h, d))
-                 for i in (0, 1, 4)]     # aligned base; shifted by 1 and 4
+                 for i in (0, 1, extra)]  # aligned base; shifted 2-8 bytes
         ok = torch.randn(b, t, h, d, device=cuda_device).to(dt)
-        if dt == torch.bfloat16:
-            with pytest.raises(ValueError, match="16-byte"):
-                ka.flash_attention(heads[0], ok, ok, kpm)  # time stride
-            with pytest.raises(ValueError, match="16-byte"):
-                ka.flash_attention(ok, heads[1], ok, kpm)  # data pointer
-            with pytest.raises(ValueError, match="16-byte"):
-                ka.flash_attention(ok, ok, heads[2], kpm)
-            out, m, lse = ka.flash_attention_forward(ok, ok, ok, kpm,
-                                                     stats=True)
-            shifted = torch.zeros(b * t * h * d + 1, dtype=dt,
-                                  device=cuda_device)[1:].view(b, t, h, d)
-            with pytest.raises(ValueError, match="16-byte"):
-                ka.flash_attention_backward(ok, ok, ok, out, m, lse,
-                                            shifted, kpm)
-        else:
-            out = ka.flash_attention(heads[1], heads[0], heads[2], kpm)
-            ref = ka.flash_attention_reference(heads[1], heads[0], heads[2],
-                                               kpm)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(out, ref, **_tolerance(dt))
+        with pytest.raises(ValueError, match="16-byte"):
+            ka.flash_attention(heads[0], ok, ok, kpm)  # time stride
+        with pytest.raises(ValueError, match="16-byte"):
+            ka.flash_attention(ok, heads[1], ok, kpm)  # data pointer
+        with pytest.raises(ValueError, match="16-byte"):
+            ka.flash_attention(ok, ok, heads[2], kpm)
+        out, m, lse = ka.flash_attention_forward(ok, ok, ok, kpm, stats=True)
+        shifted = torch.zeros(b * t * h * d + 1, dtype=dt,
+                              device=cuda_device)[1:].view(b, t, h, d)
+        with pytest.raises(ValueError, match="16-byte"):
+            ka.flash_attention_backward(ok, ok, ok, out, m, lse, shifted, kpm)
+
+
+def _fp32_case_on_card(device, b, tq, tk, kpm, causal, d, seed, h=2):
+    """The fp32 forward against the plain version (atol 1e-5 + rtol 1e-5),
+    its row statistics against the plain logits' row max and log-sum-exp
+    (the same tolerance), and the fp32 backward kernel run on those
+    statistics against the plain version's autograd (atol 1e-4 + rtol
+    1e-4), at one geometry and key mask."""
+    r = np.random.RandomState(seed)
+    q = (r.randn(b, tq, h, d) * d ** -0.5).astype(np.float32)
+    k = r.randn(b, tk, h, d).astype(np.float32)
+    v = r.randn(b, tk, h, d).astype(np.float32)
+    g = r.randn(b, tq, h, d).astype(np.float32)
+    q, k, v, g = (torch.from_numpy(x).to(device) for x in (q, k, v, g))
+    kpm = torch.from_numpy(np.asarray(kpm, dtype=bool)).to(device)
+    before = ka.flash_attention.launches
+    out, m, lse = ka.flash_attention_forward(q, k, v, kpm, causal, stats=True)
+    ref = ka.flash_attention_reference(q, k, v, kpm, causal=causal)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    if causal:
+        logits = logits + torch.triu(
+            torch.full((tq, tk), ka.NEG_INF, device=device), diagonal=1)
+    logits = logits.masked_fill(kpm[:, None, None, :], ka.NEG_INF)
+    torch.cuda.synchronize()
+    assert ka.flash_attention.launches == before + 1
+    torch.testing.assert_close(out, ref, **_tolerance(torch.float32))
+    torch.testing.assert_close(m, logits.amax(-1), **_tolerance(torch.float32))
+    torch.testing.assert_close(m + lse, torch.logsumexp(logits, -1),
+                               **_tolerance(torch.float32))
+    got = ka.flash_attention_backward(q, k, v, out, m, lse, g, kpm, causal)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ka.flash_attention_reference(*leaves, kpm, causal=causal).backward(g)
+    torch.cuda.synchronize()
+    for name, x, leaf in zip("qkv", got, leaves):
+        assert torch.isfinite(x).all(), name
+        _assert_grad_close(x, leaf.grad, torch.float32, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+def test_fp32_head_dims_on_card(cuda_device, d, causal):
+    """Every head_dim the gate takes: 16, 64 and 128 are compiled in, the
+    others zero-filled up to the next of them."""
+    t = 130
+    kpm = np.arange(t)[None, :] >= np.asarray([t, 93])[:, None]
+    _fp32_case_on_card(cuda_device, 2, t, t, kpm, causal, d, seed=d)
+
+
+# T on both sides of the fp32 forward's 64-query blocks and 32-key tiles;
+# head_dim at its three compiled widths and one zero-filled
+FP32_T = [1, 32, 33, 63, 64, 65, 129, 257]
+FP32_D = [16, 64, 72, 128]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", FP32_D)
+@pytest.mark.parametrize("t", FP32_T)
+def test_fp32_self_attention_geometry_on_card(cuda_device, t, d, causal):
+    lengths = [t, max(1, t - 37)]
+    kpm = np.arange(t)[None, :] >= np.asarray(lengths)[:, None]
+    _fp32_case_on_card(cuda_device, 2, t, t, kpm, causal, d, seed=t + d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", FP32_D)
+@pytest.mark.parametrize("tq,tk", [(1, 257), (63, 130), (65, 1), (257, 64),
+                                   (130, 63)])
+def test_fp32_cross_attention_geometry_on_card(cuda_device, tq, tk, d):
+    lengths = [tk, max(1, tk // 3)]
+    kpm = np.arange(tk)[None, :] >= np.asarray(lengths)[:, None]
+    _fp32_case_on_card(cuda_device, 2, tq, tk, kpm, False, d,
+                       seed=tq + 3 * tk + d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("b,h", [(6, 4), (16, 12), (100, 4)])
+def test_fp32_larger_grids_on_card(cuda_device, b, h, d, causal):
+    """B*H from 24 to 400 (HuBERT's 192 among them), T'=257: rows of
+    every length down to none. Here the fp32 forward takes blocks of 64
+    queries; the other fp32 tests' small grids take its blocks of 32."""
+    t = 257
+    lengths = [max(0, t - (t * i) // (b - 1) - (i == b - 1))
+               for i in range(b)]
+    kpm = np.arange(t)[None, :] >= np.asarray(lengths)[:, None]
+    _fp32_case_on_card(cuda_device, b, t, t, kpm, causal, d, seed=b + d,
+                       h=h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("pattern", ["key0_padded", "length0",
+                                     "tail_tiles_padded"])
+def test_fp32_key_masks_on_card(cuda_device, pattern, causal, d):
+    """The masks that decide which tiles the fp32 forward may skip: a
+    causal row whose key 0 is padded and a row without a valid key skip
+    nothing; padded tail tiles of a row with valid keys are skipped,
+    exactly."""
+    _fp32_case_on_card(cuda_device, 2, 257, 257, _mask(pattern, 257),
+                       causal, d, seed=d + len(pattern))
 
 
 # The module's route: head dims outside the kernels' contract take attend.

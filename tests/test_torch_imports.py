@@ -215,6 +215,31 @@ def test_attention_tiles_forces_each_block_shape(w, s, tmp_path):
         assert strip(forced) == strip(original)
 
 
+@pytest.mark.parametrize("r,k", [(64, 32), (32, 32), (64, 64)])
+def test_attention_tiles_forces_each_fp32_block_shape(r, k, tmp_path):
+    """A forced fp32 copy takes r-query blocks at every grid and streams
+    k-key tiles, and leaves the rest of the source as it is."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import attention_tiles
+    finally:
+        sys.path.remove(str(REPO))
+    root = attention_tiles.fp32_copy(r, k, under=tmp_path)
+    forced = (root / "s2st_tpu_torch" / "csrc" /
+              "flash_attention.cu").read_text()
+    rows = forced.split("inline int rows_for(int bh, int Tq) {\n")[1]
+    assert rows.startswith(f"  return {r};\n}}\n")
+    fp32 = forced.split("namespace fp32 {")[1]
+    assert f"constexpr int kKeys = {k};" in fp32.split("\n\n")[1]
+    original = (REPO / "s2st_tpu_torch" / "csrc" /
+                "flash_attention.cu").read_text()
+    strip = functools.partial(re.sub, attention_tiles._FP32_ROWS, r"\1\3",
+                              flags=re.S)
+    keys = functools.partial(re.sub, attention_tiles._FP32_KEYS, r"\g<1>K",
+                             flags=re.S)
+    assert keys(strip(forced)) == keys(strip(original))
+
+
 def test_chip_smoke_conv_timing_fails_without_card():
     """chip_smoke.py --conv-timing, the conv kernels' timing across trees,
     exits non-zero with no result line here, with or without trees."""
