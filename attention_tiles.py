@@ -6,10 +6,12 @@ Run from the repository root on a machine with one CUDA card:
     python3 attention_tiles.py --dtype float32        # the fp32 design
     python3 attention_tiles.py --tiles 2,4 4,2 4,1    # forced block shapes
     python3 attention_tiles.py --dtype float32 --fp32-tiles 64,32 32,32
+    python3 attention_tiles.py --dtype float32 --fp32-bwd-tiles 64,16,64,16,16
     python3 attention_tiles.py --package-root DIR ... # other trees
 
-It holds the block-shape choices of csrc/attention_tc.cuh::tiles_for (bf16)
-and of csrc/flash_attention.cu's fp32 forward to account. For each variant, at the encoder
+It holds the block-shape choices of csrc/attention_tc.cuh::tiles_for (bf16),
+of csrc/flash_attention.cu's fp32 forward and of
+csrc/flash_attention_bwd.cu's fp32 backward to account. For each variant, at the encoder
 self-attention shape (T'=250, 4 heads, head_dim 128, key padding of a
 length-bucketed batch) and B = 4, 8, 16, 32, 60 and 100 (the smoke's
 served and training batches up to batches of the recipe's size), and at
@@ -27,6 +29,10 @@ A variant is
     streamed loop at every grid;
   - ``--fp32-tiles R,K``: a copy whose fp32 forward takes blocks of R
     queries and streams K-key tiles at every grid;
+  - ``--fp32-bwd-tiles RQ,GQ,RK,GK[,T]``: a copy whose fp32 backward
+    takes blocks of RQ queries in GQ row groups (8 GQ threads) for dQ and
+    of RK keys in GK row groups for dK/dV, and streams tiles of T rows (32
+    by default), at every grid;
   - ``--package-root DIR``: the s2st_tpu_torch under DIR, through its
     wrapper's functions only, so an older tree (git archive of a parent)
     can be timed beside this one: parent, change, change, parent.
@@ -41,7 +47,6 @@ import re
 import shutil
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -53,6 +58,9 @@ _LAUNCH_SHAPE = (r"(template <int NK>\ncudaError_t launch_shape\(const "
 _FP32_KEYS = r"(namespace fp32 \{.*?constexpr int kKeys = )\d+"
 _FP32_ROWS = (r"(inline int rows_for\(int bh, int Tq\) \{\n)(.*?)"
               r"(\n\}\n)")
+_FP32_BWD_SHAPES = (r"(template <int Dp>\ncudaError_t launch_shapes\(const "
+                    r"Params& p, int B, cudaStream_t stream\) \{\n)(.*?)"
+                    r"(\n\}\n)")
 
 
 def _copy(name: str, under: Path) -> Path:
@@ -98,6 +106,20 @@ def fp32_copy(r: int, k: int, under: Path = REPO / "build") -> Path:
     _sub_once(path, _FP32_KEYS, lambda m: m.group(1) + str(k))
     _sub_once(path, _FP32_ROWS,
               lambda m: m.group(1) + f"  return {r};" + m.group(3))
+    return root
+
+
+def fp32_bwd_copy(rq: int, gq: int, rk: int, gk: int, t: int = 32,
+                  under: Path = REPO / "build") -> Path:
+    """A copy whose fp32 backward always takes blocks of rq queries in gq
+    row groups (dQ) and of rk keys in gk row groups (dK/dV), and streams
+    tiles of t rows."""
+    root = _copy(f"fp32_bwd_q{rq}g{gq}_k{rk}g{gk}_t{t}", under)
+    path = root / "s2st_tpu_torch" / "csrc" / "flash_attention_bwd.cu"
+    body = (f"  cudaError_t err = launch_dq_fp32<Dp, {rq}, {gq}, {t}>(p, B, "
+            f"stream);\n  if (err != cudaSuccess) return err;\n"
+            f"  return launch_dkdv_fp32<Dp, {rk}, {gk}, {t}>(p, B, stream);")
+    _sub_once(path, _FP32_BWD_SHAPES, lambda m: m.group(1) + body + m.group(3))
     return root
 
 
@@ -183,6 +205,10 @@ def main(argv=None) -> int:
     parser.add_argument("--fp32-tiles", nargs="*", default=[],
                         help="forced fp32 forward blocks R,K (queries, "
                              "keys a tile)")
+    parser.add_argument("--fp32-bwd-tiles", nargs="*", default=[],
+                        help="forced fp32 backward blocks RQ,GQ,RK,GK[,T] "
+                             "(rows and row groups of dQ, then of dK/dV; "
+                             "rows of a streamed tile)")
     parser.add_argument("--package-root", nargs="*", type=Path, default=[],
                         help="trees whose s2st_tpu_torch to time")
     parser.add_argument("--one", nargs=2, metavar=("ROOT", "LABEL"),
@@ -202,24 +228,22 @@ def main(argv=None) -> int:
     card = cs.gpu_identity()
     print(f"gpu: {card}", flush=True)
     variants = [(REPO, "this checkout")] if not (
-        args.tiles or args.fp32_tiles or args.package_root) else []
+        args.tiles or args.fp32_tiles or args.fp32_bwd_tiles
+        or args.package_root) else []
     for spec in args.tiles:
         w, s = (int(x) for x in spec.split(","))
         variants.append((forced_copy(w, s), f"tiles {w},{s}"))
     for spec in args.fp32_tiles:
         r, k = (int(x) for x in spec.split(","))
         variants.append((fp32_copy(r, k), f"fp32 tiles {r},{k}"))
+    for spec in args.fp32_bwd_tiles:
+        shape = [int(x) for x in spec.split(",")]
+        variants.append((fp32_bwd_copy(*shape),
+                         f"fp32 bwd tiles {spec}"))
     variants += [(p.resolve(), str(p)) for p in args.package_root]
-    t0 = time.perf_counter()
-    builds = [subprocess.Popen(
-        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
-         " from s2st_tpu_torch.kernels import nvcc; nvcc.build(["
-         "'flash_attention', 'flash_attention_bwd'])", str(root)])
-        for root in {root for root, _ in variants}]
-    if any([p.wait() for p in builds]):
+    if not cs.build_trees([root for root, _ in variants],
+                          ["flash_attention", "flash_attention_bwd"]):
         raise SystemExit("attention_tiles: a build failed")
-    print(f"built {len(builds)} trees in {time.perf_counter() - t0:.1f} s",
-          flush=True)
     failed = [label for root, label in variants
               if subprocess.run([sys.executable, __file__, "--dtype",
                                  args.dtype, "--one", str(root),

@@ -41,9 +41,11 @@ library's SASS, and the attention libraries must hold some.
    plain version's autograd at the training path's shapes (encoder
    self-attention at D=128, causal decoder self-attention, cross-attention,
    the aux decoders' D=16 self- and cross-attention, a row of length 0),
-   in fp32 and bf16, with its device time by graph replay beside the plain
-   backward's, SDPA's backward (a yardstick only) and the card's bound;
-   in bf16 also at a training batch of the recipe's size (B=60, T'=250).
+   in fp32 (the CUDA-core design: register tiles, two launches) and bf16,
+   with its device time by graph replay beside the plain backward's,
+   SDPA's backward (a yardstick only) and the card's bound; in bf16 also
+   at a training batch of the recipe's size (B=60, T'=250). In each type,
+   two calls on the same inputs must give equal bits (no atomics).
 6. Train: write a corpus of 8 utterances (400-1000 80-d fbank frames,
    log-mel targets, phone and word lines, their dictionaries, GCMVN and
    SpecAugment in config.yaml) and run the port's train CLI in bf16 with
@@ -102,7 +104,13 @@ library's SASS, and the attention libraries must hold some.
    attention kernels must launch at least 27 times a microbatch in A; the
    stage-6 average of A's last two epoch files must equal their numpy mean
    and serve through generate_waveform. Prints ms per update, each save's
-   ms and MB, and the seconds the average took.
+   ms and MB, and the seconds the average took. (b) The fp32 backward
+   kernel's path end to end: the train CLI in fp32 (the recipe's flags
+   without --fp16, with --use-flash-attention --attention-dropout 0) for
+   one epoch of the recipe's batches, where both kernels launch at least
+   27 times an update; ms an update, then one update under torch.profiler:
+   device ms, idle share, and the backward kernel's device ms and
+   launches.
 14. Stages 10-11: write a corpus of 64 utterances (400-1000 80-d fbank
    frames, 20-40 phones, 8-20 words) and a seeded random checkpoint of
    the recipe's model at full width, then run the port's
@@ -159,6 +167,12 @@ library's SASS, and the attention libraries must hold some.
 
 Prints the card's name and power limit, one JSON line of kernel
 measurements, and, last, {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --fp32-update-timing [DIR ...]
+
+runs phase 13(b) alone, for this checkout's s2st_tpu_torch or the one
+under each DIR (each in its own process, on one corpus; parent, change,
+change, parent), and prints one ``fp32_update`` JSON line a tree.
 
     python3 chip_smoke.py --conv-timing [DIR ...]
 
@@ -917,17 +931,42 @@ def backward_phase(card: str, train_lengths) -> dict:
     main = {}
     for dtype in (torch.float32, torch.bfloat16):
         for case in cases:
-            is_main = case[0] == "train_encoder_self" \
-                and dtype == torch.bfloat16
+            is_main = case[0] == "train_encoder_self"
             rec = check_bwd_case(ka, *case, dtype=dtype, card=card,
-                                 device_times=is_main)
+                                 device_times=is_main
+                                 and dtype == torch.bfloat16)
             if is_main:
-                main[case[0]] = rec
+                main[case[0] + ("_fp32" if dtype == torch.float32
+                                else "")] = rec
+        bwd_reproducible(ka, t, train_lengths, dtype, card)
     lengths = recipe_lengths(RECIPE_BATCHES["recipe_train_B60"])
     main["recipe_train_B60"] = check_bwd_case(
         ka, "recipe_train_B60", len(lengths), lengths[0], lengths[0],
         lengths, False, HEAD_DIM, torch.bfloat16, card)
     return main
+
+
+def bwd_reproducible(ka, t, lengths, dtype, card) -> None:
+    """Two backward calls on the same inputs (phase 5's training encoder
+    shape) give equal bits: no atomics, every sum in a fixed order."""
+    q, k, v, kpm = attention_inputs(len(lengths), t, t, lengths, dtype,
+                                    seed=5)
+    g = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(6),
+                    device="cuda").to(dtype)
+    out, row_max, row_logsum = ka.flash_attention_forward(q, k, v, kpm,
+                                                          stats=True)
+    first = ka.flash_attention_backward(q, k, v, out, row_max, row_logsum, g,
+                                        kpm)
+    again = ka.flash_attention_backward(q, k, v, out, row_max, row_logsum, g,
+                                        kpm)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(first, again))
+    print(f"bwd_reproducible {str(dtype).split('.')[-1]}: two calls at B="
+          f"{len(lengths)}, T'={t} give equal dq, dk, dv: {equal} ({card})",
+          flush=True)
+    if not equal:
+        raise AssertionError(f"bwd {dtype}: two calls on the same inputs "
+                             f"differ")
 
 
 def write_train_corpus(root: Path, seed: int,
@@ -1243,11 +1282,13 @@ def train_agreement_phase(card: str) -> None:
         raise AssertionError("train agreement: loss or grad norm differ")
 
 
-def train_profile_phase(card: str, data: Path,
-                        label: str = "train_update") -> None:
-    """Phase 8: one bf16 update of 6(a)'s model and batch (the corpus's
-    first batch under --max-tokens 60000, as the train CLI cuts it) under
-    torch.profiler, after two warm-up updates."""
+def train_profile_phase(card: str, data: Path, label: str = "train_update",
+                        fp16: bool = True) -> dict:
+    """Phase 8: one bf16 update (fp32 without ``fp16``) of 6(a)'s model
+    and batch (the corpus's first batch under --max-tokens 60000, as the
+    train CLI cuts it) under torch.profiler, after two warm-up updates;
+    returns its wall and device ms and the attention kernels' device ms
+    and launches by name."""
     from s2st_tpu_torch.cli import train
     from s2st_tpu_torch.data.data_cfg import S2STDataConfig
     from s2st_tpu_torch.data.dictionary import Dictionary
@@ -1258,7 +1299,8 @@ def train_profile_phase(card: str, data: Path,
     from s2st_tpu_torch.train.optim import schedule_from_args
     from s2st_tpu_torch.train.trainer import Trainer
     args = train.get_parser().parse_args(
-        recipe_train_argv(data, data / "unused", 1)
+        [a for a in recipe_train_argv(data, data / "unused", 1)
+         if fp16 or a != "--fp16"]
         + ["--use-flash-attention", "--attention-dropout", "0"])
     data_cfg = S2STDataConfig(data / "config.yaml")
     dicts = [Dictionary.load(str(data / f)) for f in ("src_vocab.txt",
@@ -1296,6 +1338,12 @@ def train_profile_phase(card: str, data: Path,
           + "; ".join(f"{name} {ms:.3f} ms {count}x"
                       for name, ms, count in attn)
           + f" ({card})", flush=True)
+    bwd = [(ms, count) for name, ms, count in attn
+           if name.startswith("attn_bwd")]
+    return {"wall_ms": wall, "device_ms": busy, "idle": 1 - busy / wall,
+            "attention_ms": attn_ms,
+            "bwd_kernel_ms": sum(ms for ms, _ in bwd),
+            "bwd_kernel_launches": sum(count for _, count in bwd)}
 
 
 def runtime_argv(data: Path, save: Path, *extra, small=True) -> list:
@@ -1416,7 +1464,99 @@ def recipe_batch_timing(root: Path, card: str) -> dict:
                       f"{out[uf]['peak_gib']:.2f} GiB)" for uf in (1, 2))
           + f" ({card})", flush=True)
     train_profile_phase(card, data, "train_update_recipe_batch")
+    out["fp32"] = fp32_update_phase(card, data, root)
     return out
+
+
+def fp32_update_phase(card: str, data: Path, root: Path) -> dict:
+    """Phase 13(b), the fp32 backward kernel's path end to end: stage-5
+    training in fp32 through the kernels, the train CLI with the recipe's
+    flags but no --fp16, with --use-flash-attention --attention-dropout 0,
+    over one epoch of the recipe's batches (``data``: RECIPE_BATCH_FRAMES,
+    4 batches of 56-72 utterances), every count set to 0 just before; ms an
+    update (the mean of updates 2-4); then one update of the first batch
+    under torch.profiler, as phase 8: device ms, idle share, and the
+    backward kernel's device ms and launches."""
+    save = root / "fp32_update"
+    save.mkdir()
+    argv = [a for a in recipe_train_argv(data, save, 4) if a != "--fp16"] \
+        + ["--use-flash-attention", "--attention-dropout", "0", "--no-save"]
+    torch.cuda.reset_peak_memory_stats()
+    fwd, bwd = run_counted(argv)
+    log = [json.loads(line) for line in
+           (save / "log.jsonl").read_text().splitlines()]
+    if len(log) != 4 or not all(np.isfinite(r["loss"]) for r in log):
+        raise AssertionError(f"fp32 update: {len(log)} updates; want 4 with "
+                             f"finite losses")
+    if fwd < 27 * 4 or bwd < 27 * 4:
+        raise AssertionError(f"fp32 update: {fwd} forward and {bwd} backward "
+                             f"kernel calls over 4 updates; want >= 27 each "
+                             f"an update")
+    steady = [r["step_ms"] for r in log[1:]]
+    out = {"ms": sum(steady) / len(steady), "min_ms": min(steady),
+           "max_ms": max(steady), "first_ms": log[0]["step_ms"],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "fwd_launches": fwd, "bwd_launches": bwd,
+           "bwd_calls_per_update": bwd / len(log),
+           "profile": train_profile_phase(
+               card, data, "train_update_fp32_recipe_batch", fp16=False)}
+    prof = out["profile"]
+    print(f"train fp32: ms/update in the recipe's batches (no --fp16, "
+          f"--use-flash-attention --attention-dropout 0), mean of updates "
+          f"2-4: {out['ms']:.3f} (min {out['min_ms']:.3f}, max "
+          f"{out['max_ms']:.3f}, first {out['first_ms']:.1f}; peak memory "
+          f"{out['peak_gib']:.2f} GiB); {bwd / len(log):.1f} backward calls "
+          f"an update; one update under the profiler: device "
+          f"{prof['device_ms']:.3f} ms of {prof['wall_ms']:.3f} wall (idle "
+          f"{prof['idle']:.3f}), the backward kernel "
+          f"{prof['bwd_kernel_ms']:.3f} ms in "
+          f"{prof['bwd_kernel_launches']} launches "
+          f"({prof['bwd_kernel_ms'] / prof['device_ms']:.3f} of the device "
+          f"time) ({card})", flush=True)
+    return out
+
+
+def fp32_update_timing(roots: list) -> int:
+    """--fp32-update-timing: phase 13(b) for each tree (this checkout's
+    s2st_tpu_torch by default, else the one under each DIR, through its
+    train CLI), each in a process of its own after every tree's attention
+    kernels are built in parallel, on one corpus: parent, change, change,
+    parent in one call."""
+    card = gpu_identity()
+    print(f"gpu: {card}", flush=True)
+    if not build_trees(roots, ["flash_attention", "flash_attention_bwd"]):
+        print("chip_smoke: an attention build failed", file=sys.stderr)
+        return 1
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_fp32_"))
+    try:
+        write_train_corpus(work / "data", seed=5, frames=RECIPE_BATCH_FRAMES)
+        failed = [str(root) for root in roots if subprocess.run(
+            [sys.executable, __file__, "--fp32-update-tree", str(root),
+             str(work / "data")]).returncode]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"gpu: {card}", flush=True)
+    if failed:
+        print(f"chip_smoke: fp32 update failed: {', '.join(failed)}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+def fp32_update_tree(root: Path, data: Path) -> dict:
+    """One tree of --fp32-update-timing, in this process."""
+    sys.path.insert(0, str(root))
+    from s2st_tpu_torch.kernels import attention as ka
+    if not Path(ka.__file__).resolve().is_relative_to(root.resolve()):
+        raise AssertionError(f"imported {ka.__file__}, not under {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_fp32_tree_"))
+    try:
+        return {"tree": str(root),
+                **fp32_update_phase(gpu_identity(), data, work)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def runtime_phase(card: str, data: Path) -> dict:
@@ -1649,22 +1789,29 @@ def conv_timing_tree(root: Path) -> dict:
     return out
 
 
+def build_trees(roots, names) -> bool:
+    """Build the named kernel libraries of each tree's s2st_tpu_torch, one
+    process a tree, all started together; whether every build passed."""
+    t0 = time.perf_counter()
+    builds = [subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         " from s2st_tpu_torch.kernels import nvcc; nvcc.build(sys.argv[2:])",
+         str(root), *names])
+        for root in dict.fromkeys(roots)]
+    ok = not any([p.wait() for p in builds])
+    print(f"built {len(builds)} trees in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return ok
+
+
 def conv_timing(roots: list) -> int:
     """--conv-timing: build every tree's conv kernels in parallel, then
     time each tree in a process of its own."""
     card = gpu_identity()
     print(f"gpu: {card}", flush=True)
-    t0 = time.perf_counter()
-    builds = [subprocess.Popen(
-        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
-         " from s2st_tpu_torch.kernels import nvcc; nvcc.build(["
-         "'lightconv', 'dynamicconv'])", str(root)])
-        for root in dict.fromkeys(roots)]
-    if any([p.wait() for p in builds]):
+    if not build_trees(roots, ["lightconv", "dynamicconv"]):
         print("chip_smoke: a conv build failed", file=sys.stderr)
         return 1
-    print(f"built {len(builds)} trees in {time.perf_counter() - t0:.1f} s",
-          flush=True)
     failed = [str(root) for root in roots if subprocess.run(
         [sys.executable, __file__, "--conv-timing-tree", str(root)]
     ).returncode]
@@ -2705,6 +2852,12 @@ def main(argv=None) -> int:
                              "(this checkout without a DIR)")
     parser.add_argument("--conv-timing-tree", type=Path,
                         help=argparse.SUPPRESS)   # one tree, this process
+    parser.add_argument("--fp32-update-timing", nargs="*", type=Path,
+                        metavar="DIR",
+                        help="only time phase 13(b), the fp32 update, with "
+                             "these trees (this checkout without a DIR)")
+    parser.add_argument("--fp32-update-tree", nargs=2, type=Path,
+                        help=argparse.SUPPRESS)   # one tree, this process
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2715,6 +2868,15 @@ def main(argv=None) -> int:
         return 0
     if args.conv_timing is not None:
         return conv_timing([p.resolve() for p in args.conv_timing] or [REPO])
+    if args.fp32_update_tree:
+        root, data = args.fp32_update_tree
+        print("fp32_update " + json.dumps(fp32_update_tree(root.resolve(),
+                                                           data)), flush=True)
+        return 0
+    if args.fp32_update_timing is not None:
+        return fp32_update_timing([p.resolve()
+                                   for p in args.fp32_update_timing]
+                                  or [REPO])
     sys.path.insert(0, str(REPO))
     import s2st_tpu_torch  # noqa: F401  (fails outside the repository)
     from s2st_tpu_torch.kernels import attention as ka
@@ -2805,9 +2967,11 @@ def main(argv=None) -> int:
         "replaces": "s2st_tpu/nn/attention.py:85",
         "design": ka.DESIGNS,
         "launches": a["bwd_launches"],
-        "launches_by_path": {"train": a["bwd_launches"],
-                             "train_runtime": runtime["bwd_launches"],
-                             "train_hubert": hubert["train_bwd_launches"]},
+        "launches_by_path": {
+            "train": a["bwd_launches"],
+            "train_runtime": runtime["bwd_launches"],
+            "train_fp32": runtime["ms_per_update"]["fp32"]["bwd_launches"],
+            "train_hubert": hubert["train_bwd_launches"]},
         "launches_per_update": a["bwd_launches"] / a["updates"],
         "max_abs_err": bwd["max_abs_err"],
         "ms": bwd["bwd_graph_ms"],

@@ -16,7 +16,8 @@ With ``--use-hubert True`` (stage 7's line plus that flag, for a model
 trained with the HuBERT frontend) the sources are the raw waveforms of the
 split's ``src_orig`` (else ``src_audio``) column, padded as JAX's iterator
 pads them. Batches are cut as JAX's are, to a multiple of
-``--required-batch-size-multiple`` (8) rows where they are larger.
+``--required-batch-size-multiple`` (8) rows where they are larger, and
+decoded with JAX's pad rows (``with_pad_rows``).
 
 ``--dump-target`` also vocodes each utterance's denormalised target mels
 and writes them beside the prediction (``wav/<id>_targ.wav``,
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 
 from ..data.audio_utils import write_wav
+from ..data.iterators import snap_len
 from ..data.manifest import GenerationSplit
 from ..generate.speech_generator import (GenerationConfig, decode_loop,
                                          postprocess,
@@ -208,16 +210,17 @@ def main(argv: Optional[List[str]] = None) -> int:
                                            gcmvn_std, gen)
             rec["forward_ms"] = clock.lap()
         else:
-            enc = model.encode(tensors["src_speech"],
-                               tensors["src_speech_lens"])
+            n = len(indices)
+            enc = model.encode(*with_pad_rows(tensors["src_speech"],
+                                              tensors["src_speech_lens"]))
             rec["encode_ms"] = clock.lap()
             feats, eos_prob, attn, out_lens, steps = decode_loop(
                 model, gen_cfg, enc, generator=gen)
             rec["decode_ms"] = clock.lap()
             rec["decode_steps"] = steps
-            out = postprocess(model, feats, eos_prob, out_lens, gcmvn_mean,
-                              gcmvn_std)
-            out["attn"] = attn
+            out = postprocess(model, feats[:n], eos_prob[:n], out_lens[:n],
+                              gcmvn_mean, gcmvn_std)
+            out["attn"] = attn[:n]
             rec["postnet_ms"] = clock.lap()
         waves = vocoder(out["feats"], lengths=out["raw_out_lens"],
                         generator=gen)
@@ -256,6 +259,22 @@ def main(argv: Optional[List[str]] = None) -> int:
         json.dumps(timing, indent=1))
     logger.info(f"dumped {n_done} utterances to {args.results_path}")
     return 0
+
+
+def with_pad_rows(src: torch.Tensor, lens: torch.Tensor):
+    """The batch of n utterances grown to JAX's snap_len(n, 8) rows with
+    rows of length 0, as JAX's iterator collates a generation batch
+    (s2st_tpu/data/iterators.py:301, data/s2st_dataset.py:241-280). JAX's
+    decode loop runs until every row has finished, these too
+    (generate/speech_generator.py:120), and the postnet reads two steps
+    past each row's end, so a real row's last frames depend on how long
+    the pad rows keep the loop running: the port decodes the same rows
+    and drops them after the loop."""
+    pad = snap_len(src.shape[0], 8) - src.shape[0]
+    if pad == 0:
+        return src, lens
+    return (torch.cat([src, src.new_zeros((pad,) + src.shape[1:])]),
+            torch.cat([lens, lens.new_zeros(pad)]))
 
 
 def cli_main():

@@ -1,9 +1,10 @@
-// Device helpers shared by the bf16 attention kernels of flash_attention.cu
-// and flash_attention_bwd.cu: asynchronous 16-byte copies (cp.async),
-// ldmatrix loads of bf16 tiles from shared memory, the m16n8k16 bf16 tensor-
-// core product with fp32 accumulators (mma.sync), the head_dim and block
-// shape a kernel is built for, and the rule that decides which keys a
-// batch row lets a kernel skip without changing its result.
+// Device helpers shared by the attention kernels of flash_attention.cu and
+// flash_attention_bwd.cu: asynchronous 16-byte copies (cp.async) and the
+// staging of bf16 and fp32 tiles with them, ldmatrix loads of bf16 tiles
+// from shared memory, the m16n8k16 bf16 tensor-core product with fp32
+// accumulators (mma.sync), the head_dim and block shape a bf16 kernel is
+// built for, and the rule that decides which keys a batch row lets a
+// kernel skip without changing its result.
 //
 // Fragment layout of mma.sync.aligned.m16n8k16 (lane l, g = l >> 2,
 // t = l & 3): the fp32 accumulator c[0..3] holds (row g, cols 2t, 2t+1) and
@@ -143,6 +144,48 @@ __device__ __forceinline__ void zero_tail(__nv_bfloat16* dst, int ld,
         make_uint4(0, 0, 0, 0);
   }
 }
+
+// The fp32 designs stage a (rows, D) slice as rows of Dp + 4 floats (Dp the
+// compiled-in head_dim, 16, 64 or 128): one ld.shared.v4 then reads 4
+// values of d, and the 4-float pad puts the rows that a quarter-warp reads
+// in distinct banks.
+//
+// Copy rows t0 .. t0+Rows-1 of a (T, D) fp32 slice with row stride st into
+// such a tile, 16 bytes a cp.async; rows at or past n are zero-filled,
+// columns D .. Dp-1 are not written. Thread i of Threads copies chunk
+// i % (Dp / 4) of rows i / (Dp / 4), ... (a compile-time power of two: no
+// division).
+template <int Dp, int Rows, int Threads>
+__device__ __forceinline__ void stage_rows_fp32(float* dst, const float* src,
+                                                long long st, int t0, int n,
+                                                int D, int tid) {
+  constexpr int kChunks = Dp / 4;
+  for (int idx = tid; idx < Rows * kChunks; idx += Threads) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    if (c * 4 >= D) continue;
+    const int t = t0 + r;
+    const bool ok = t < n;
+    cp_async16(dst + r * (Dp + 4) + c * 4, src + (ok ? t * st : 0) + c * 4,
+               ok);
+  }
+}
+
+// Zero columns D .. Dp-1 (multiples of 8) of `rows` staged fp32 rows.
+template <int Dp, int Threads>
+__device__ __forceinline__ void zero_cols_fp32(float* dst, int rows, int D,
+                                               int tid) {
+  const int chunks = (Dp - D) / 4;
+  for (int idx = tid; idx < rows * chunks; idx += Threads) {
+    const int r = idx / chunks, c = idx - r * chunks;
+    *reinterpret_cast<float4*>(dst + r * (Dp + 4) + D + c * 4) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// The head_dim an fp32 kernel is built for: 16 (the aux decoders'), 64
+// (HuBERT's) or 128 (the encoder's and decoder's); a head_dim below it is
+// zero-filled in shared memory.
+inline int fp32_width_for(int D) { return D <= 16 ? 16 : D <= 64 ? 64 : 128; }
 
 // 2^x on the special-function unit (ex2.approx, about 2^-22 relative
 // error; -inf gives 0).

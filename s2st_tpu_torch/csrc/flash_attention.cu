@@ -196,9 +196,6 @@ constexpr int kStages = 2;     // K/V tiles in the ring
 constexpr int kLdP = kKeys + 8;
 constexpr int kWords = kKeys / 32;  // ballot words of a tile's padding
 
-// The head_dim a kernel is built for.
-inline int width_for(int D) { return D <= 16 ? 16 : D <= 64 ? 64 : 128; }
-
 // Queries a block: 32 when blocks of 32 number at most one an SM (a
 // served batch of 4 utterances at D = 128: 16 heads of 8 such blocks), so
 // that twice the SMs share the work; else 64, whose 4 rows a thread feed
@@ -217,38 +214,6 @@ __host__ __device__ constexpr int blocks_per_sm(int Dp, int R) {
   return 232448 / (smem_bytes(Dp, R) + 1024) < 3
              ? 232448 / (smem_bytes(Dp, R) + 1024)
              : 3;
-}
-
-// Copy rows t0 .. t0+Rows-1 of a (T, D) fp32 slice with row stride st
-// into a staged tile of rows of Dp + 4 floats, 16 bytes a cp.async; rows at
-// or past n are zero-filled, columns D .. Dp-1 are not written. Thread i
-// copies chunk i % (Dp / 4) of rows i / (Dp / 4), ... (a compile-time
-// power of two: no division).
-template <int Dp, int Rows>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                          long long st, int t0, int n, int D,
-                                          int tid) {
-  constexpr int kChunks = Dp / 4;
-  for (int idx = tid; idx < Rows * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    if (c * 4 >= D) continue;
-    const int t = t0 + r;
-    const bool ok = t < n;
-    attn_tc::cp_async16(dst + r * (Dp + 4) + c * 4,
-                        src + (ok ? t * st : 0) + c * 4, ok);
-  }
-}
-
-// Zero columns D .. Dp-1 (multiples of 8) of `rows` staged rows.
-template <int Dp>
-__device__ __forceinline__ void zero_cols(float* dst, int rows, int D,
-                                          int tid) {
-  const int chunks = (Dp - D) / 4;
-  for (int idx = tid; idx < rows * chunks; idx += kThreads) {
-    const int r = idx / chunks, c = idx - r * chunks;
-    *reinterpret_cast<float4*>(dst + r * (Dp + 4) + D + c * 4) =
-        make_float4(0.f, 0.f, 0.f, 0.f);
-  }
 }
 
 // R queries a block (64 or 32), rows ty + 16 i of it a thread.
@@ -285,14 +250,16 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(Dp, R))
     return KV + (st * 2 + kv) * kKeys * kLd;
   };
   auto load_tile = [&](int j, int st) {
-    stage_rows<Dp, kKeys>(ring(st, 0), k, p.k_st, j * kKeys, p.Tk, D, tid);
-    stage_rows<Dp, kKeys>(ring(st, 1), v, p.v_st, j * kKeys, p.Tk, D, tid);
+    stage_rows_fp32<Dp, kKeys, kThreads>(ring(st, 0), k, p.k_st, j * kKeys,
+                                         p.Tk, D, tid);
+    stage_rows_fp32<Dp, kKeys, kThreads>(ring(st, 1), v, p.v_st, j * kKeys,
+                                         p.Tk, D, tid);
   };
 
   // Q and the first tile are in flight while the block finds the keys it
   // must visit
-  zero_cols<Dp>(Qs, R + kStages * 2 * kKeys, D, tid);
-  stage_rows<Dp, R>(Qs, q, p.q_st, q0, p.Tq, D, tid);
+  zero_cols_fp32<Dp, kThreads>(Qs, R + kStages * 2 * kKeys, D, tid);
+  stage_rows_fp32<Dp, R, kThreads>(Qs, q, p.q_st, q0, p.Tq, D, tid);
   load_tile(0, 0);
   cp_async_commit();
   bool pad[kWords];
@@ -505,7 +472,7 @@ cudaError_t launch_width(const Params& p, int B, cudaStream_t stream) {
 }  // namespace fp32
 
 cudaError_t launch_fp32(const Params& p, int B, cudaStream_t stream) {
-  switch (fp32::width_for(p.D)) {
+  switch (attn_tc::fp32_width_for(p.D)) {
     case 16: return fp32::launch_width<16>(p, B, stream);
     case 64: return fp32::launch_width<64>(p, B, stream);
     default: return fp32::launch_width<128>(p, B, stream);

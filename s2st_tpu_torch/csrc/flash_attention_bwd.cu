@@ -67,14 +67,12 @@
 //   0 valid, causal pairs above the diagonal: P = 0 and dS = 0 there in
 //   fp32.
 //
-// fp32 (the parity paths): the scalar kernels of the first port, three
-// launches: attn_bwd_rowdot (D_i, a warp a row); attn_bwd_dkdv (one block
-// per (b, h, 64-key tile), S^T and dP^T recomputed, P^T and dS^T in shared
-// memory, dV and dK accumulated in fp32 registers); attn_bwd_dq (one block
-// per (b, h, 64-query tile), dQ += dS K). Products are scalar fp32 FMAs,
-// so fp32 stays exact to fp32 rounding: the tensor cores would take fp32 as
-// TF32 (about three decimal digits), which cannot hold the 1e-4 agreement
-// the fp32 checks ask for. No tile is skipped.
+// fp32 (every fp32 training run through the kernels): the same split, two
+// launches (attn_bwd_dq_fp32, which also writes D, then
+// attn_bwd_dkdv_fp32), on the CUDA cores' fp32 FMAs from register tiles
+// fed by 16-byte shared reads, a 2-stage cp.async ring, the head_dim
+// compiled in and the same exact tile skipping; the note at the head of
+// the fp32 section below.
 //
 // Layout: every (B, T, H, D) tensor through its batch/time/head strides with
 // unit stride over D; key_padding_mask (B, Tk) bytes, 1 at pad; the row
@@ -91,9 +89,7 @@
 
 namespace {
 
-constexpr int kBlock = 64;        // fp32: queries or keys per tile
 constexpr int kMaxD = 128;        // largest head_dim; head_dim % 8 == 0
-constexpr int kThreads = 256;     // 8 warps
 constexpr float kNegInf = -1e9f;  // s2st_tpu/nn/attention.py NEG_INF
 
 struct Tensor4 {  // a (B, T, H, D) tensor: base and batch/time/head strides
@@ -117,298 +113,615 @@ __device__ __forceinline__ const T* row_ptr(const Tensor4& t, int b, int h) {
   return static_cast<const T*>(t.ptr) + b * t.sb + h * t.sh;
 }
 
-// Copy rows t0 .. t0+63 of one (b, h) slice into a shared tile with rows
-// padded to ld floats; rows at or past n are zero.
-__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
-                                          long long st, int t0, int n, int D) {
-  for (int idx = threadIdx.x; idx < kBlock * D; idx += kThreads) {
-    const int r = idx / D, d = idx - (idx / D) * D;
-    const int t = t0 + r;
-    dst[r * ld + d] = t < n ? src[t * st + d] : 0.f;
-  }
+// ---------------------------------------------------------------- fp32 ----
+//
+// The fp32 design replaces the same TPU kernels where the input is fp32:
+// every fp32 training run through the kernels (the train CLI without
+// --fp16, with --use-flash-attention --attention-dropout 0; 27 calls a
+// microbatch at the recipe's widths). Products are fp32 FMAs on the CUDA
+// cores: the tensor cores would take fp32 as TF32, with about three decimal
+// digits, which cannot hold the 1e-4 agreement the fp32 checks ask for.
+//
+// Bound: operations. The function needs 5 products of 2 H D FLOPs a
+// (query, valid key) pair: S, dP, dV, dK and dQ. At phase 5's B=8,
+// T'=250-100, H=4, D=128 that is 0.0278 ms at the card's 67 TFLOP/s of
+// fp32 FMAs; at HuBERT's shape (B=16, T'=511, 199-499 valid keys, H=12,
+// D=64) about 0.33 ms; its bytes take a tenth of that.
+//
+// What held the first (scalar) design back, at 2.2-3.6x SDPA's fp32
+// backward and 8.2x its bound: each thread read every operand from shared
+// memory as a 4-byte scalar (8 reads for 32 FMAs in S and dP); the
+// head_dim was read at run time, so at D=16 most dV, dK and dQ columns
+// were masked zeros; P^T and dS^T went through shared memory behind three
+// barriers a tile, with loads that were not overlapped with the products;
+// global loads divided an integer an element; no tile was skipped, not
+// even padded tail tiles or tiles above the causal diagonal; and a third
+// launch took D_i = rowsum(dO * o) alone.
+//
+// What this design does about each (it carries the fp32 forward's design,
+// flash_attention.cu, over to the two-kernel split of the bf16 backward):
+//   - Two launches, no atomics, bit-reproducible. attn_bwd_dq_fp32, one
+//     block per (b, h, R queries), first takes D_i of its rows (the 8
+//     threads that own a row each sum a fixed set of its columns and add
+//     the 8 shares by shuffles, in a fixed order) and writes it for the
+//     second kernel; attn_bwd_dkdv_fp32, one block per (b, h, R keys),
+//     runs after it on the same stream. S and dP are recomputed in both: 7
+//     products where the bound counts 5, the price of a dQ with no
+//     atomics.
+//   - Register tiles fed by 16-byte shared reads. Thread (ty, tx) = (tid /
+//     8, tid % 8) of 8 G threads owns the R / G resident rows ty + G i and
+//     the streamed rows tx + 8 j (j < T / 8) of each T-row tile: the
+//     scores and dP of those pairs, then the R / G x Dp / 8 gradient
+//     columns of its resident rows. q, dO, K and V are staged row-major
+//     with rows of Dp + 4 floats, so one ld.shared.v4 gives 4 values of d:
+//     S and dP take 16 reads for 128 FMAs at R / G = 4 and T = 32. P^T and
+//     dS^T (dS in dq) go through shared memory in rows of T + 8 floats, so
+//     the writes of a warp and the 16-byte reads of the products that
+//     follow hit distinct banks.
+//   - The head_dim Dp is a template argument, 16, 64 or 128; a head_dim
+//     below it is zero-filled in shared memory, so no product is masked.
+//   - A 2-stage cp.async ring streams the other operand's T-row tiles: K
+//     and V into dq; q, dO and their (m, log l, D) into dkdv. Tile i + 1 is
+//     copied while tile i's products run; a tile costs two barriers (the
+//     tile has landed; P^T and dS^T are in place).
+//   - Tiles are skipped only where that is exact (attention_tc.cuh::
+//     live_keys): dq skips padded tail key tiles, and causal key tiles
+//     wholly above the block's diagonal; a dkdv block wholly in the padded
+//     tail writes dK = dV = 0 without streaming (P = 0 and dS = 0 there),
+//     and causally it starts at its first key's query. A row with no valid
+//     key skips nothing. A tile with no padded key, inside Tk and Tq and
+//     not above any diagonal skips the masks.
+//   - Global reads are 16-byte cp.async (o and dO for D_i 16-byte loads)
+//     with the head_dim known at compile time; outputs 16-byte stores
+//     (8-byte at Dp = 16). The wrapper guarantees 16-byte aligned rows.
+// expf stays, as in the fp32 forward: ex2 of log2(e)-scaled scores would
+// add the rounding of the scaled score to every probability.
+//
+// Block shapes (R resident rows, G row groups, 8 G threads) and the tile
+// height T follow the grid (rows_for, short_tiles below), timed against
+// the others at each grid by attention_tiles.py --fp32-bwd-tiles
+// (PERF.md): 128 threads; 32 rows on grids of at most one such block an
+// SM, else 64; T = 16 where 64-row blocks number more than one an SM (at
+// D = 128 shared memory then holds two blocks an SM, not one), else 32.
+
+namespace fp32 {
+
+constexpr int kStages = 2;         // tiles in the ring
+
+// Shared bytes with streamed tiles of T rows (P^T, dS^T and dS in rows of
+// T + 8 floats). dq: q and dO (R rows), the K/V ring, dS. dkdv: K and V,
+// the q/dO ring, P^T and dS^T, the ring of the queries' (m, log l, D).
+__host__ __device__ constexpr int dq_smem_bytes(int Dp, int R, int T) {
+  return 4 * ((2 * R + kStages * 2 * T) * (Dp + 4) + R * (T + 8));
+}
+__host__ __device__ constexpr int dkdv_smem_bytes(int Dp, int R, int T) {
+  return 4 * ((2 * R + kStages * 2 * T) * (Dp + 4) + 2 * R * (T + 8) +
+              kStages * 3 * T);
 }
 
-// The probability and the score gradient of one (query qi, key kj) pair from
-// the recomputed score s and dP; 0 outside the sequences, dS 0 at a padded key.
-__device__ __forceinline__ void prob_and_dscore(
-    const Params& p, const uint8_t* kpm, int qi, int kj, float s, float dp,
-    float m, float logsum, float rowdot, float* prob, float* dscore) {
-  if (qi >= p.Tq || kj >= p.Tk) {
-    *prob = 0.f;
-    *dscore = 0.f;
-    return;
-  }
-  float x = s;
-  if (p.causal && kj > qi) x += kNegInf;
-  const bool padded = kpm && kpm[kj];
-  if (padded) x = kNegInf;
-  const float pr = expf((x - m) - logsum);
-  *prob = pr;
-  *dscore = padded ? 0.f : pr * (dp - rowdot);
+// Blocks an SM: as many as shared memory holds (232,448 bytes, 1 KB a
+// block reserved), at most as many as leave a thread the registers its
+// accumulators (`grads` tiles of R / G x Dp / 8), its scores and dP (R /
+// G x T / 8 each) and about 56 others need, and at most 4.
+__host__ __device__ constexpr int blocks_per_sm(int smem, int Dp, int R,
+                                                int G, int T, int grads) {
+  const int regs = grads * (R / G) * (Dp / 8) + 2 * (R / G) * (T / 8) + 56;
+  int n = 232448 / (smem + 1024);
+  if (n > 65536 / (8 * G * regs)) n = 65536 / (8 * G * regs);
+  if (n > 4) n = 4;
+  return n < 1 ? 1 : n;
 }
 
-__global__ void __launch_bounds__(kThreads) attn_bwd_rowdot(Params p,
-                                                            int rows) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int i = row % p.Tq;
-  const int bh = row / p.Tq;
-  const int b = bh / p.H, h = bh % p.H;
-  const float* o = row_ptr<float>(p.o, b, h) + i * p.o.st;
-  const float* g = row_ptr<float>(p.dout, b, h) + i * p.dout.st;
-  float acc = 0.f;
-  for (int d = lane; d < p.D; d += 32) acc = fmaf(o[d], g[d], acc);
+// acc[i][.] += a[i] * the kVec-wide columns of row `row` that thread tx
+// owns (columns 8 kVec c + kVec tx + x).
+template <int kI, int kCols>
+__device__ __forceinline__ void accumulate_row(float (&acc)[kI][kCols],
+                                               const float (&a)[kI],
+                                               const float* row, int tx) {
+  constexpr int kVec = kCols >= 4 ? 4 : 2;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) p.rowdot[row] = acc;
+  for (int c = 0; c < kCols / kVec; ++c) {
+    float vv[kVec];
+    if constexpr (kVec == 4) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(row + 8 * kVec * c + kVec * tx);
+      vv[0] = x.x; vv[1] = x.y; vv[2] = x.z; vv[3] = x.w;
+    } else {
+      const float2 x =
+          *reinterpret_cast<const float2*>(row + 8 * kVec * c + kVec * tx);
+      vv[0] = x.x; vv[1] = x.y;
+    }
+#pragma unroll
+    for (int i = 0; i < kI; ++i)
+#pragma unroll
+      for (int x = 0; x < kVec; ++x)
+        acc[i][c * kVec + x] = fmaf(a[i], vv[x], acc[i][c * kVec + x]);
+  }
 }
 
-// Shared floats of the dkdv and dq kernels: four (64, D + 1) tiles, one or two
-// (64, 65) score tiles and the 64 rows' m, log l and D.
-__host__ __device__ inline int smem_floats(int D, int score_tiles) {
-  return 4 * kBlock * (D + 1) + score_tiles * kBlock * (kBlock + 1) + 3 * kBlock;
+// Store rows t0 + ty + G i (those below n) of a thread's gradient tile,
+// columns below D, as 16-byte (8-byte at Dp = 16) writes.
+template <int kI, int kCols, int G>
+__device__ __forceinline__ void store_rows(const float (&acc)[kI][kCols],
+                                           float* dst, long long st, int t0,
+                                           int n, int D, int ty, int tx) {
+  constexpr int kVec = kCols >= 4 ? 4 : 2;
+#pragma unroll
+  for (int i = 0; i < kI; ++i) {
+    const int t = t0 + ty + G * i;
+    if (t >= n) continue;
+    float* row = dst + t * st + kVec * tx;
+#pragma unroll
+    for (int c = 0; c < kCols / kVec; ++c) {
+      if (8 * kVec * c + kVec * tx >= D) continue;
+      const int n0 = c * kVec;
+      if constexpr (kVec == 4)
+        *reinterpret_cast<float4*>(row + 8 * kVec * c) = make_float4(
+            acc[i][n0], acc[i][n0 + 1], acc[i][n0 + 2], acc[i][n0 + 3]);
+      else
+        *reinterpret_cast<float2*>(row + 8 * kVec * c) =
+            make_float2(acc[i][n0], acc[i][n0 + 1]);
+    }
+  }
 }
 
-__global__ void __launch_bounds__(kThreads, 1) attn_bwd_dkdv(Params p) {
-  extern __shared__ float smem[];
-  const int D = p.D;
-  const int ld = D + 1;
-  constexpr int lp = kBlock + 1;
-  float* Ks = smem;
-  float* Vs = Ks + kBlock * ld;
-  float* Qs = Vs + kBlock * ld;
-  float* Gs = Qs + kBlock * ld;  // dO
-  float* Pt = Gs + kBlock * ld;  // P^T  (key row, query column)
-  float* St = Pt + kBlock * lp;  // dS^T
-  float* m_s = St + kBlock * lp;
-  float* l_s = m_s + kBlock;
-  float* d_s = l_s + kBlock;
+// S (and dP) of a thread's kI x kJ pairs: rows ty + G i of A (and A2)
+// against rows tx + 8 j of B (and B2), all staged with rows of Dp + 4.
+template <int Dp, int kI, int kJ, int G>
+__device__ __forceinline__ void two_products(float (&s)[kI][kJ],
+                                             float (&dp)[kI][kJ],
+                                             const float* A, const float* A2,
+                                             const float* B, const float* B2,
+                                             int ty, int tx) {
+  constexpr int kLd = Dp + 4;
+#pragma unroll
+  for (int i = 0; i < kI; ++i)
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < Dp; d += 4) {
+    float4 a[kI], a2[kI], b[kJ], b2[kJ];
+#pragma unroll
+    for (int i = 0; i < kI; ++i) {
+      a[i] = *reinterpret_cast<const float4*>(A + (ty + G * i) * kLd + d);
+      a2[i] = *reinterpret_cast<const float4*>(A2 + (ty + G * i) * kLd + d);
+    }
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      b[j] = *reinterpret_cast<const float4*>(B + (tx + 8 * j) * kLd + d);
+      b2[j] = *reinterpret_cast<const float4*>(B2 + (tx + 8 * j) * kLd + d);
+    }
+#pragma unroll
+    for (int i = 0; i < kI; ++i)
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+        s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+        s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+        s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+        dp[i][j] = fmaf(a2[i].x, b2[j].x, dp[i][j]);
+        dp[i][j] = fmaf(a2[i].y, b2[j].y, dp[i][j]);
+        dp[i][j] = fmaf(a2[i].z, b2[j].z, dp[i][j]);
+        dp[i][j] = fmaf(a2[i].w, b2[j].w, dp[i][j]);
+      }
+  }
+}
+
+// dQ of R queries, and D_i of them for attn_bwd_dkdv_fp32; keys stream
+// in tiles of T.
+template <int Dp, int R, int G, int T>
+__global__ void __launch_bounds__(8 * G,
+                                  blocks_per_sm(dq_smem_bytes(Dp, R, T), Dp,
+                                                R, G, T, 1))
+    attn_bwd_dq_fp32(Params p) {
+  using namespace attn_tc;
+  constexpr int kThreads = 8 * G;
+  constexpr int kI = R / G;          // resident rows a thread
+  constexpr int kJ = T / 8;          // streamed rows a thread
+  constexpr int kLd = Dp + 4;
+  constexpr int kLdP = T + 8;
+  constexpr int kCols = Dp / 8;      // gradient columns a thread
+  constexpr uint32_t kBits = T == 32 ? 0xffffffffu : (1u << T) - 1u;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                              // [R][kLd]
+  float* Gs = Qs + R * kLd;                      // dO
+  float* KV = Gs + R * kLd;                      // [stage][K, V][T][kLd]
+  float* Ss = KV + kStages * 2 * T * kLd;        // dS [R][kLdP]
+  int* red = reinterpret_cast<int*>(Ss);         // live_keys', before dS
 
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // key rows ty*4 .. ty*4+3
-  const int tx = tid & 15;  // query columns tx + 16j; output columns tx + 16c
-  const int k0 = blockIdx.x * kBlock;
+  const int lane = tid & 31;
+  const int ty = tid >> 3;  // rows ty + G i
+  const int tx = tid & 7;   // keys tx + 8 j; columns 8 kVec c + kVec tx + x
+  const int q0 = blockIdx.x * R;
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
-  const uint8_t* kpm = p.kpm ? p.kpm + b * p.kpm_sb : nullptr;
-  const long long stat0 = static_cast<long long>(bh) * p.Tq;
-
-  load_tile(Ks, ld, row_ptr<float>(p.k, b, h), p.k.st, k0, p.Tk, D);
-  load_tile(Vs, ld, row_ptr<float>(p.v, b, h), p.v.st, k0, p.Tk, D);
-
-  float dk[4][8], dv[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) dk[i][c] = dv[i][c] = 0.f;
-
-  for (int q0 = 0; q0 < p.Tq; q0 += kBlock) {
-    __syncthreads();  // the previous tile's P^T, dS^T, q and dO are consumed
-    load_tile(Qs, ld, row_ptr<float>(p.q, b, h), p.q.st, q0, p.Tq, D);
-    load_tile(Gs, ld, row_ptr<float>(p.dout, b, h), p.dout.st, q0, p.Tq, D);
-    if (tid < kBlock) {
-      const int t = q0 + tid;
-      m_s[tid] = t < p.Tq ? p.row_max[stat0 + t] : 0.f;
-      l_s[tid] = t < p.Tq ? p.row_logsum[stat0 + t] : 0.f;
-      d_s[tid] = t < p.Tq ? p.rowdot[stat0 + t] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4], qv[4], gv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = Ks[(ty * 4 + i) * ld + d];
-        vv[i] = Vs[(ty * 4 + i) * ld + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = Qs[(tx + 16 * j) * ld + d];
-        gv[j] = Gs[(tx + 16 * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], gv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kr = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = tx + 16 * j;
-        float pr, ds;
-        prob_and_dscore(p, kpm, q0 + qc, k0 + kr, s[i][j], dp[i][j], m_s[qc],
-                        l_s[qc], d_s[qc], &pr, &ds);
-        Pt[kr * lp + qc] = pr;
-        St[kr * lp + qc] = ds;
-      }
-    }
-    __syncthreads();  // P^T and dS^T are in place
-
-    for (int qc = 0; qc < kBlock; ++qc) {
-      float pv[4], sv[4], gv[8], qv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Pt[(ty * 4 + i) * lp + qc];
-        sv[i] = St[(ty * 4 + i) * lp + qc];
-      }
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int col = tx + 16 * c;
-        gv[c] = col < D ? Gs[qc * ld + col] : 0.f;
-        qv[c] = col < D ? Qs[qc * ld + col] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          dv[i][c] = fmaf(pv[i], gv[c], dv[i][c]);
-          dk[i][c] = fmaf(sv[i], qv[c], dk[i][c]);
-        }
-    }
-  }
-
-  float* dk_out = static_cast<float*>(const_cast<void*>(p.dk.ptr)) +
-                   b * p.dk.sb + h * p.dk.sh;
-  float* dv_out = static_cast<float*>(const_cast<void*>(p.dv.ptr)) +
-                   b * p.dv.sb + h * p.dv.sh;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = k0 + ty * 4 + i;
-    if (t >= p.Tk) continue;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) {
-        dk_out[t * p.dk.st + col] = dk[i][c];
-        dv_out[t * p.dv.st + col] = dv[i][c];
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads, 1) attn_bwd_dq(Params p) {
-  extern __shared__ float smem[];
   const int D = p.D;
-  const int ld = D + 1;
-  constexpr int lp = kBlock + 1;
-  float* Qs = smem;
-  float* Gs = Qs + kBlock * ld;  // dO
-  float* Ks = Gs + kBlock * ld;
-  float* Vs = Ks + kBlock * ld;
-  float* Ss = Vs + kBlock * ld;  // dS (query row, key column)
-  float* m_s = Ss + kBlock * lp;
-  float* l_s = m_s + kBlock;
-  float* d_s = l_s + kBlock;
-
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // query rows ty*4 .. ty*4+3
-  const int tx = tid & 15;  // key columns tx + 16j; output columns tx + 16c
-  const int q0 = blockIdx.x * kBlock;
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
+  const float* q = row_ptr<float>(p.q, b, h);
+  const float* gout = row_ptr<float>(p.dout, b, h);
+  const float* k = row_ptr<float>(p.k, b, h);
+  const float* v = row_ptr<float>(p.v, b, h);
+  const float* o = row_ptr<float>(p.o, b, h);
   const uint8_t* kpm = p.kpm ? p.kpm + b * p.kpm_sb : nullptr;
   const long long stat0 = static_cast<long long>(bh) * p.Tq;
+  auto ring = [&](int st, int kv) { return KV + (st * 2 + kv) * T * kLd; };
+  auto load_tile = [&](int j, int st) {
+    stage_rows_fp32<Dp, T, kThreads>(ring(st, 0), k, p.k.st, j * T, p.Tk, D,
+                                     tid);
+    stage_rows_fp32<Dp, T, kThreads>(ring(st, 1), v, p.v.st, j * T, p.Tk, D,
+                                     tid);
+  };
 
-  load_tile(Qs, ld, row_ptr<float>(p.q, b, h), p.q.st, q0, p.Tq, D);
-  load_tile(Gs, ld, row_ptr<float>(p.dout, b, h), p.dout.st, q0, p.Tq, D);
-  if (tid < kBlock) {
-    const int t = q0 + tid;
-    m_s[tid] = t < p.Tq ? p.row_max[stat0 + t] : 0.f;
-    l_s[tid] = t < p.Tq ? p.row_logsum[stat0 + t] : 0.f;
-    d_s[tid] = t < p.Tq ? p.rowdot[stat0 + t] : 0.f;
+  // q, dO and the first tile are in flight while the block takes D_i and
+  // finds the keys it must visit
+  zero_cols_fp32<Dp, kThreads>(Qs, 2 * R + kStages * 2 * T, D, tid);
+  stage_rows_fp32<Dp, R, kThreads>(Qs, q, p.q.st, q0, p.Tq, D, tid);
+  stage_rows_fp32<Dp, R, kThreads>(Gs, gout, p.dout.st, q0, p.Tq, D, tid);
+  load_tile(0, 0);
+  cp_async_commit();
+  // D_i = sum_d dO[i, d] o[i, d]: the 8 threads of a row each sum columns
+  // 4 tx + 32 c in c order, then the 8 shares are added by a butterfly,
+  // which gives every lane the same bits
+  float m[kI], lse[kI], di[kI];
+#pragma unroll
+  for (int i = 0; i < kI; ++i) {
+    const int t = q0 + ty + G * i;
+    float acc = 0.f;
+    if (t < p.Tq) {
+#pragma unroll
+      for (int c = 0; c < (Dp + 31) / 32; ++c) {
+        const int col = 4 * tx + 32 * c;
+        if (col >= D) continue;
+        const float4 ov = *reinterpret_cast<const float4*>(o + t * p.o.st +
+                                                           col);
+        const float4 gv = *reinterpret_cast<const float4*>(
+            gout + t * p.dout.st + col);
+        acc = fmaf(ov.x, gv.x, acc);
+        acc = fmaf(ov.y, gv.y, acc);
+        acc = fmaf(ov.z, gv.z, acc);
+        acc = fmaf(ov.w, gv.w, acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+    di[i] = acc;
+    m[i] = t < p.Tq ? p.row_max[stat0 + t] : 0.f;
+    lse[i] = t < p.Tq ? p.row_logsum[stat0 + t] : 0.f;
+    if (tx == 0 && t < p.Tq) p.rowdot[stat0 + t] = acc;
   }
+  const bool pad = key_padded(kpm, lane, p.Tk);
+  bool causal_skip;
+  int kend = live_keys(kpm, p.Tk, p.causal != 0, &causal_skip, red);
+  if (causal_skip) kend = min(kend, q0 + R);
+  const int n_tiles = (kend + T - 1) / T;
+  uint32_t pm = __ballot_sync(0xffffffffu, pad) & kBits;  // bit b: k0 + b
 
-  float dq[4][8];
+  float acc[kI][kCols];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kI; ++i)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) dq[i][c] = 0.f;
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
 
-  for (int k0 = 0; k0 < p.Tk; k0 += kBlock) {
-    __syncthreads();  // q, dO and the statistics are loaded; the previous
-                      // tile's K and dS are consumed
-    load_tile(Ks, ld, row_ptr<float>(p.k, b, h), p.k.st, k0, p.Tk, D);
-    load_tile(Vs, ld, row_ptr<float>(p.v, b, h), p.v.st, k0, p.Tk, D);
-    __syncthreads();
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    const int k0 = it * T;
+    cp_async_wait<0>();
+    __syncthreads();  // tile it landed; the last tile's dS and K reads done
+    bool next = false;
+    if (it + 1 < n_tiles) {
+      load_tile(it + 1, st ^ 1);
+      cp_async_commit();
+      next = key_padded(kpm, k0 + T + lane, p.Tk);
+    }
+    const float* Kt = ring(st, 0);
 
-    float s[4][4], dp[4][4];
+    // S = q K^T and dP = dO V^T
+    float s[kI][kJ], dp[kI][kJ];
+    two_products<Dp, kI, kJ, G>(s, dp, Qs, Gs, Kt, ring(st, 1), ty, tx);
+
+    // dS = P (dP - D), P recomputed from the forward's statistics; the
+    // masks are skipped (a block-uniform branch) for a tile of valid keys
+    // inside Tk that is not above any of the block's rows' diagonals
+    const bool unmasked = pm == 0 && k0 + T <= p.Tk &&
+                          !(p.causal && k0 + T - 1 > q0);
+    if (unmasked) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[4], gv[4], kv[4], vv[4];
+        for (int j = 0; j < kJ; ++j)
+          s[i][j] = expf((s[i][j] - m[i]) - lse[i]) * (dp[i][j] - di[i]);
+    } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty * 4 + i) * ld + d];
-        gv[i] = Gs[(ty * 4 + i) * ld + d];
-      }
+      for (int i = 0; i < kI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * ld + d];
-        vv[j] = Vs[(tx + 16 * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
+        for (int j = 0; j < kJ; ++j) {
+          const int kj = k0 + tx + 8 * j;
+          float ds = 0.f;  // 0 outside the sequence and at a padded key
+          if (kj < p.Tk && !((pm >> (tx + 8 * j)) & 1u)) {
+            float x = s[i][j];
+            if (p.causal && kj > q0 + ty + G * i) x += kNegInf;
+            ds = expf((x - m[i]) - lse[i]) * (dp[i][j] - di[i]);
+          }
+          s[i][j] = ds;
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qr = ty * 4 + i;
+    for (int i = 0; i < kI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kc = tx + 16 * j;
-        float pr, ds;
-        prob_and_dscore(p, kpm, q0 + qr, k0 + kc, s[i][j], dp[i][j], m_s[qr],
-                        l_s[qr], d_s[qr], &pr, &ds);
-        Ss[qr * lp + kc] = ds;
-      }
-    }
+      for (int j = 0; j < kJ; ++j)
+        Ss[(ty + G * i) * kLdP + tx + 8 * j] = s[i][j];
     __syncthreads();  // dS is in place
 
-    for (int kc = 0; kc < kBlock; ++kc) {
-      float sv[4], kv[8];
+    // dQ += dS K: 4 keys of dS a 16-byte read
+#pragma unroll 2
+    for (int kk = 0; kk < T; kk += 4) {
+      float4 sv[kI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = Ss[(ty * 4 + i) * lp + kc];
+      for (int i = 0; i < kI; ++i)
+        sv[i] = *reinterpret_cast<const float4*>(Ss + (ty + G * i) * kLdP +
+                                                 kk);
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int col = tx + 16 * c;
-        kv[c] = col < D ? Ks[kc * ld + col] : 0.f;
+      for (int e = 0; e < 4; ++e) {
+        float a[kI];
+#pragma unroll
+        for (int i = 0; i < kI; ++i)
+          a[i] = e == 0 ? sv[i].x : e == 1 ? sv[i].y : e == 2 ? sv[i].z
+                                                             : sv[i].w;
+        accumulate_row<kI, kCols>(acc, a, Kt + (kk + e) * kLd, tx);
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) dq[i][c] = fmaf(sv[i], kv[c], dq[i][c]);
     }
+    pm = __ballot_sync(0xffffffffu, next) & kBits;
   }
 
-  float* dq_out = static_cast<float*>(const_cast<void*>(p.dq.ptr)) +
-                   b * p.dq.sb + h * p.dq.sh;
+  store_rows<kI, kCols, G>(acc,
+                           static_cast<float*>(const_cast<void*>(p.dq.ptr)) +
+                               b * p.dq.sb + h * p.dq.sh,
+                           p.dq.st, q0, p.Tq, D, ty, tx);
+}
+
+// dK and dV of R keys, from the D_i that attn_bwd_dq_fp32 wrote; queries
+// stream in tiles of T.
+template <int Dp, int R, int G, int T>
+__global__ void __launch_bounds__(8 * G,
+                                  blocks_per_sm(dkdv_smem_bytes(Dp, R, T),
+                                                Dp, R, G, T, 2))
+    attn_bwd_dkdv_fp32(Params p) {
+  using namespace attn_tc;
+  constexpr int kThreads = 8 * G;
+  constexpr int kI = R / G;          // resident keys a thread
+  constexpr int kJ = T / 8;          // streamed queries a thread
+  constexpr int kLd = Dp + 4;
+  constexpr int kLdP = T + 8;
+  constexpr int kCols = Dp / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                              // [R][kLd]
+  float* Vs = Ks + R * kLd;
+  float* QG = Vs + R * kLd;                      // [stage][q, dO][T][kLd]
+  float* Pt = QG + kStages * 2 * T * kLd;        // P^T [R][kLdP]
+  float* St = Pt + R * kLdP;                     // dS^T
+  float* SS = St + R * kLdP;                     // [stage][m, lse, D][T]
+  int* red = reinterpret_cast<int*>(Pt);         // live_keys', before P^T
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 3;  // keys ty + G i
+  const int tx = tid & 7;   // queries tx + 8 j; columns 8 kVec c + kVec tx
+  const int k0 = blockIdx.x * R;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int D = p.D;
+  const float* q = row_ptr<float>(p.q, b, h);
+  const float* gout = row_ptr<float>(p.dout, b, h);
+  const uint8_t* kpm = p.kpm ? p.kpm + b * p.kpm_sb : nullptr;
+  const long long stat0 = static_cast<long long>(bh) * p.Tq;
+  auto ring = [&](int st, int qg) { return QG + (st * 2 + qg) * T * kLd; };
+  auto stats = [&](int st, int a) { return SS + (st * 3 + a) * T; };
+
+  // K and V are in flight while the block finds which queries it must
+  // visit
+  zero_cols_fp32<Dp, kThreads>(Ks, 2 * R + kStages * 2 * T, D, tid);
+  stage_rows_fp32<Dp, R, kThreads>(Ks, row_ptr<float>(p.k, b, h), p.k.st,
+                                   k0, p.Tk, D, tid);
+  stage_rows_fp32<Dp, R, kThreads>(Vs, row_ptr<float>(p.v, b, h), p.v.st,
+                                   k0, p.Tk, D, tid);
+  cp_async_commit();
+  bool kpad[kI];
+  bool any_pad = false;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty * 4 + i;
-    if (t >= p.Tq) continue;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) dq_out[t * p.dq.st + col] = dq[i][c];
+  for (int i = 0; i < kI; ++i) {
+    kpad[i] = key_padded(kpm, k0 + ty + G * i, p.Tk);
+    any_pad |= kpad[i];
+  }
+  // Keys at or past kend get no gradient (P = 0 and dS = 0 there, exactly);
+  // with causal_skip, queries before k0 see these keys only above their
+  // diagonal (P = 0 there), so the query loop starts at k0.
+  bool causal_skip;
+  const int kend = live_keys(kpm, p.Tk, p.causal != 0, &causal_skip, red);
+  const bool block_pad = __syncthreads_or(any_pad);
+  const int q_first = causal_skip ? k0 : 0;
+  const int n_tiles = k0 >= kend || q_first >= p.Tq
+                          ? 0
+                          : (p.Tq - q_first + T - 1) / T;
+  auto load_tile = [&](int j, int st) {
+    const int t0 = q_first + j * T;
+    stage_rows_fp32<Dp, T, kThreads>(ring(st, 0), q, p.q.st, t0, p.Tq, D,
+                                     tid);
+    stage_rows_fp32<Dp, T, kThreads>(ring(st, 1), gout, p.dout.st, t0, p.Tq,
+                                     D, tid);
+    for (int x = tid; x < 3 * T; x += kThreads) {
+      const int a = x / T, r = x % T;
+      const int t = t0 + r;
+      const bool ok = t < p.Tq;
+      const float* stat = a == 0 ? p.row_max
+                          : a == 1 ? p.row_logsum : p.rowdot;
+      cp_async4(stats(st, a) + r, stat + stat0 + (ok ? t : 0), ok);
     }
+  };
+  if (n_tiles > 0) load_tile(0, 0);
+  cp_async_commit();
+
+  float dk[kI][kCols], dv[kI][kCols];
+#pragma unroll
+  for (int i = 0; i < kI; ++i)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) dk[i][c] = dv[i][c] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    const int q0 = q_first + it * T;
+    cp_async_wait<0>();
+    __syncthreads();  // tile it landed; the last tile's P^T, dS^T reads done
+    if (it + 1 < n_tiles) {
+      load_tile(it + 1, st ^ 1);
+      cp_async_commit();
+    }
+    const float* Qt = ring(st, 0);
+    const float* Gt = ring(st, 1);
+
+    // S^T = K q^T and dP^T = V dO^T
+    float s[kI][kJ], dp[kI][kJ];
+    two_products<Dp, kI, kJ, G>(s, dp, Ks, Vs, Qt, Gt, ty, tx);
+
+    // P^T and dS^T = P^T (dP^T - D); the masks are skipped (a
+    // block-uniform branch) for the block's valid keys inside Tk against a
+    // tile of queries inside Tq, none of them above its diagonal
+    float mj[kJ], lj[kJ], dj[kJ];
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      mj[j] = stats(st, 0)[tx + 8 * j];
+      lj[j] = stats(st, 1)[tx + 8 * j];
+      dj[j] = stats(st, 2)[tx + 8 * j];
+    }
+    const bool unmasked = !block_pad && k0 + R <= p.Tk &&
+                          q0 + T <= p.Tq &&
+                          !(p.causal && k0 + R - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < kI; ++i)
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        float pr, ds;
+        if (unmasked) {
+          pr = expf((s[i][j] - mj[j]) - lj[j]);
+          ds = pr * (dp[i][j] - dj[j]);
+        } else {
+          const int kr = k0 + ty + G * i;
+          const int qc = q0 + tx + 8 * j;
+          pr = ds = 0.f;
+          if (kr < p.Tk && qc < p.Tq) {
+            float x = s[i][j];
+            if (p.causal && kr > qc) x += kNegInf;
+            if (kpad[i]) x = kNegInf;
+            pr = expf((x - mj[j]) - lj[j]);
+            ds = kpad[i] ? 0.f : pr * (dp[i][j] - dj[j]);
+          }
+        }
+        Pt[(ty + G * i) * kLdP + tx + 8 * j] = pr;
+        St[(ty + G * i) * kLdP + tx + 8 * j] = ds;
+      }
+    __syncthreads();  // P^T and dS^T are in place
+
+    // dV += P^T dO and dK += dS^T q: 4 queries of each a 16-byte read
+#pragma unroll 2
+    for (int qq = 0; qq < T; qq += 4) {
+      float4 pv[kI], sv[kI];
+#pragma unroll
+      for (int i = 0; i < kI; ++i) {
+        pv[i] = *reinterpret_cast<const float4*>(Pt + (ty + G * i) * kLdP +
+                                                 qq);
+        sv[i] = *reinterpret_cast<const float4*>(St + (ty + G * i) * kLdP +
+                                                 qq);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float a[kI], a2[kI];
+#pragma unroll
+        for (int i = 0; i < kI; ++i) {
+          a[i] = e == 0 ? pv[i].x : e == 1 ? pv[i].y : e == 2 ? pv[i].z
+                                                             : pv[i].w;
+          a2[i] = e == 0 ? sv[i].x : e == 1 ? sv[i].y : e == 2 ? sv[i].z
+                                                              : sv[i].w;
+        }
+        accumulate_row<kI, kCols>(dv, a, Gt + (qq + e) * kLd, tx);
+        accumulate_row<kI, kCols>(dk, a2, Qt + (qq + e) * kLd, tx);
+      }
+    }
+  }
+  cp_async_wait<0>();  // K and V landed even where no tile was streamed
+
+  store_rows<kI, kCols, G>(dk,
+                           static_cast<float*>(const_cast<void*>(p.dk.ptr)) +
+                               b * p.dk.sb + h * p.dk.sh,
+                           p.dk.st, k0, p.Tk, D, ty, tx);
+  store_rows<kI, kCols, G>(dv,
+                           static_cast<float*>(const_cast<void*>(p.dv.ptr)) +
+                               b * p.dv.sb + h * p.dv.sh,
+                           p.dv.st, k0, p.Tk, D, ty, tx);
+}
+
+template <int Dp, int R, int G, int T>
+cudaError_t launch_dq_fp32(const Params& p, int B, cudaStream_t stream) {
+  constexpr int bytes = dq_smem_bytes(Dp, R, T);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_dq_fp32<Dp, R, G, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  attn_bwd_dq_fp32<Dp, R, G, T><<<dim3((p.Tq + R - 1) / R, B * p.H), 8 * G,
+                                  bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int Dp, int R, int G, int T>
+cudaError_t launch_dkdv_fp32(const Params& p, int B, cudaStream_t stream) {
+  constexpr int bytes = dkdv_smem_bytes(Dp, R, T);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_dkdv_fp32<Dp, R, G, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  attn_bwd_dkdv_fp32<Dp, R, G, T><<<dim3((p.Tk + R - 1) / R, B * p.H),
+                                    8 * G, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Resident rows a block: 32 when blocks of 32 number at most one an SM (a
+// served batch of 4 at D = 128: 16 heads of 8 such blocks), so that twice
+// the SMs share the work; else 64, whose 4 rows a thread feed more FMAs a
+// shared read.
+inline int rows_for(int bh, int t) {
+  return (t + 31) / 32 * bh <= attn_tc::sm_count() ? 32 : 64;
+}
+
+// Streamed tiles of 16 rows when blocks of 64 rows number more than one an
+// SM, so that two blocks fit an SM's shared memory at D = 128 (dK/dV: 114
+// KB, not 156); else 32, whose 4 rows a thread feed more FMAs a shared
+// read (attention_tiles.py --fp32-bwd-tiles, PERF.md).
+inline bool short_tiles(int bh, int t) {
+  return (t + 63) / 64 * bh > attn_tc::sm_count();
+}
+
+// dq first (it writes D), then dkdv, on one stream, each in the block shape
+// and tile height that this function picks for its grid.
+template <int Dp>
+cudaError_t launch_shapes(const Params& p, int B, cudaStream_t stream) {
+  const int bh = B * p.H;
+  cudaError_t err =
+      rows_for(bh, p.Tq) == 32 ? launch_dq_fp32<Dp, 32, 16, 32>(p, B, stream)
+      : short_tiles(bh, p.Tq)  ? launch_dq_fp32<Dp, 64, 16, 16>(p, B, stream)
+                               : launch_dq_fp32<Dp, 64, 16, 32>(p, B, stream);
+  if (err != cudaSuccess) return err;
+  return rows_for(bh, p.Tk) == 32
+             ? launch_dkdv_fp32<Dp, 32, 16, 32>(p, B, stream)
+         : short_tiles(bh, p.Tk)
+             ? launch_dkdv_fp32<Dp, 64, 16, 16>(p, B, stream)
+             : launch_dkdv_fp32<Dp, 64, 16, 32>(p, B, stream);
+}
+
+}  // namespace fp32
+
+cudaError_t launch_fp32(const Params& p, int B, cudaStream_t stream) {
+  switch (attn_tc::fp32_width_for(p.D)) {
+    case 16: return fp32::launch_shapes<16>(p, B, stream);
+    case 64: return fp32::launch_shapes<64>(p, B, stream);
+    default: return fp32::launch_shapes<128>(p, B, stream);
   }
 }
 
@@ -907,33 +1220,6 @@ __global__ void __launch_bounds__(32 * W * S) attn_bwd_dkdv_bf16(Params p) {
   store_combined<W, S>(static_cast<bf16*>(const_cast<void*>(p.dv.ptr)) +
                            b * p.dv.sb + h * p.dv.sh,
                        p.dv.st, k0, p.Tk, Cv, D, Dp);
-}
-
-cudaError_t launch_fp32(const Params& p, int B, cudaStream_t stream) {
-  const int rows = B * p.H * p.Tq;
-  attn_bwd_rowdot<<<(rows + kThreads / 32 - 1) / (kThreads / 32), kThreads,
-                    0, stream>>>(p, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const size_t dkdv_bytes = sizeof(float) * smem_floats(p.D, 2);
-  err = cudaFuncSetAttribute(attn_bwd_dkdv,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(dkdv_bytes));
-  if (err != cudaSuccess) return err;
-  attn_bwd_dkdv<<<dim3((p.Tk + kBlock - 1) / kBlock, B * p.H), kThreads,
-                  dkdv_bytes, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const size_t dq_bytes = sizeof(float) * smem_floats(p.D, 1);
-  err = cudaFuncSetAttribute(attn_bwd_dq,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(dq_bytes));
-  if (err != cudaSuccess) return err;
-  attn_bwd_dq<<<dim3((p.Tq + kBlock - 1) / kBlock, B * p.H), kThreads,
-                dq_bytes, stream>>>(p);
-  return cudaGetLastError();
 }
 
 template <int W, int S, int NK>

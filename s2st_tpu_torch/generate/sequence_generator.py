@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from ..nn.attention import cross_attn_precompute, self_attn_cache_init
-from ..nn.core import layer_norm, linear
+from ..nn.core import layer_norm, linear, scaled
 from ..nn.transformer import decoder_layer_step_fused, \
     fuse_decoder_layer_params
 
@@ -273,7 +273,7 @@ def _aux_step(dec, fused: List[Dict[str, torch.Tensor]],
     cfg = dec.cfg
     x = dec.embed_tokens.weight.to(cfg.dtype)[tokens_t]
     if not cfg.no_scale_embedding:
-        x = x * math.sqrt(dec.dim)
+        x = scaled(x, math.sqrt(dec.dim))
     x = x + dec.pos_table[step + PAD + 1].to(cfg.dtype)
     for lp, cache, kv in zip(fused, caches, cross_kvs):
         x, _, _ = decoder_layer_step_fused(

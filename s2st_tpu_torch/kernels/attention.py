@@ -10,10 +10,9 @@ on first use and loaded with ctypes); on a CPU tensor it runs
 other path: a CUDA call the kernels cannot take raises.
 
 Each kernel has two designs, chosen by the input type (``DESIGNS``): bf16
-runs on the tensor cores (mma.sync), the fp32 forward on the CUDA cores'
-fp32 FMAs from register tiles, which keep fp32 exact to its rounding, and
-the fp32 backward on scalar kernels. Both forwards and the bf16 backward
-stream their tiles with 16-byte cp.async, so every (b, t, h) row of q, k,
+runs on the tensor cores (mma.sync), fp32 on the CUDA cores' fp32 FMAs
+from register tiles, which keep fp32 exact to its rounding. Every kernel
+streams its tiles with 16-byte cp.async, so every (b, t, h) row of q, k,
 v, o and dO must start 16-byte aligned, in either type: ``misalignment``
 says why a tensor does not, and the wrapper raises on it.
 
@@ -39,9 +38,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
 _ROW_ALIGN = 16     # bytes: one cp.async of the kernels
 DESIGNS = {"bfloat16": "tensor cores (mma.sync m16n8k16, cp.async ring)",
-           "float32": "CUDA-core fp32 FMAs from register tiles, 32-key "
-                      "cp.async ring, 64- or 32-query blocks, head_dim "
-                      "16/64/128 compiled in; scalar backward"}
+           "float32": "CUDA-core fp32 FMAs from register tiles, cp.async "
+                      "ring, head_dim 16/64/128 compiled in; forward in 64- "
+                      "or 32-query blocks; backward in two launches (dQ "
+                      "with D, then dK/dV), no atomics"}
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -173,8 +173,8 @@ def flash_attention_backward(q, k, v, out, row_max, row_logsum, grad_out,
                              key_padding_mask=None, causal: bool = False):
     """dq, dk, dv of ``flash_attention`` from the forward's inputs, output
     and row statistics: one call of csrc/flash_attention_bwd.cu (two
-    launches on the current stream in bf16, three in fp32), counted in
-    ``flash_attention.bwd_launches``."""
+    launches on the current stream, dQ and D first, then dK and dV),
+    counted in ``flash_attention.bwd_launches``."""
     _check(q, k, v, key_padding_mask)
     b, tq, h, d = q.shape
     tk = k.shape[1]

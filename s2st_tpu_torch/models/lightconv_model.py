@@ -35,7 +35,7 @@ from torch import nn
 from ..kernels.conv import dynamicconv, lightconv
 from ..nn.attention import (MultiheadAttention, attend, cross_attn_precompute,
                             split_heads)
-from ..nn.core import glu, layer_norm, linear
+from ..nn.core import glu, layer_norm, linear, scaled
 from ..nn.transformer import sinusoidal_table
 from .transformer_text import TransformerTextConfig
 
@@ -131,7 +131,8 @@ def _cross_attention(attn: MultiheadAttention, x: torch.Tensor,
                      key_padding_mask: torch.Tensor) -> torch.Tensor:
     """JAX ``mha`` with precomputed keys and values (the plain path)."""
     b, tq, c = x.shape
-    q = split_heads(_lin(attn.q_proj, x) * attn.scale, attn.num_heads)
+    q = split_heads(scaled(_lin(attn.q_proj, x), attn.scale),
+                    attn.num_heads)
     out, _ = attend(q, kv["k"], kv["v"], key_padding_mask)
     return _lin(attn.out_proj, out.reshape(b, tq, c))
 
@@ -291,7 +292,8 @@ class LightConvModel(nn.Module):
     def _embed(self, weight: torch.Tensor, tokens: torch.Tensor
                ) -> torch.Tensor:
         dt = self.cfg.base.dtype
-        return F.embedding(tokens, weight.to(dt)) * weight.shape[1] ** 0.5
+        return scaled(F.embedding(tokens, weight.to(dt)),
+                      weight.shape[1] ** 0.5)
 
     # -- full sequences ------------------------------------------------------
     def encode(self, src_tokens: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -27,7 +27,7 @@ from . import hubert as hub
 from .jax_bridge import load_jax_variables
 from ..nn.attention import MultiheadAttention
 from ..nn.core import (conv1d, dropout, glu, layer_norm,
-                       lengths_to_padding_mask, linear)
+                       lengths_to_padding_mask, linear, scaled)
 from ..nn.tacotron import Postnet, Prenet
 from ..nn.transformer import (TransformerDecoderLayer,
                               TransformerEncoderLayer, positions_for_lengths,
@@ -183,7 +183,7 @@ class S2STEncoder(nn.Module):
         x, out_lengths = self.subsample(src_feats.to(cfg.dtype), src_lengths)
         t_out = x.shape[1]
         if not cfg.no_scale_embedding:
-            x = x * math.sqrt(cfg.encoder_embed_dim)
+            x = scaled(x, math.sqrt(cfg.encoder_embed_dim))
         padding_mask = lengths_to_padding_mask(out_lengths, t_out)
         x = x + positions_for_lengths(self.pos_table, out_lengths, t_out, PAD,
                                       x.dtype)
@@ -343,7 +343,7 @@ class AuxTextDecoder(nn.Module):
         cfg = self.cfg
         x = self.embed_tokens.weight.to(cfg.dtype)[prev_tokens]
         if not cfg.no_scale_embedding:
-            x = x * math.sqrt(self.dim)
+            x = scaled(x, math.sqrt(self.dim))
         is_pad = prev_tokens == PAD
         pos_idx = torch.where(is_pad, PAD,
                               torch.cumsum((~is_pad).long(), dim=1) + PAD)

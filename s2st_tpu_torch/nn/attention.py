@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from ..kernels.attention import NEG_INF, flash_attention, takes_head_dim
-from .core import dropout, linear
+from .core import dropout, linear, scaled
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -86,8 +86,9 @@ class MultiheadAttention(nn.Module):
         with 2). Returns (out, weights (B, H, Tq, Tk) fp32 or
         None)."""
         b, tq, c = query.shape
-        q = split_heads(linear(query, self.q_proj.weight, self.q_proj.bias)
-                        * self.scale, self.num_heads)
+        q = split_heads(scaled(linear(query, self.q_proj.weight,
+                                      self.q_proj.bias), self.scale),
+                        self.num_heads)
         k = split_heads(linear(key, self.k_proj.weight, self.k_proj.bias),
                         self.num_heads)
         v = split_heads(linear(value, self.v_proj.weight, self.v_proj.bias),

@@ -10,6 +10,7 @@ run in fp32 and cast back, as in JAX.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -33,6 +34,22 @@ def disable_tf32() -> None:
     Every CLI calls this before it builds a model."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def scaled(x: torch.Tensor, value: float) -> torch.Tensor:
+    """x times ``value`` rounded to x's dtype first, as JAX multiplies: by
+    ``jnp.asarray(scale, x.dtype)`` or by a weakly typed Python scalar,
+    which takes the array's dtype. PyTorch applies a Python float to a bf16
+    tensor in fp32, so sqrt(512) would be 22.627 where JAX's bf16 constant
+    is 22.625 (128 ** -0.5: 0.0883883 against 0.0883789), and a few percent
+    of the bf16 products would round the other way. In fp32 the two agree
+    already: the rounding to fp32 is PyTorch's own."""
+    return x * _rounded(float(value), x.dtype)
 
 
 def _as(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:

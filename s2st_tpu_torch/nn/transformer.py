@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from .attention import MultiheadAttention, attend, split_heads
-from .core import dropout, get_activation, layer_norm, linear
+from .core import dropout, get_activation, layer_norm, linear, scaled
 
 
 def sinusoidal_table(num_positions: int, dim: int, padding_idx: int = 1
@@ -204,7 +204,7 @@ def decoder_layer_step_fused(lp: Dict[str, torch.Tensor], x_step: torch.Tensor,
     residual = x_step
     h = norm("self_ln", x_step, True)
     q, k_new, v_new = linear(h, lp["qkv_w"], lp["qkv_b"]).chunk(3, dim=-1)
-    q = split_heads(q * scale, num_heads)
+    q = split_heads(scaled(q, scale), num_heads)
     cache["k"][:, step] = split_heads(k_new, num_heads)[:, 0].to(
         cache["k"].dtype)
     cache["v"][:, step] = split_heads(v_new, num_heads)[:, 0].to(
@@ -217,8 +217,8 @@ def decoder_layer_step_fused(lp: Dict[str, torch.Tensor], x_step: torch.Tensor,
 
     residual = x
     h = norm("cross_ln", x, True)
-    q = split_heads(linear(h, lp["cross_q_w"], lp["cross_q_b"]) * scale,
-                    num_heads)
+    q = split_heads(
+        scaled(linear(h, lp["cross_q_w"], lp["cross_q_b"]), scale), num_heads)
     out, w = attend(q, cross_kv["k"], cross_kv["v"],
                     key_padding_mask=enc_padding_mask)
     x = residual + linear(out.reshape(b, 1, c), lp["cross_out_w"],

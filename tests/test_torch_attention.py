@@ -111,6 +111,36 @@ def test_attention_gradient_matches_jax(case):
                                    atol=1e-5, rtol=RTOL, err_msg=name)
 
 
+# the four cases of CASES, and a causal row whose keys are all padded
+PATH_CASES = {**CASES, "causal_row_without_keys": (2, 9, 9, [9, 0], True)}
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("case", list(PATH_CASES))
+def test_attention_gradient_matches_jax_at_path_head_dims(case, d):
+    """The plain version's autograd, the CPU side of the backward kernel,
+    against jax.grad of ``attend`` (the function ``attend_flash``'s VJP
+    differentiates; the Pallas kernel has no CPU path) at the head dims the
+    kernels run on the paths: 16 (the aux decoders), 64 (HuBERT), 128 (the
+    encoder and decoder), 4 heads, with padded keys, causal rows and rows
+    without a valid key. atol 1e-5, rtol 1e-5 (fp32, summation order)."""
+    import jax
+    b, tq, tk, lengths, causal = PATH_CASES[case]
+    q, k, v, kpm = attention_inputs(b, tq, tk, lengths, seed=d, h=4, d=d)
+    g = np.random.RandomState(d + 1).randn(*q.shape).astype(np.float32)
+
+    def loss(q_, k_, v_):
+        return jnp.sum(_jax_attend(q_, k_, v_, kpm, causal)[0] * g)
+
+    j_grads = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    p_in = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    ka.flash_attention(*p_in, torch.from_numpy(kpm),
+                       causal=causal).backward(torch.from_numpy(g))
+    for name, p_x, j_g in zip("qkv", p_in, j_grads):
+        np.testing.assert_allclose(p_x.grad.numpy(), np.asarray(j_g),
+                                   atol=1e-5, rtol=RTOL, err_msg=name)
+
+
 def test_mha_probability_dropout_takes_attend():
     """With a generator and a dropout rate the call drops probabilities:
     it equals ``attend`` with the same draws, and differs from the call

@@ -29,12 +29,15 @@ reproducibility and rows that are not 16-byte aligned. With a single key,
 dq and dk are 0 in exact arithmetic, so their bound is taken from dv's
 magnitude instead (the kernel's dP - D is then fp32 rounding).
 
-The fp32 forward (CUDA-core FMAs; blocks of 64 queries, 32-key streamed
-tiles, head_dim 16, 64 or 128 compiled in) is held the same way at fp32's
+The fp32 kernels (CUDA-core FMAs; blocks of 32 or 64 resident rows,
+32-row streamed tiles, 16-row ones in the backward on larger grids,
+head_dim 16, 64 or 128 compiled in; the backward in two launches, dQ
+then dK/dV) are held the same way at fp32's
 tolerances: every head_dim from 8 to 128 in steps of 8, T on both sides
-of its tiles, cross-attention, the key masks that decide which tiles it
-skips, B*H up to 400, its row statistics against the plain version's
-row max and log-sum-exp, and the fp32 backward run on those statistics.
+of their tiles, cross-attention, the key masks that decide which tiles
+they skip, B*H up to 400, the forward's row statistics against the plain
+version's row max and log-sum-exp, the backward run on those statistics,
+and the backward's run-to-run reproducibility.
 """
 
 import numpy as np
@@ -100,6 +103,17 @@ def test_row_without_keys_gradient():
         np.broadcast_to(g[1].numpy().sum(0) / q.shape[1], v.grad[1].shape),
         atol=1e-6, rtol=1e-5)
     assert torch.equal(k.grad[0][kpm[0]], torch.zeros_like(k.grad[0][kpm[0]]))
+
+
+def test_designs_name_the_two_launch_fp32_backward():
+    """The fp32 backward is the register-tiled two-launch design; the
+    scalar kernels it replaced are gone, and ``DESIGNS`` (which
+    chip_smoke.py prints beside each kernel's times) no longer names
+    them."""
+    fp32 = ka.DESIGNS["float32"]
+    assert "scalar" not in fp32
+    assert "register tiles" in fp32 and "two launches" in fp32
+    assert "tensor cores" in ka.DESIGNS["bfloat16"]
 
 
 def test_wrapper_raises_off_cpu_without_cuda():
@@ -514,17 +528,43 @@ def test_fp32_larger_grids_on_card(cuda_device, b, h, d, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h", [2, 64])
 @pytest.mark.parametrize("d", [16, 64, 128])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("pattern", ["key0_padded", "length0",
                                      "tail_tiles_padded"])
-def test_fp32_key_masks_on_card(cuda_device, pattern, causal, d):
-    """The masks that decide which tiles the fp32 forward may skip: a
+def test_fp32_key_masks_on_card(cuda_device, pattern, causal, d, h):
+    """The masks that decide which tiles the fp32 kernels may skip: a
     causal row whose key 0 is padded and a row without a valid key skip
     nothing; padded tail tiles of a row with valid keys are skipped,
-    exactly."""
+    exactly. With 64 heads the backward streams 16-row tiles, with 2
+    32-row ones."""
     _fp32_case_on_card(cuda_device, 2, 257, 257, _mask(pattern, 257),
-                       causal, d, seed=d + len(pattern))
+                       causal, d, seed=d + len(pattern), h=h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [8, 32])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_fp32_backward_is_bit_reproducible_on_card(cuda_device, d, b):
+    """No float atomics in fp32 either: D_i and every gradient are summed
+    in a fixed order, so calls on the same inputs agree bit for bit, and
+    each is two launches counted as one call (B=8 streams 32-row tiles,
+    B=32 16-row ones)."""
+    t = 250
+    q, k, v, kpm = _on_card(attention_inputs(b, t, t, [t - (150 * i) // b
+                                                        for i in range(b)],
+                                             seed=10, h=4, d=d),
+                            cuda_device, torch.float32)
+    g = torch.randn(q.shape, device=cuda_device)
+    out, m, lse = ka.flash_attention_forward(q, k, v, kpm, stats=True)
+    before = ka.flash_attention.bwd_launches
+    first = ka.flash_attention_backward(q, k, v, out, m, lse, g, kpm)
+    for _ in range(3):
+        again = ka.flash_attention_backward(q, k, v, out, m, lse, g, kpm)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+    assert ka.flash_attention.bwd_launches == before + 4
 
 
 # The module's route: head dims outside the kernels' contract take attend.

@@ -8,7 +8,8 @@
   same initial phases, drawn with ``jax.random.uniform`` as ops/dsp.py
   does (:262-263).
 - The port CLI on a tiny corpus with a checkpoint the JAX trainer wrote:
-  its dumped features match JAX ``generate_features``; its WAVs are PCM16.
+  its dumped features match JAX ``generate_features``; its WAVs are PCM16;
+  with JAX's pad rows in a batch, its features match JAX's CLI's.
 
 Tolerance: atol 1e-5, rtol 1e-5 for features (fp32 on both sides; the AR
 loop feeds each frame back, which keeps errors at the 1e-6 level over these
@@ -271,6 +272,63 @@ def test_cli_matches_jax_generate_features(setup, cli_setup, tmp_path):
     assert _run_cli(corpus, ckpt, tmp_path, "--max-iter", str(MAX_ITER),
                     "--eos-prob-threshold", str(thr)) == 0
     _check_dumps(tmp_path, ids, j)
+
+
+def test_cli_decodes_jax_pad_rows(setup, cli_setup, tmp_path):
+    """JAX's generate_waveform collates the test split's 4 utterances into
+    snap_len(4, 8) = 8 rows, 4 of them of length 0, and its decode loop
+    runs until those finish too; the postnet reads two steps past each
+    row's end. With weights (seed 45) and a threshold under which the real
+    rows stop at different steps and the pad rows never stop, the last
+    real row's final frames depend on the pad rows: the port's CLI, which
+    decodes the same pad rows, serves every real row's features as JAX's
+    CLI does (atol 1e-5 + rtol 1e-5, fp32)."""
+    from s2st_tpu.cli import generate_waveform as jgw
+    from s2st_tpu.data.dictionary import Dictionary
+    from s2st_tpu.options import get_training_parser
+    from s2st_tpu.train import checkpoint as jckpt
+    from s2st_tpu.train.optim import adam
+    from s2st_tpu.train.trainer import create_train_state
+    from s2st_tpu_torch.cli.generate_waveform import with_pad_rows
+    cfg, _, _ = setup
+    corpus, _, batch, ids, _ = cli_setup
+    cfg = cfg.replace(**{f"{side}_vocab_size": len(Dictionary.load(
+        str(corpus / f"{side}_vocab.txt"))) for side in ("src", "tgt")})
+    model = S2STTransformer(port_cfg(cfg)).init_weights(seed=45).eval()
+    n = len(ids)
+    src, lens = with_pad_rows(t(batch["src_speech"]),
+                              t(batch["src_speech_lens"]).long())
+    assert src.shape[0] == 8 and not lens[n:].any()
+    free = psg.generate_features(model, psg.GenerationConfig(
+        max_iter=MAX_ITER, eos_prob_threshold=1.5,
+        prenet_dropout_at_inference=False), src, lens)
+    eos = free["eos_prob"].numpy()[:, ::cfg.n_frames_per_step]
+    real, pad = eos[:n].max(1).min(), eos[n:].max()
+    assert real > pad + 0.05      # every real row stops, no pad row does
+    thr = float((real + pad) / 2)
+    stops = [int(np.argmax(row > thr)) + 1 for row in eos[:n]]
+    assert len(set(stops)) > 1 and max(stops) < MAX_ITER, stops
+    echo = vars(get_training_parser().parse_args(
+        [str(corpus)] + TINY_FLAGS))
+    echo = {k: x for k, x in echo.items()
+            if isinstance(x, (bool, int, float, str, type(None)))}
+    ckpt = str(tmp_path / "checkpoint_last.npz")
+    jckpt.save_checkpoint_file(ckpt, create_train_state(
+        jax_variables(model), adam()), {"args": echo})
+    flags = ["--max-iter", str(MAX_ITER), "--eos-prob-threshold", str(thr)]
+    assert jgw.main([str(corpus), "--config-yaml", "config.yaml",
+                     "--gen-subset", "test", "--path", ckpt,
+                     "--results-path", str(tmp_path / "jax"),
+                     "--spec-bwd-max-iter", "2", "--dump-features",
+                     *flags]) == 0
+    assert _run_cli(corpus, ckpt, tmp_path / "port", *flags) == 0
+    for uid, stop in zip(ids, stops):
+        want = np.load(tmp_path / "jax" / "feat" / f"{uid}_pred.npy")
+        got = np.load(tmp_path / "port" / "feat" / f"{uid}_pred.npy")
+        assert got.shape == want.shape == (stop * cfg.n_frames_per_step,
+                                           cfg.output_frame_dim), uid
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL,
+                                   err_msg=uid)
 
 
 def test_cli_teacher_forcing_matches_jax(setup, cli_setup, tmp_path):

@@ -240,6 +240,33 @@ def test_attention_tiles_forces_each_fp32_block_shape(r, k, tmp_path):
     assert keys(strip(forced)) == keys(strip(original))
 
 
+@pytest.mark.parametrize("shape", [(64, 16, 32, 16, 32),
+                                   (32, 16, 64, 32, 16)])
+def test_attention_tiles_forces_each_fp32_backward_block_shape(shape,
+                                                               tmp_path):
+    """A forced fp32-backward copy launches dQ and dK/dV in the given
+    block shapes and tile height at every grid, and leaves the rest of the
+    source as it is."""
+    rq, gq, rk, gk, t = shape
+    sys.path.insert(0, str(REPO))
+    try:
+        import attention_tiles
+    finally:
+        sys.path.remove(str(REPO))
+    root = attention_tiles.fp32_bwd_copy(*shape, under=tmp_path)
+    forced = (root / "s2st_tpu_torch" / "csrc" /
+              "flash_attention_bwd.cu").read_text()
+    body = forced.split("cudaError_t launch_shapes(")[1].split("\n}\n")[0]
+    assert "rows_for" not in body and "short_tiles" not in body
+    assert f"launch_dq_fp32<Dp, {rq}, {gq}, {t}>" in body
+    assert f"launch_dkdv_fp32<Dp, {rk}, {gk}, {t}>" in body
+    original = (REPO / "s2st_tpu_torch" / "csrc" /
+                "flash_attention_bwd.cu").read_text()
+    strip = functools.partial(re.sub, attention_tiles._FP32_BWD_SHAPES,
+                              r"\1\3", flags=re.S)
+    assert strip(forced) == strip(original)
+
+
 def test_chip_smoke_conv_timing_fails_without_card():
     """chip_smoke.py --conv-timing, the conv kernels' timing across trees,
     exits non-zero with no result line here, with or without trees."""
@@ -249,6 +276,19 @@ def test_chip_smoke_conv_timing_fails_without_card():
         res = _run([str(REPO / "chip_smoke.py"), "--conv-timing", *extra])
         assert res.returncode != 0
         assert "conv_timing {" not in res.stdout
+
+
+def test_chip_smoke_fp32_update_timing_fails_without_card():
+    """chip_smoke.py --fp32-update-timing, the fp32 update's timing across
+    trees, exits non-zero with no result line here, with or without
+    trees."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    for extra in ([], [str(REPO)]):
+        res = _run([str(REPO / "chip_smoke.py"), "--fp32-update-timing",
+                    *extra])
+        assert res.returncode != 0
+        assert "fp32_update {" not in res.stdout
 
 
 def test_conv_batch_sums_follow_the_path_kernel_sizes():
