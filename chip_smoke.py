@@ -164,9 +164,45 @@ library's SASS, and the attention libraries must hold some.
    idle share of one served batch's frontend, encoder (device ms by graph
    replay) and 30-step decode (torch.profiler's sum); a device time past
    the wall fails the phase.
+17. Stages 8-9 at the recipe ASR's full width: a seeded random
+   checkpoint of wav2vec2-large-960h-lv60-self's width and files in the
+   hub's layout (config.json, the processor's and tokenizer's files,
+   pytorch_model.bin with pos_conv's weight_g/weight_v; 7 convs of 512
+   with bias and LayerNorm, 24 stable-LN layers of 1024-d, 16 heads, FFN
+   4096, pos_conv 128/16, 32 tokens; 1.26 GB); recipes/run_baseline_torch.sh
+   --stage 8 --stop-stage 9 over 16 WAVs at 16 kHz (phase 2's 4 stage-7
+   WAVs and 12 seeded ones of 2.5-14.3 s), an audio manifest in another
+   order than the files' and 4 seeded reference files. Each ``python`` of
+   the recipe runs through this script (``--counted``, a ``python`` on its
+   PATH), which sets the kernel counts to 0 before the module and reads
+   them after: stage 8 must launch the attention kernel exactly 24 times
+   an utterance (fp32, D=64, H=16, B=1), each distinct call held against
+   the plain version (fp32 atol/rtol 1e-5); decode.txt must have a line a
+   manifest row in the manifest's order, and stages 8 and 9 a finite BLEU
+   line each. Then, in this process, the transcriber's wall ms an
+   utterance, audio seconds a second, the device ms of one forward of
+   the longest utterance by graph replay, the idle share of the 16
+   (torch.profiler) and peak memory; the kernel at that shape (B=1, H=16,
+   D=64, fp32, no mask) beside the plain version, SDPA and the bound; and
+   a small wav2vec2 of head_dim 64 in each layout on the card against the
+   CPU in fp32 (atol 1e-4, equal argmax ids, 2 launches).
+18. The end-to-end gate (s2st_tpu_torch.tools.convergence_gate) in its
+   --fast mode under --fp16 on the card: the learnable corpus, 12 epochs
+   of JAX's s2st vertical through the train CLI, validated with
+   --eval-inference every 4; its gates must pass (one ``convergence``
+   line), and the first kernel call of each distinct shape of its
+   training and validation (bf16, D=16) is held against the plain
+   version.
 
 Prints the card's name and power limit, one JSON line of kernel
 measurements, and, last, {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --convergence
+
+runs no phase but the full end-to-end gate on the card, in fp32 and under
+--fp16, prints one ``convergence`` JSON line each (with the card's name
+and power limit) and merges both into
+chiprun_out/CONVERGENCE_TORCH.card.json; exits 1 if either fails.
 
     python3 chip_smoke.py --fp32-update-timing [DIR ...]
 
@@ -192,6 +228,8 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import math
+import os
 import re
 import shutil
 import subprocess
@@ -338,7 +376,8 @@ def attention_bound_ms(q, k, kpm, causal, backward=False) -> tuple:
     b, tq, h, d = q.shape
     tk = k.shape[1]
     size = q.element_size()
-    valid = ~kpm.cpu().numpy()
+    valid = np.ones((b, tk), bool) if kpm is None else ~kpm.cpu().numpy()
+    mask_bytes = 0 if kpm is None else kpm.numel()
     seen = np.cumsum(valid, axis=1)          # valid keys 0..j of each row
     pairs = kv_rows = 0
     for bi in range(b):
@@ -352,9 +391,9 @@ def attention_bound_ms(q, k, kpm, causal, backward=False) -> tuple:
     kv_bytes = 2 * kv_rows * h * d * size
     if backward:
         nbytes = (4 * q.numel() + 2 * k.numel()) * size + kv_bytes \
-            + kpm.numel() + 2 * 4 * b * h * tq
+            + mask_bytes + 2 * 4 * b * h * tq
     else:
-        nbytes = 2 * q.numel() * size + kv_bytes + kpm.numel()
+        nbytes = 2 * q.numel() * size + kv_bytes + mask_bytes
     ops = (10.0 if backward else 4.0) * h * d * pairs
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[q.dtype]
@@ -2828,6 +2867,446 @@ def hubert_phase(card: str) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# stage 8's ASR: wav2vec2-large-960h-lv60-self's width and files
+# (transformers' Wav2Vec2Config of the hub model), with random weights
+W2V2_LARGE_CONFIG = {
+    "architectures": ["Wav2Vec2ForCTC"], "model_type": "wav2vec2",
+    "conv_dim": [512] * 7, "conv_kernel": [10, 3, 3, 3, 3, 2, 2],
+    "conv_stride": [5, 2, 2, 2, 2, 2, 2], "conv_bias": True,
+    "feat_extract_norm": "layer", "feat_extract_activation": "gelu",
+    "do_stable_layer_norm": True, "hidden_size": 1024,
+    "num_hidden_layers": 24, "num_attention_heads": 16,
+    "intermediate_size": 4096, "hidden_act": "gelu", "layer_norm_eps": 1e-5,
+    "num_conv_pos_embeddings": 128, "num_conv_pos_embedding_groups": 16,
+    "vocab_size": 32, "pad_token_id": 0, "bos_token_id": 1,
+    "eos_token_id": 2, "mask_time_prob": 0.05, "mask_feature_prob": 0.0,
+    "add_adapter": False}
+W2V2_VOCAB = ("<pad> <s> </s> <unk> | E T A O N I H S R D L U M W C F G Y "
+              "P B V K ' X J Q Z").split()
+ASR_LAYERS, ASR_HEADS, ASR_HEAD_DIM = 24, 16, 64
+# 12 seeded utterances of 2-15 s beside the 4 of stage 7 (9.58 s each)
+ASR_SECONDS = tuple(float(x) for x in
+                    np.random.RandomState(17).uniform(2.0, 15.0, 12))
+# the card vs the CPU on a small wav2vec2: fp32 through 2 layers
+TOL_ASR_AGREEMENT = 1e-4
+
+
+def random_wav2vec2_state(cfg, seed: int) -> dict:
+    """A seeded random state_dict (the port's names, fp32) of a wav2vec2 of
+    config ``cfg``: weights normal over sqrt(fan_in), norms' scales near 1,
+    biases near 0."""
+    from s2st_tpu_torch.models.wav2vec2_ctc import Wav2Vec2ForCTC
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in
+                  Wav2Vec2ForCTC(cfg).state_dict().items()}
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for name, shape in shapes.items():
+        noise = torch.randn(shape, generator=g)
+        if name.endswith("masked_spec_embed"):
+            sd[name] = torch.rand(shape, generator=g)
+        elif name.endswith("bias"):
+            sd[name] = 0.02 * noise
+        elif "layer_norm" in name:
+            sd[name] = 1.0 + 0.05 * noise
+        else:
+            sd[name] = noise * math.prod(shape[1:]) ** -0.5
+    return sd
+
+
+def write_wav2vec2_checkpoint(root: Path, config: dict, seed: int) -> None:
+    """An HF model directory as the hub holds wav2vec2-large-960h-lv60-self:
+    config.json, the processor's and tokenizer's files (lv60-self's
+    vocabulary and settings) and pytorch_model.bin (torch.save) with
+    pos_conv as weight_g/weight_v, of seeded random weights."""
+    from s2st_tpu_torch.models.wav2vec2_ctc import Wav2Vec2CTCConfig, hf_key
+    root.mkdir(parents=True)
+    files = {
+        "config.json": config,
+        "preprocessor_config.json": {
+            "do_normalize": True,
+            "feature_extractor_type": "Wav2Vec2FeatureExtractor",
+            "feature_size": 1, "padding_side": "right",
+            "padding_value": 0.0, "return_attention_mask": True,
+            "sampling_rate": 16000},
+        "tokenizer_config.json": {
+            "unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>",
+            "pad_token": "<pad>", "do_lower_case": False,
+            "word_delimiter_token": "|"},
+        "special_tokens_map.json": {
+            "bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>",
+            "pad_token": "<pad>"},
+        "vocab.json": {t: i for i, t in enumerate(W2V2_VOCAB)}}
+    for name, obj in files.items():
+        (root / name).write_text(json.dumps(obj, indent=2))
+    sd = random_wav2vec2_state(Wav2Vec2CTCConfig.from_hf(config), seed)
+    pos = "wav2vec2.encoder.pos_conv_embed.conv."
+    v = sd.pop(pos + "weight")
+    sd[pos + "weight_g"] = v.pow(2).sum(dim=(0, 1), keepdim=True).sqrt()
+    sd[pos + "weight_v"] = v
+    torch.save({hf_key(k): t for k, t in sd.items()},
+               str(root / "pytorch_model.bin"))
+
+
+def asr_kernel_case(ka, t: int, card: str) -> dict:
+    """The kernel at stage 8's shape: one utterance (B=1) of T' frames,
+    H=16, D=64, fp32, no key padding (the transcriber passes no mask),
+    against the plain version, timed by graph replay beside SDPA (a
+    yardstick only) and the bound."""
+    q, k, v, _ = attention_inputs(1, t, t, [t], torch.float32, seed=t,
+                                  d=ASR_HEAD_DIM, h=ASR_HEADS)
+    out = ka.flash_attention(q, k, v, None)
+    ref = ka.flash_attention_reference(q, k, v, None)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    atol, rtol = TOL_FP32
+    ok = bool(torch.isfinite(out).all()) and \
+        bool((err <= atol + rtol * ref.abs()).all())
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    rec = {"case": "asr_stage8_D64_fp32", "dtype": "float32", "B": 1,
+           "Tq": t, "Tk": t, "H": ASR_HEADS, "D": ASR_HEAD_DIM,
+           "causal": False, "max_abs_err": float(err.max()),
+           "tolerance": f"atol {atol} + rtol {rtol}",
+           "kernel_graph_ms": graph_ms(
+               lambda: ka.flash_attention(q, k, v, None)),
+           "plain_graph_ms": graph_ms(
+               lambda: ka.flash_attention_reference(q, k, v, None)),
+           "library_graph_ms": graph_ms(
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qt, kt, vt, scale=1.0))}
+    rec["bound_ms"], rec["bound_by"] = attention_bound_ms(q, k, None, False)
+    rec["card"] = card
+    print("kernel_case " + json.dumps(rec), flush=True)
+    print("shape " + json.dumps({
+        "name": rec["case"], "design": ka.DESIGNS["float32"], "B": 1,
+        "T": t, "H": ASR_HEADS, "D": ASR_HEAD_DIM,
+        "ms": rec["kernel_graph_ms"], "plain_ms": rec["plain_graph_ms"],
+        "library_ms": rec["library_graph_ms"], "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"], "max_abs_err": rec["max_abs_err"],
+        "card": card}), flush=True)
+    if not ok:
+        raise AssertionError(f"asr kernel case T'={t}: disagrees with the "
+                             f"plain version, max abs err "
+                             f"{rec['max_abs_err']}")
+    return rec
+
+
+def asr_agreement_phase(card: str) -> None:
+    """17(b): a small wav2vec2 of head_dim 64 (3 convs of 32 channels, 2
+    layers of 128-d with 2 heads), one of each layout, on the card (the
+    kernel inside) against the CPU (the plain attention), fp32, on 1.2 s:
+    logits within TOL_ASR_AGREEMENT and equal argmax ids."""
+    from s2st_tpu_torch.kernels import attention as ka
+    from s2st_tpu_torch.models.wav2vec2_ctc import (Wav2Vec2CTCConfig,
+                                                    Wav2Vec2ForCTC)
+    wave = torch.from_numpy(np.random.RandomState(6).randn(
+        1, 19200).astype(np.float32))
+    for layout in ("group", "layer"):
+        cfg = Wav2Vec2CTCConfig(
+            conv_dim=(32, 32, 32), conv_kernel=(10, 3, 2),
+            conv_stride=(5, 2, 2), conv_bias=layout == "layer",
+            feat_extract_norm=layout, hidden_size=128, num_hidden_layers=2,
+            num_attention_heads=2, intermediate_size=256,
+            num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4,
+            do_stable_layer_norm=layout == "layer")
+        model = Wav2Vec2ForCTC(cfg)
+        model.load_state_dict(random_wav2vec2_state(cfg, seed=7),
+                              strict=True)
+        with torch.inference_mode():
+            cpu = model.eval()(wave)
+            model.to("cuda")
+            ka.flash_attention.launches = 0
+            gpu = model(wave.cuda())
+            torch.cuda.synchronize()
+        launched = ka.flash_attention.launches
+        err = float((gpu.cpu() - cpu).abs().max())
+        same_ids = torch.equal(gpu.argmax(-1).cpu(), cpu.argmax(-1))
+        print(f"asr agreement ({layout}): card vs CPU wav2vec2 logits (fp32, "
+              f"head_dim 64, {cpu.shape[1]} frames) max abs err {err:.3e}, "
+              f"tolerance {TOL_ASR_AGREEMENT}; argmax ids equal {same_ids}; "
+              f"kernel launches {launched} ({card})", flush=True)
+        if not (err <= TOL_ASR_AGREEMENT and same_ids and launched == 2):
+            raise AssertionError(f"asr agreement ({layout}): err {err}, ids "
+                                 f"equal {same_ids}, {launched} launches")
+
+
+def counted_module(out: Path, args: list) -> int:
+    """``python -m MODULE ARGS`` in this process, with every kernel count
+    set to 0 just before and read just after, and each distinct attention
+    kernel call held against the plain version; appends one JSON record to
+    ``out`` and returns the module's exit code. Phase 17's recipe run
+    reaches it through a ``python`` on its PATH."""
+    import runpy
+    sys.path.insert(0, str(REPO))
+    from s2st_tpu_torch.kernels import attention as ka
+    if args[:1] != ["-m"] or len(args) < 2:
+        raise SystemExit(f"--counted takes -m MODULE [ARGS], got {args}")
+    module, rest = args[1], args[2:]
+    ka.flash_attention.launches = ka.flash_attention.bwd_launches = 0
+    code = 0
+    with RecordAttention() as rec:
+        sys.argv = [module, *rest]
+        try:
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            code = e.code if isinstance(e.code, int) else int(
+                e.code is not None)
+        torch.cuda.synchronize()
+        launches = ka.flash_attention.launches
+        bwd = ka.flash_attention.bwd_launches
+    err = hold_path_attention(rec.calls, module, gpu_identity()) \
+        if rec.calls else None
+    with open(out, "a") as f:
+        f.write(json.dumps({
+            "module": module, "rc": code, "launches": launches,
+            "bwd_launches": bwd, "distinct_calls": len(rec.calls),
+            "path_max_abs_err": err}) + "\n")
+    return code
+
+
+def write_asr_inputs(root: Path, stage7_wavs: list, seed: int) -> dict:
+    """The recipe's stage-8/9 inputs: ``<root>/save/dump_wav_tst/wav`` with
+    stage 7's WAVs and 12 seeded ones of ASR_SECONDS (PCM16, 16 kHz, noise),
+    ``<root>/manifests/tst.audio_phone.tsv`` (id, tgt_text) in an order
+    that is not the files', and 4 seeded reference files under
+    ``<root>/refs``. Returns the paths and the manifest's ids."""
+    from s2st_tpu_torch.data.audio_utils import write_wav
+    r = np.random.RandomState(seed)
+    wav_dir = root / "save" / "dump_wav_tst" / "wav"
+    wav_dir.mkdir(parents=True)
+    ids = []
+    for path in stage7_wavs:
+        shutil.copy(path, wav_dir / path.name)
+        ids.append(path.name[:-len("_pred.wav")])
+    for j, sec in enumerate(ASR_SECONDS):
+        n = int(round(sec * 16000))
+        write_wav(str(wav_dir / f"asr{j}_pred.wav"),
+                  np.clip(r.randn(n) * 0.1, -1.0, 1.0), 16000)
+        ids.insert(2 * j % (len(ids) + 1), f"asr{j}")
+    words = ["the", "a", "house", "is", "green", "we", "go", "to", "it's",
+             "there", "Hello", "world", "yes", "no", "maybe", "today"]
+
+    def sentence():
+        return " ".join(r.choice(words, size=r.randint(3, 12)))
+
+    (root / "manifests").mkdir()
+    (root / "manifests" / "tst.audio_phone.tsv").write_text(
+        "id\ttgt_text\n" + "".join(f"{u}\t{sentence()}\n" for u in ids))
+    (root / "refs").mkdir()
+    for k in range(4):
+        (root / "refs" / f"en.{k}.norm.lc.rm").write_text(
+            "".join(sentence().lower() + "\n" for _ in ids))
+    return {"ids": ids, "wav_dir": wav_dir, "refs": root / "refs",
+            "dump": root / "save" / "dump_wav_tst"}
+
+
+def run_asr_recipe(work: Path, model_dir: Path, inputs: dict) -> tuple:
+    """recipes/run_baseline_torch.sh --stage 8 --stop-stage 9 on
+    ``write_asr_inputs``' files, each ``python`` of it through
+    ``counted_module`` (a ``python`` on its PATH). Checks that stages 8 and
+    9 print one finite BLEU line each and that decode.txt has a line a
+    manifest row in the manifest's order. Returns (the two score lines,
+    stage 8's and stage 9's count records)."""
+    shim = work / "bin"
+    shim.mkdir()
+    counts = work / "counts.jsonl"
+    (shim / "python").write_text(
+        f'#!/bin/sh\nexec "{sys.executable}" "{REPO / "chip_smoke.py"}" '
+        f'--counted "{counts}" "$@"\n')
+    (shim / "python").chmod(0o755)
+    env = dict(os.environ, PATH=f"{shim}:{os.environ['PATH']}",
+               PYTHONPATH=str(REPO),
+               AUDIO_MANIFEST_ROOT=str(work / "manifests"),
+               FEATURE_MANIFEST_ROOT=str(work / "features"),
+               SAVE_DIR=str(work / "save"))
+    res = subprocess.run(
+        ["bash", str(REPO / "recipes" / "run_baseline_torch.sh"),
+         "--stage", "8", "--stop-stage", "9",
+         "--asr-model-path", str(model_dir),
+         "--multi-ref-dir", str(inputs["refs"])],
+        env=env, capture_output=True, text=True, timeout=900)
+    for line in res.stdout.splitlines():
+        if line.startswith(("BLEU", "path_case", "s2st_tpu_torch.cli")) \
+                or "scored" in line:
+            print(f"asr recipe: {line}", flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"run_baseline_torch.sh stages 8-9 returned "
+                             f"{res.returncode}:\n{res.stdout[-3000:]}\n"
+                             f"{res.stderr[-3000:]}")
+    scores = [line for line in res.stdout.splitlines()
+              if line.startswith("BLEU = ")]
+    if len(scores) != 2 or not all(
+            math.isfinite(float(s.split()[2])) for s in scores):
+        raise AssertionError(f"stages 8-9: score lines {scores}")
+    decoded = (inputs["dump"] / "decode.txt").read_text().splitlines()
+    if [line.split("\t")[2] for line in decoded] != inputs["ids"]:
+        raise AssertionError("stage 8: decode.txt is not one line a "
+                             "manifest row in the manifest's order")
+    stage8, stage9 = [json.loads(line) for line in
+                      counts.read_text().splitlines()]
+    return scores, stage8, stage9
+
+
+def asr_phase(card: str, stage7_wavs: list) -> dict:
+    """17: stages 8-9 through recipes/run_baseline_torch.sh on the card at
+    the recipe ASR's full width (a seeded wav2vec2-large-lv60 checkpoint
+    in the hub's layout), over the 4 WAVs stage 7 dumped in phase 2 and 12
+    seeded ones; the kernel launches 24 times an utterance, each distinct
+    call held against the plain version; then the kernel at the longest
+    utterance's shape, the card against the CPU on small models, and the
+    transcriber's ms an utterance, audio seconds a second, idle share and
+    peak memory."""
+    from s2st_tpu_torch.data.audio_utils import read_wav
+    from s2st_tpu_torch.kernels import attention as ka
+    from s2st_tpu_torch.models.wav2vec2_ctc import Transcriber
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_asr_"))
+    try:
+        t0 = time.perf_counter()
+        model_dir = work / "wav2vec2-large-960h-lv60-self"
+        write_wav2vec2_checkpoint(model_dir, W2V2_LARGE_CONFIG, seed=21)
+        size = (model_dir / "pytorch_model.bin").stat().st_size
+        print(f"asr: wrote a seeded wav2vec2-large-lv60 checkpoint, "
+              f"{size / 1e9:.2f} GB, in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        inputs = write_asr_inputs(work, stage7_wavs, seed=22)
+        ids = inputs["ids"]
+        t0 = time.perf_counter()
+        scores, stage8, stage9 = run_asr_recipe(work, model_dir, inputs)
+        recipe_s = time.perf_counter() - t0
+        want = ASR_LAYERS * len(ids)
+        if stage8["rc"] or stage8["launches"] != want or \
+                stage8["bwd_launches"] or stage9["launches"]:
+            raise AssertionError(f"stage 8 launched the kernel "
+                                 f"{stage8['launches']} times for {len(ids)} "
+                                 f"utterances (want {want}); stage 9 "
+                                 f"{stage9['launches']}")
+        print(f"asr recipe: stages 8-9 in {recipe_s:.1f} s; stage 8 "
+              f"{scores[0]}; stage 9 ({len(list(inputs['refs'].iterdir()))} "
+              f"references) {scores[1]}; kernel launches {stage8['launches']}"
+              f" for {len(ids)} utterances, {stage8['distinct_calls']} "
+              f"distinct calls held, max abs err "
+              f"{stage8['path_max_abs_err']:.3e} ({card})", flush=True)
+
+        # the transcriber in this process: ms an utterance, device ms by
+        # graph replay, idle share, peak memory
+        waves = [read_wav(str(inputs["wav_dir"] / f"{u}_pred.wav"))
+                 for u in ids]
+        audio_s = sum(len(w) / sr for w, sr in waves)
+        # the transcriber's own peak, above what earlier phases still hold
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        tr = Transcriber(str(model_dir), torch.device("cuda"))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        texts = [tr(w, sr) for w, sr in waves]          # warm-up
+        walls = []
+        ka.flash_attention.launches = 0
+        for (w, sr), text in zip(waves, texts):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if tr(w, sr) != text:
+                raise AssertionError("asr: a second transcription differs")
+            walls.append((time.perf_counter() - t0) * 1e3)
+        if ka.flash_attention.launches != want:
+            raise AssertionError(f"asr: {ka.flash_attention.launches} "
+                                 f"launches in process, want {want}")
+        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        # the device ms of each utterance's forward by graph replay (no
+        # host gap enters it; torch.profiler's sums can double events);
+        # the profiler names the top kernels only
+        device = []
+        with torch.inference_mode():
+            for w, sr in waves:
+                x = torch.from_numpy(tr.processor.features(w, sr))[None]
+                x = x.cuda()
+                device.append(graph_ms(lambda: tr.model(x), iters=1,
+                                       replays=3))
+        _, _, _, _, top = _profiled(lambda: [tr(w, sr) for w, sr in waves])
+        longest = max(range(len(waves)), key=lambda i: len(waves[i][0]))
+        w, sr = waves[longest]
+        t_long = tr.model.cfg.output_length(len(w))
+        timing = {
+            "utterances": len(waves), "audio_s": audio_s,
+            "load_s": load_s, "wall_ms_per_utt": sum(walls) / len(walls),
+            "device_ms_per_utt": sum(device) / len(device),
+            "wall_ms_longest": walls[longest],
+            "device_ms_longest": device[longest],
+            "audio_s_per_s": audio_s / (sum(walls) / 1e3),
+            "idle_share": 1 - sum(device) / sum(walls), "peak_gib": peak,
+            "longest_frames": t_long}
+        print("asr_timing " + json.dumps({**timing, "card": card}),
+              flush=True)
+        print(f"asr: {len(waves)} utterances ({audio_s:.1f} s of audio), "
+              f"{timing['wall_ms_per_utt']:.2f} wall ms and "
+              f"{timing['device_ms_per_utt']:.2f} device ms (graph replay) "
+              f"an utterance, {timing['audio_s_per_s']:.1f} s of audio a "
+              f"second, idle share {timing['idle_share']:.3f}; longest "
+              f"({len(w) / sr:.2f} s, T'={t_long}) wall "
+              f"{walls[longest]:.2f} ms, device {device[longest]:.2f} ms; "
+              f"peak {peak:.2f} GiB; load {load_s:.1f} s ({card})",
+              flush=True)
+        for key, ms, count in top[:6]:
+            print(f"profile asr:   {ms:9.3f} ms  {count:6d}x  {key[:60]}",
+                  flush=True)
+        if any(d > wl for d, wl in zip(device, walls)):
+            raise AssertionError(f"asr: a forward's device ms inside a "
+                                 f"shorter wall: {device} vs {walls}")
+        del tr
+        kernel = asr_kernel_case(ka, t_long, card)
+        asr_agreement_phase(card)
+        return {"launches": stage8["launches"],
+                "path_max_abs_err": stage8["path_max_abs_err"],
+                "kernel": kernel, "timing": timing}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def gate_phase(card: str) -> dict:
+    """18: the end-to-end gate's --fast mode under --fp16 on the card
+    (s2st_tpu_torch.tools.convergence_gate): it must pass, and each
+    distinct attention kernel call of its training and validation is held
+    against the plain version."""
+    from s2st_tpu_torch.kernels import attention as ka
+    from s2st_tpu_torch.tools import convergence_gate as cg
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gate_") as tmp:
+        ka.flash_attention.launches = ka.flash_attention.bwd_launches = 0
+        t0 = time.perf_counter()
+        with RecordAttention() as rec:
+            rc = cg.main(["--fast", "--fp16", "--device", "cuda", "--json",
+                          str(Path(tmp) / "convergence.json"), "--outdir",
+                          tmp])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fwd, bwd = ka.flash_attention.launches, ka.flash_attention.bwd_launches
+    if rc != 0 or fwd == 0:
+        raise AssertionError(f"gate --fast --fp16: rc {rc} (the gates are on "
+                             f"the convergence line above), {fwd} kernel "
+                             f"launches")
+    path_err = hold_path_attention(rec.calls, "gate_fast_bf16", card)
+    print(f"gate --fast --fp16: passed in {wall:.1f} s; attention kernel "
+          f"launches {fwd} forward, {bwd} backward ({card})", flush=True)
+    return {"launches": fwd, "bwd_launches": bwd, "wall_s": wall,
+            "path_max_abs_err": path_err}
+
+
+def convergence_runs() -> int:
+    """``--convergence``: the full gate in fp32 and under --fp16 on the
+    card; each prints its ``convergence`` JSON line, with the card's name
+    and power limit, and is merged into
+    chiprun_out/CONVERGENCE_TORCH.card.json."""
+    sys.path.insert(0, str(REPO))
+    from s2st_tpu_torch.tools import convergence_gate as cg
+    out = REPO / "chiprun_out" / "CONVERGENCE_TORCH.card.json"
+    out.parent.mkdir(exist_ok=True)
+    ok = True
+    for extra in ([], ["--fp16"]):
+        with tempfile.TemporaryDirectory(prefix="convergence_") as tmp:
+            ok = cg.main(["--device", "cuda", "--json", str(out),
+                          "--outdir", tmp, *extra]) == 0 and ok
+    return 0 if ok else 1
+
+
 def attention_shapes(fwd: dict, bwd: dict) -> dict:
     """The attention kernels' graph-replay times at each main shape of
     phases 1 and 5 beside SDPA's, the plain version's and the bound."""
@@ -2846,6 +3325,9 @@ def attention_shapes(fwd: dict, bwd: dict) -> dict:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--counted"]:         # phase 17's python, on its PATH
+        return counted_module(Path(argv[1]), argv[2:])
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--conv-timing", nargs="*", type=Path, metavar="DIR",
                         help="only time the conv kernels of these trees "
@@ -2858,6 +3340,9 @@ def main(argv=None) -> int:
                              "these trees (this checkout without a DIR)")
     parser.add_argument("--fp32-update-tree", nargs=2, type=Path,
                         help=argparse.SUPPRESS)   # one tree, this process
+    parser.add_argument("--convergence", action="store_true",
+                        help="only run the full end-to-end gate on the card, "
+                             "in fp32 and under --fp16")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2877,6 +3362,8 @@ def main(argv=None) -> int:
         return fp32_update_timing([p.resolve()
                                    for p in args.fp32_update_timing]
                                   or [REPO])
+    if args.convergence:
+        return convergence_runs()
     sys.path.insert(0, str(REPO))
     import s2st_tpu_torch  # noqa: F401  (fails outside the repository)
     from s2st_tpu_torch.kernels import attention as ka
@@ -2900,8 +3387,12 @@ def main(argv=None) -> int:
     fwd = kernel_phase(card, main_lengths, train_lengths)
     serving = fwd["serving_encoder_self"]
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    # stage 7's WAVs, which stage 8 transcribes in phase 17
+    stage7 = Path(tempfile.mkdtemp(prefix="chip_smoke_stage7_"))
     try:
         served = serve_phase(work, card)
+        stage7_wavs = [Path(shutil.copy(p, stage7)) for p in
+                       sorted((work / "out" / "wav").glob("*_pred.wav"))]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     agreement_phase(card)
@@ -2928,9 +3419,15 @@ def main(argv=None) -> int:
     hubert_kernel = hubert_kernel_phase(card)
     hubert_agreement_phase(card)
     hubert = hubert_phase(card)
+    try:
+        asr = asr_phase(card, stage7_wavs)
+    finally:
+        shutil.rmtree(stage7, ignore_errors=True)
+    gate = gate_phase(card)
 
     a = trained["a"]
-    shapes = attention_shapes({**fwd, **hubert_kernel}, bwds)
+    shapes = attention_shapes({**fwd, **hubert_kernel,
+                               "asr_stage8_D64_fp32": asr["kernel"]}, bwds)
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -2948,12 +3445,16 @@ def main(argv=None) -> int:
             "train_with_validation": validation["fwd_launches"],
             "train_hubert": hubert["train_launches"],
             "serve_hubert": hubert["serve_launches"],
-            "generate_for_s2st_hubert": hubert["s2t_launches"]},
+            "generate_for_s2st_hubert": hubert["s2t_launches"],
+            "stage8_asr": asr["launches"],
+            "gate_fast_bf16": gate["launches"]},
         "max_abs_err": serving["max_abs_err"],
         "path_max_abs_err": {
             "generate_for_s2st": s2t["path_max_abs_err"],
             "train_with_validation": validation["path_max_abs_err"],
-            "hubert": hubert["path_max_abs_err"]},
+            "hubert": hubert["path_max_abs_err"],
+            "stage8_asr": asr["path_max_abs_err"],
+            "gate_fast_bf16": gate["path_max_abs_err"]},
         "ms": serving["kernel_graph_ms"],
         "plain_ms": serving["plain_graph_ms"],
         "bound_ms": serving["bound_ms"],
@@ -2971,7 +3472,8 @@ def main(argv=None) -> int:
             "train": a["bwd_launches"],
             "train_runtime": runtime["bwd_launches"],
             "train_fp32": runtime["ms_per_update"]["fp32"]["bwd_launches"],
-            "train_hubert": hubert["train_bwd_launches"]},
+            "train_hubert": hubert["train_bwd_launches"],
+            "gate_fast_bf16": gate["bwd_launches"]},
         "launches_per_update": a["bwd_launches"] / a["updates"],
         "max_abs_err": bwd["max_abs_err"],
         "ms": bwd["bwd_graph_ms"],

@@ -8,8 +8,10 @@ call computes in sacrebleu 2.6.0, and never imports the package:
 
 - ``Tokenizer13a`` (``tokenizers/tokenizer_13a.py`` and
   ``tokenizer_re.py``): mteval-v13a's tokenization;
-- the statistics of ``metrics/bleu.py`` for one reference a hypothesis:
-  clipped n-gram matches and totals up to order 4, the lengths;
+- the statistics of ``metrics/bleu.py`` over one or more reference
+  streams: each n-gram clipped at its largest count in any reference,
+  totals up to order 4, the hypothesis length and the reference length
+  closest to it (the shorter on a tie), after ``lowercase`` where asked;
 - ``BLEU.compute_bleu`` with ``exp`` smoothing and without effective
   order, and ``BLEUScore``'s line ``BLEU = 12.34 a/b/c/d (BP = ...
   ratio = ... hyp_len = ... ref_len = ...)``.
@@ -119,10 +121,20 @@ def _ngrams(line: str) -> Tuple[Counter, int]:
     return Counter(grams), len(tokens)
 
 
-def _segment_stats(hyp: str, ref: str) -> List[int]:
-    """[hyp_len, ref_len, correct 1..4, total 1..4] of one tokenized pair."""
-    ref_grams, ref_len = _ngrams(ref)
+def _segment_stats(hyp: str, refs: Sequence[str]) -> List[int]:
+    """[hyp_len, ref_len, correct 1..4, total 1..4] of one tokenized
+    hypothesis against its references (``_extract_reference_info`` and
+    ``_compute_segment_statistics``)."""
+    ref_grams: Counter = Counter()
+    ref_lens = []
+    for ref in refs:
+        grams, n = _ngrams(ref)
+        ref_lens.append(n)
+        for gram, count in grams.items():
+            ref_grams[gram] = max(ref_grams[gram], count)
     hyp_grams, hyp_len = _ngrams(hyp)
+    # the closest reference length, the shorter of two as close
+    ref_len = min(ref_lens, key=lambda n: (abs(hyp_len - n), n))
     correct = [0] * MAX_NGRAM_ORDER
     total = [0] * MAX_NGRAM_ORDER
     for gram, count in hyp_grams.items():
@@ -180,16 +192,21 @@ def compute_bleu(correct: List[int], total: List[int], sys_len: int,
     return BLEUScore(score, correct, total, precisions, bp, sys_len, ref_len)
 
 
-def corpus_bleu(hyps: Sequence[str], refs: Sequence[str]) -> BLEUScore:
-    """``sacrebleu.corpus_bleu(hyps, [refs], tokenize="13a")``."""
+def corpus_bleu(hyps: Sequence[str], ref_streams: Sequence[Sequence[str]],
+                lowercase: bool = False) -> BLEUScore:
+    """``sacrebleu.corpus_bleu(hyps, ref_streams, lowercase=lowercase,
+    tokenize="13a")``: ``ref_streams`` holds one stream of references a
+    reference set, each aligned with ``hyps``; segments are zipped to the
+    shortest of them, as sacrebleu zips."""
     tok = Tokenizer13a()
 
     def prep(s: str) -> str:
-        return tok(s.rstrip())
+        return tok((s.lower() if lowercase else s).rstrip())
 
     stats = [0] * (2 + 2 * MAX_NGRAM_ORDER)
-    for hyp, ref in zip(hyps, refs):
-        for i, v in enumerate(_segment_stats(prep(hyp), prep(ref))):
+    for hyp, refs in zip(hyps, zip(*ref_streams)):
+        for i, v in enumerate(_segment_stats(prep(hyp),
+                                             [prep(r) for r in refs])):
             stats[i] += v
     return compute_bleu(stats[2:2 + MAX_NGRAM_ORDER],
                         stats[2 + MAX_NGRAM_ORDER:], stats[0], stats[1])
@@ -197,9 +214,10 @@ def corpus_bleu(hyps: Sequence[str], refs: Sequence[str]) -> BLEUScore:
 
 class BleuScorer:
     """``--scoring bleu`` / ``sacrebleu``: sacrebleu's corpus BLEU with
-    the 13a tokenizer."""
+    the 13a tokenizer, lowercased first with ``lowercase``."""
 
-    def __init__(self):
+    def __init__(self, lowercase: bool = False):
+        self.lowercase = lowercase
         self.refs: List[str] = []
         self.hyps: List[str] = []
 
@@ -208,7 +226,7 @@ class BleuScorer:
         self.hyps.append(pred)
 
     def bleu(self) -> BLEUScore:
-        return corpus_bleu(self.hyps, self.refs)
+        return corpus_bleu(self.hyps, [self.refs], self.lowercase)
 
     def score(self) -> float:
         return self.bleu().score

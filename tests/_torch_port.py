@@ -9,6 +9,7 @@ import shutil
 import tempfile
 
 import numpy as np
+import pytest
 import torch
 
 from s2st_tpu_torch.models.jax_bridge import load_jax_variables
@@ -25,6 +26,18 @@ from s2st_tpu_torch.models.s2st_transformer import S2STConfig, S2STTransformer
 JAX_CACHE_DIR = tempfile.mkdtemp(prefix="s2st_xla_cache_")
 atexit.register(shutil.rmtree, JAX_CACHE_DIR, ignore_errors=True)
 os.environ["S2ST_TPU_COMPILATION_CACHE_DIR"] = JAX_CACHE_DIR
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread a test, for a module that imports this fixture:
+    the tier-1 run's six workers share the machine's cores, and PyTorch's
+    default of a thread a core makes their OpenMP pools thrash (the fast
+    gate: 3 s alone, over 900 s with six copies at once on 8 cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def port_cfg(jax_cfg, **overrides) -> S2STConfig:

@@ -1,8 +1,9 @@
 """The port stands alone, and its entry points never fall back to the CPU.
 
 - Importing every module of s2st_tpu_torch (and chip_smoke.py) in a fresh
-  interpreter loads neither jax nor any module of s2st_tpu, nor sacrebleu
-  or matplotlib (the card's machine has neither).
+  interpreter loads neither jax nor any module of s2st_tpu, nor sacrebleu,
+  matplotlib, transformers or safetensors (the card's machine has none of
+  them).
 - Without a CUDA card the serving, training, text generation and
   generate_for_s2st CLIs raise unless ``--device cpu`` is given, and
   chip_smoke.py exits non-zero with no result line, as it does from a directory that holds nothing else of the
@@ -35,7 +36,8 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "s2st_tpu" or m.startswith("s2st_tpu.")
-             or m.split(".")[0] in ("sacrebleu", "matplotlib"))
+             or m.split(".")[0] in ("sacrebleu", "matplotlib",
+                                    "transformers", "safetensors"))
 print(len(names), bad)
 """
 
@@ -62,7 +64,11 @@ def test_port_imports_neither_jax_nor_s2st_tpu():
                  "generate.sequence_generator", "scoring", "cli.generate",
                  "data.iterators", "train.checkpoint", "train.ema",
                  "cli.average_checkpoints", "tasks.s2s_translation",
-                 "ops.mcd", "cli.generate_for_s2st", "models.hubert"):
+                 "ops.mcd", "cli.generate_for_s2st", "models.hubert",
+                 "cli.score", "cli.evaluate_s2s_bleu",
+                 "data.wav2vec2_processor", "models.hf_checkpoint",
+                 "models.wav2vec2_ctc", "tools.learnable_corpus",
+                 "tools.convergence_gate"):
         assert f"s2st_tpu_torch.{name}" in _walk_names(), name
     assert bad == "[]", bad
 
