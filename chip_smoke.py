@@ -193,6 +193,27 @@ library's SASS, and the attention libraries must hold some.
    line), and the first kernel call of each distinct shape of its
    training and validation (bf16, D=16) is held against the plain
    version.
+19. Stages 1-7 from raw audio at recipe width: 64 seeded WAV pairs
+   (sources 2-12 s, targets 1.5-10 s, 16 kHz, two speakers; 48 train, 8
+   dev, 8 tst; target texts in Chinese characters, since the recipe's
+   stage 2 drops a target row with Latin letters) through
+   recipes/run_baseline_torch.sh --stage 1 --stop-stage 2 and then
+   --stage 3 (the chars g2p fallback: no phonemizer is installed; the
+   features computed on the card), which must write every output with
+   finite 80-d features of the frame counts its TSVs state; utterance
+   pairs and seconds of audio a second of extraction; in this process
+   each utterance's fbank and log-mel under torch.profiler (device ms an
+   utterance, idle share) and four of them, as this process and stage 3
+   stored them, against the CPU (atol 1e-5, float64 both); stage 3 with
+   --src-sample-rate 8000 on 4 pairs; 2 updates of the recipe's model at
+   full width with stage 5's flags and --fp16 on those features (no
+   kernel launch: the recipe's attention dropout); stage 7's line on the
+   tst split (--max-iter 100, no stop) with bf16 caches, with
+   --kv-cache-dtype int8 (ms a decode step beside bf16's) and with
+   --vocoder hifigan at jik876/hifi-gan's config_v1.json width from a
+   seeded fairseq-layout generator: 12 kernel launches a batch each, every
+   distinct call held against the plain version, WAVs of the expected
+   length; both vocoders' device ms on one served batch.
 
 Prints the card's name and power limit, one JSON line of kernel
 measurements, and, last, {"ok": true, "device": {...}}.
@@ -3290,6 +3311,370 @@ def gate_phase(card: str) -> dict:
             "path_max_abs_err": path_err}
 
 
+# stage 1's inputs at recipe scale: sources of 2-12 s and targets of 1.5-10
+# s at 16 kHz, two speakers; the recipe's stage 2 keeps a target row only
+# without Latin letters (its g2p phonemizes the target side as Chinese),
+# so the target texts are Chinese characters and digits
+PREP_SPLITS = (("train", 48), ("dev", 8), ("tst", 8))
+PREP_SRC_WORDS = ("hola", "como", "estas", "bien", "gracias", "mundo", "agua",
+                  "casa", "verde", "vamos", "hoy", "si", "no", "tal", "vez")
+PREP_TGT_CHARS = "我们你好世界今天天气很好花了元百分之的人电话是见面年月日"
+PREP_MAX_ITER = 100
+TOL_PREP_AGREEMENT = 1e-5    # the card's float64 DSP against the CPU's
+HIFIGAN_V1 = {               # jik876/hifi-gan config_v1.json
+    "resblock": "1", "num_gpus": 0, "batch_size": 16,
+    "learning_rate": 0.0002, "adam_b1": 0.8, "adam_b2": 0.99,
+    "lr_decay": 0.999, "seed": 1234, "upsample_rates": [8, 8, 2, 2],
+    "upsample_kernel_sizes": [16, 16, 4, 4], "upsample_initial_channel": 512,
+    "resblock_kernel_sizes": [3, 7, 11],
+    "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+    "segment_size": 8192, "num_mels": 80, "num_freq": 1025, "n_fft": 1024,
+    "hop_size": 256, "win_size": 1024, "sampling_rate": 16000, "fmin": 0,
+    "fmax": 8000, "fmax_for_loss": None}
+
+
+def write_prep_inputs(root: Path, seed: int) -> dict:
+    """64 seeded WAV pairs (PCM16, 16 kHz: noise over a few tones, a silent
+    stretch in every fourth) and stage 1's metadata TSV a split. Returns
+    the metadata specs, the WAV directory and the seconds of audio."""
+    from s2st_tpu_torch.data.audio_utils import write_wav
+    r = np.random.RandomState(seed)
+    wavs = root / "wavs"
+    wavs.mkdir(parents=True)
+    specs, seconds, k = [], 0.0, 0
+    for split, n in PREP_SPLITS:
+        lines = ["id\tsrc_wav\ttgt_wav\tsrc_text\ttgt_text\tspeaker"]
+        for i in range(n):
+            uid = f"{split}{i:02d}"
+            for side, lo, hi in (("src", 2.0, 12.0), ("tgt", 1.5, 10.0)):
+                t = np.arange(int(r.uniform(lo, hi) * 16000)) / 16000
+                x = 0.05 * r.randn(len(t))
+                for f in r.uniform(100, 3000, 3):
+                    x += 0.1 * np.sin(2 * np.pi * f * t)
+                if k % 4 == 0:
+                    x[len(x) // 3:len(x) // 2] = 0.0
+                write_wav(str(wavs / f"{uid}_{side}.wav"),
+                          np.clip(x, -1, 1), 16000)
+                seconds += len(t) / 16000
+            src = " ".join(r.choice(PREP_SRC_WORDS, r.randint(4, 15)))
+            tgt = "".join(r.choice(list(PREP_TGT_CHARS), r.randint(4, 20)))
+            lines.append(f"{uid}\t{uid}_src.wav\t{uid}_tgt.wav\t{src}\t"
+                         f"{tgt}{r.randint(1, 100)}\tspk{k % 2}")
+            k += 1
+        (root / f"meta_{split}.tsv").write_text("\n".join(lines) + "\n")
+        specs.append(f"{split}:{root / f'meta_{split}.tsv'}")
+    return {"specs": specs, "wavs": wavs, "audio_s": seconds}
+
+
+def run_prep_recipe(work: Path, inputs: dict) -> dict:
+    """recipes/run_baseline_torch.sh --stage 1 --stop-stage 3 (stage 3 on
+    the card: its lines name no device); returns the wall seconds and
+    stage 3's in-process extraction seconds from its log."""
+    env = dict(os.environ, PYTHONPATH=str(REPO),
+               AUDIO_MANIFEST_ROOT=str(work / "manifests"),
+               FEATURE_MANIFEST_ROOT=str(work / "features"),
+               SAVE_DIR=str(work / "save"),
+               METADATA_TSVS=" ".join(inputs["specs"]),
+               AUDIO_DATA_ROOT=str(inputs["wavs"]),
+               PATH=f"{Path(sys.executable).parent}:{os.environ['PATH']}")
+    walls = {}
+    for first, last in (("1", "2"), ("3", "3")):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            ["bash", str(REPO / "recipes" / "run_baseline_torch.sh"),
+             "--stage", first, "--stop-stage", last], env=env,
+            capture_output=True, text=True, timeout=600)
+        walls[f"stages_{first}_{last}_s"] = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"run_baseline_torch.sh stages {first}-"
+                                 f"{last} returned {res.returncode}:\n"
+                                 f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    found = re.findall(r"extracted (\d+) samples in ([0-9.]+) s", res.stdout)
+    if not found:
+        raise AssertionError(f"stage 3 printed no extraction time:\n"
+                             f"{res.stdout[-2000:]}")
+    walls["extracted"], walls["extract_s"] = int(found[-1][0]), \
+        float(found[-1][1])
+    return walls
+
+
+def check_prep_outputs(work: Path, card: str) -> list:
+    """Stage 3's outputs: the files, 64 rows of finite 80-d features whose
+    frame counts the TSVs state, and two speakers; returns the rows."""
+    from s2st_tpu_torch.data.audio_utils import get_features
+    from s2st_tpu_torch.data.data_cfg import S2STDataConfig
+    feats = work / "features"
+    for name in ("src_logmelspec80.zip", "tgt_logmelspec80.zip",
+                 "src_gcmvn_stats.npz", "tgt_gcmvn_stats.npz", "train.tsv",
+                 "dev.tsv", "tst.tsv", "src_vocab.txt", "tgt_vocab.txt",
+                 "speakers.txt", "config.yaml"):
+        if not (feats / name).is_file():
+            raise AssertionError(f"stage 3 wrote no {name}")
+    cfg = S2STDataConfig(feats / "config.yaml")
+    if cfg.config.get("speaker_set_filename") != "speakers.txt" or \
+            (feats / "speakers.txt").read_text().split() != ["spk0", "spk1"]:
+        raise AssertionError("stage 3: not two speakers in config.yaml")
+    rows = []
+    for split, n in PREP_SPLITS:
+        lines = (feats / f"{split}.tsv").read_text().splitlines()
+        head = lines[0].split("\t")
+        got = [dict(zip(head, line.split("\t"))) for line in lines[1:]]
+        if len(got) != n:
+            raise AssertionError(f"stage 3: {split}.tsv has {len(got)} rows")
+        rows += got
+    for row in rows:
+        for side in ("src", "tgt"):
+            x = get_features(row[f"{side}_audio"])
+            if x.shape != (int(row[f"{side}_n_frames"]), 80) or \
+                    not np.isfinite(x).all():
+                raise AssertionError(f"{row['id']} {side}: features "
+                                     f"{x.shape} not finite (T, 80)")
+    print(f"data_prep: stages 1-3 wrote {len(rows)} rows of finite 80-d "
+          f"fbank and log-mel features, GCMVN stats, vocabularies of "
+          f"{len((feats / 'src_vocab.txt').read_text().splitlines())} and "
+          f"{len((feats / 'tgt_vocab.txt').read_text().splitlines())} "
+          f"symbols, two speakers ({card})", flush=True)
+    return rows
+
+
+def prep_features_on_card(inputs: dict, rows: list, card: str) -> dict:
+    """In this process: each utterance's fbank and log-mel on the card
+    under torch.profiler (device ms an utterance, idle share), and the
+    first four held against the same functions on the CPU."""
+    from s2st_tpu_torch.data import audio_utils as au
+    waves = []
+    for row in rows:
+        src, sr = au.read_wav(str(inputs["wavs"] / f"{row['id']}_src.wav"))
+        tgt, _ = au.read_wav(str(inputs["wavs"] / f"{row['id']}_tgt.wav"))
+        waves.append((src * 2 ** 15, tgt))
+
+    def fbank():
+        return [au.kaldi_fbank(s, device="cuda") for s, _ in waves]
+
+    def logmel():
+        return [au.extract_logmel_spectrogram(t, 16000, f_min=20.0,
+                                              device="cuda")
+                for _, t in waves]
+    fbank()
+    logmel()                                     # warm cuFFT's plans
+    out = {}
+    for name, fn in (("fbank", fbank), ("logmel", logmel)):
+        feats, wall, busy, launches, top = _profiled(fn)
+        out[name] = {"wall_ms_per_utt": wall / len(waves),
+                     "device_ms_per_utt": busy / len(waves),
+                     "launches_per_utt": launches / len(waves),
+                     "idle_share": 1 - busy / wall}
+        err = 0.0
+        for i in range(4):
+            cpu = (au.kaldi_fbank(waves[i][0], device="cpu")
+                   if name == "fbank" else au.extract_logmel_spectrogram(
+                       waves[i][1], 16000, f_min=20.0, device="cpu"))
+            err = max(err, float(np.abs(feats[i] - cpu).max()))
+            side = "src" if name == "fbank" else "tgt"
+            stored = au.get_features(rows[i][f"{side}_audio"])
+            err = max(err, float(np.abs(stored - cpu).max()))
+        out[name]["card_vs_cpu_max_abs_err"] = err
+        print(f"data_prep {name}: {out[name]['device_ms_per_utt']:.3f} "
+              f"device ms and {out[name]['wall_ms_per_utt']:.3f} wall ms an "
+              f"utterance ({out[name]['launches_per_utt']:.0f} launches), "
+              f"idle share {out[name]['idle_share']:.3f}; card (this "
+              f"process's and stage 3's stored) vs CPU on 4 "
+              f"utterances max abs err {err:.3e} (tolerance "
+              f"{TOL_PREP_AGREEMENT}) ({card})", flush=True)
+        for key, ms, count in top[:3]:
+            print(f"profile data_prep {name}:   {ms:9.3f} ms  {count:6d}x  "
+                  f"{key[:60]}", flush=True)
+        if not err <= TOL_PREP_AGREEMENT:
+            raise AssertionError(f"{name}: card and CPU disagree: {err}")
+    return out
+
+
+def prep_8k(work: Path, card: str) -> None:
+    """Stage 3 with --src-sample-rate 8000 (the _8k variant) on 4 pairs,
+    in this process."""
+    from s2st_tpu_torch.cli import get_feature_manifest
+    from s2st_tpu_torch.data.audio_utils import get_features
+    man = work / "manifests_8k"
+    man.mkdir()
+    lines = (work / "manifests" / "train.audio_phone.tsv").read_text() \
+        .splitlines()
+    (man / "train.audio_phone.tsv").write_text("\n".join(lines[:5]) + "\n")
+    out = work / "features_8k"
+    if get_feature_manifest.main(["--audio-manifest-root", str(man),
+                                  "--output-root", str(out), "--splits",
+                                  "train", "--src-sample-rate", "8000",
+                                  "--device", "cuda"]) != 0:
+        raise AssertionError("stage 3 --src-sample-rate 8000 failed")
+    rows = (out / "train.tsv").read_text().splitlines()[1:]
+    for line in rows:
+        path, n = line.split("\t")[1], int(line.split("\t")[3])
+        x = get_features(path)
+        if "src_logmelspec80_8k.zip" not in path or x.shape != (n, 80) or \
+                not np.isfinite(x).all():
+            raise AssertionError(f"_8k features {path} {x.shape}")
+    if not (out / "src_gcmvn_stats_8k.npz").is_file():
+        raise AssertionError("stage 3 --src-sample-rate 8000 wrote no "
+                             "src_gcmvn_stats_8k.npz")
+    print(f"data_prep: --src-sample-rate 8000 on {len(rows)} pairs wrote "
+          f"src_logmelspec80_8k.zip and src_gcmvn_stats_8k.npz ({card})",
+          flush=True)
+
+
+def write_hifigan_v1(root: Path, seed: int) -> Path:
+    """Writes a seeded HiFi-GAN generator at config_v1.json's width in
+    fairseq's layout (weight_g / weight_v on every conv) and its config;
+    returns the config.yaml ``vocoder:`` block that names them."""
+    from s2st_tpu_torch.models.hifigan import HiFiGANConfig, HiFiGANGenerator
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for name, v in HiFiGANGenerator(
+            HiFiGANConfig.from_json(HIFIGAN_V1)).state_dict().items():
+        if name.endswith(".weight"):
+            sd[name[:-6] + "weight_v"] = torch.randn(v.shape, generator=gen)
+            # row norms of 0.6-1.2 keep the output off both silence and
+            # tanh's saturation at this width
+            sd[name[:-6] + "weight_g"] = 0.6 + 0.6 * torch.rand(
+                (v.shape[0],) + (1,) * (v.dim() - 1), generator=gen)
+        else:
+            sd[name] = torch.zeros(v.shape)
+    torch.save({"generator": sd}, root / "g_hifigan_v1.pt")
+    (root / "config_v1.json").write_text(json.dumps(HIFIGAN_V1))
+    return (f"vocoder:\n  type: hifigan\n"
+            f"  checkpoint: {(root / 'g_hifigan_v1.pt').as_posix()}\n"
+            f"  config: {(root / 'config_v1.json').as_posix()}\n")
+
+
+def prep_serve(work: Path, data: Path, ckpt: Path, card: str) -> dict:
+    """Stage 7's line (--max-iter PREP_MAX_ITER --eos-prob-threshold 1.5,
+    so every batch decodes that many steps) on the trained checkpoint:
+    bf16 caches, int8 caches, then --vocoder hifigan; each with the kernel
+    counts set to 0 before and read after, every distinct kernel call held
+    against the plain version. Then both vocoders' device ms on one
+    served batch's features."""
+    from s2st_tpu_torch.cli import generate_waveform
+    from s2st_tpu_torch.data.data_cfg import S2STDataConfig
+    from s2st_tpu_torch.generate.vocoder import get_vocoder
+    from s2st_tpu_torch.kernels import attention as ka
+    base = [str(data), "--config-yaml", "config.yaml", "--gen-subset", "tst",
+            "--task", "s2s_translation", "--path", str(ckpt),
+            "--max-tokens", "100000", "--spec-bwd-max-iter", "64",
+            "--n-frames-per-step", "4", "--fp16", "--max-iter",
+            str(PREP_MAX_ITER), "--eos-prob-threshold", "1.5",
+            "--dump-waveforms", "--dump-features", "--device", "cuda"]
+    if generate_waveform.main(base + ["--results-path",
+                                      str(work / "warmup")]) != 0:
+        raise AssertionError("generate_waveform (warm-up) failed")
+    runs, worst = {}, 0.0
+    for name, extra in (("bf16", []), ("int8", ["--kv-cache-dtype", "int8"]),
+                        ("hifigan", ["--vocoder", "hifigan"])):
+        out = work / f"served_{name}"
+        ka.flash_attention.launches = 0
+        with RecordAttention() as rec:
+            rc = generate_waveform.main(base + ["--results-path", str(out)]
+                                        + extra)
+            torch.cuda.synchronize()
+            launches = ka.flash_attention.launches
+        if rc != 0:
+            raise AssertionError(f"generate_waveform ({name}) returned {rc}")
+        timing = json.loads((out / "timing.json").read_text())
+        if launches != 12 * len(timing):
+            raise AssertionError(f"serve {name}: {launches} kernel launches "
+                                 f"for {len(timing)} batches; want 12 each")
+        worst = max(worst, hold_path_attention(rec.calls,
+                                               f"data_prep_serve_{name}",
+                                               card))
+        hop = 256
+        for wav in sorted((out / "wav").glob("*_pred.wav")):
+            feat = np.load(out / "feat" / wav.name.replace(".wav", ".npy"))
+            with wave.open(str(wav), "rb") as w:
+                n = w.getnframes()
+                pcm = np.frombuffer(w.readframes(n), "<i2")
+            want = hop * len(feat) if name == "hifigan" \
+                else hop * (len(feat) - 1)
+            if feat.shape != (PREP_MAX_ITER * 4, 80) or \
+                    not np.isfinite(feat).all() or n != want or \
+                    not np.any(pcm):
+                raise AssertionError(f"serve {name}: {wav.name} features "
+                                     f"{feat.shape}, {n} samples (want "
+                                     f"{want})")
+        steps = sum(r["decode_steps"] for r in timing)
+        runs[name] = {"launches": launches, "batches": len(timing),
+                      "decode_ms_per_step": sum(r["decode_ms"]
+                                                for r in timing) / steps,
+                      "vocoder_ms_per_batch": sum(r["vocoder_ms"]
+                                                  for r in timing)
+                      / len(timing),
+                      "rows": sum(r["rows"] for r in timing)}
+        print(f"data_prep serve {name}: {runs[name]['rows']} utterances in "
+              f"{len(timing)} batch(es), decode "
+              f"{runs[name]['decode_ms_per_step']:.3f} ms/step over "
+              f"{steps} steps, vocoder "
+              f"{runs[name]['vocoder_ms_per_batch']:.3f} wall ms a batch, "
+              f"kernel launches {launches} ({card})",
+              flush=True)
+    feats = torch.from_numpy(np.stack([
+        np.load(p) for p in sorted((work / "served_bf16" / "feat").glob(
+            "*_pred.npy"))])).cuda()
+    cfg = S2STDataConfig(data / "config.yaml")
+    device = {}
+    with torch.inference_mode():
+        for name in ("griffin_lim", "hifigan"):
+            voc = get_vocoder(name, cfg, 64, torch.device("cuda"))
+            device[name] = device_ms(lambda: voc(feats), iters=3)
+    print(f"data_prep vocoders on one batch of {tuple(feats.shape)}: "
+          f"hifigan (v1 width, fp32) {device['hifigan']:.3f} device ms, "
+          f"griffin_lim (64 iterations) {device['griffin_lim']:.3f} device "
+          f"ms ({card})", flush=True)
+    return {"runs": runs, "vocoder_device_ms": device,
+            "path_max_abs_err": worst}
+
+
+def data_prep_phase(card: str) -> dict:
+    """19: stages 1-7 from raw audio at recipe width (the module's
+    docstring)."""
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_prep_"))
+    try:
+        t_phase = time.perf_counter()
+        inputs = write_prep_inputs(work / "raw", seed=31)
+        walls = run_prep_recipe(work, inputs)
+        n = sum(n for _, n in PREP_SPLITS)
+        rate = {"utterances_per_s": n / walls["extract_s"],
+                "audio_s_per_s": inputs["audio_s"] / walls["extract_s"]}
+        print(f"data_prep: stages 1-2 {walls['stages_1_2_s']:.2f} s, stage 3 "
+              f"{walls['stages_3_3_s']:.2f} s of which extraction "
+              f"{walls['extract_s']:.3f} s for {walls['extracted']} pairs "
+              f"({inputs['audio_s']:.1f} s of audio): "
+              f"{rate['utterances_per_s']:.2f} utterance pairs/s, "
+              f"{rate['audio_s_per_s']:.1f} s of audio/s ({card})",
+              flush=True)
+        rows = check_prep_outputs(work, card)
+        dsp = prep_features_on_card(inputs, rows, card)
+        prep_8k(work, card)
+        data = work / "features"
+        with open(data / "config.yaml", "a") as f:
+            f.write(write_hifigan_v1(work, seed=32))
+        with RecordAttention() as rec:
+            train = run_train_cli(recipe_train_argv(data, work / "save", 2),
+                                  work / "save", card, "data_prep: the "
+                                  "recipe's flags on stage 3's features")
+        if train["updates"] != 2 or train["fwd_launches"] or \
+                train["bwd_launches"] or rec.calls:
+            raise AssertionError(f"data_prep train: {train['updates']} "
+                                 f"updates, kernel launches "
+                                 f"{train['fwd_launches']}; want 2 and 0")
+        served = prep_serve(work, data, work / "save" / "checkpoint_last.npz",
+                            card)
+        out = {"walls": walls, "rate": rate, "dsp": dsp, "train": {
+            k: train[k] for k in ("updates", "fwd_launches", "step_ms",
+                                  "first_step_ms", "losses", "peak_gib")},
+               **served,
+               "phase_s": time.perf_counter() - t_phase}
+        print("data_prep " + json.dumps({**out, "card": card}), flush=True)
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def convergence_runs() -> int:
     """``--convergence``: the full gate in fp32 and under --fp16 on the
     card; each prints its ``convergence`` JSON line, with the card's name
@@ -3424,6 +3809,7 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(stage7, ignore_errors=True)
     gate = gate_phase(card)
+    prep = data_prep_phase(card)
 
     a = trained["a"]
     shapes = attention_shapes({**fwd, **hubert_kernel,
@@ -3447,14 +3833,18 @@ def main(argv=None) -> int:
             "serve_hubert": hubert["serve_launches"],
             "generate_for_s2st_hubert": hubert["s2t_launches"],
             "stage8_asr": asr["launches"],
-            "gate_fast_bf16": gate["launches"]},
+            "gate_fast_bf16": gate["launches"],
+            "data_prep_train": prep["train"]["fwd_launches"],
+            **{f"data_prep_serve_{k}": v["launches"]
+               for k, v in prep["runs"].items()}},
         "max_abs_err": serving["max_abs_err"],
         "path_max_abs_err": {
             "generate_for_s2st": s2t["path_max_abs_err"],
             "train_with_validation": validation["path_max_abs_err"],
             "hubert": hubert["path_max_abs_err"],
             "stage8_asr": asr["path_max_abs_err"],
-            "gate_fast_bf16": gate["path_max_abs_err"]},
+            "gate_fast_bf16": gate["path_max_abs_err"],
+            "data_prep_serve": prep["path_max_abs_err"]},
         "ms": serving["kernel_graph_ms"],
         "plain_ms": serving["plain_graph_ms"],
         "bound_ms": serving["bound_ms"],

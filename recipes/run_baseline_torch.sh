@@ -1,10 +1,14 @@
 #!/usr/bin/env bash
-# Fisher Es->En direct S2ST baseline recipe, stages 5-11, through the
+# Fisher Es->En direct S2ST baseline recipe, stages 1-11, through the
 # PyTorch port (s2st_tpu_torch) on a CUDA card: the lines of
-# recipes/run_baseline.sh stages 5-11 with s2st_tpu. -> s2st_tpu_torch.
+# recipes/run_baseline.sh with s2st_tpu. -> s2st_tpu_torch.
 # (tests/test_torch_recipe.py holds them equal).
 #
 # Stages:
+#   1  audio manifests from metadata TSVs
+#   2  split -> parallel g2p phonemization -> concat
+#   3  feature/manifest preprocessing (fbank80 src, logmel80 tgt, computed
+#      on the card; zips, gcmvn, vocabs, config.yaml)
 #   5  train s2st_transformer (aux ASR/ST decoders + CTC)
 #   6  average last 15 epoch checkpoints
 #   7  dump waveforms on the test split
@@ -13,12 +17,9 @@
 #   9  multi-reference BLEU
 #   10 aux ASR WER   (beam decode from aux_asr_decoder)
 #   11 aux ST BLEU   (beam decode from aux_st_decoder)
-#
-# Stages 1-3 (data preparation) are not ported yet: run them with
-# recipes/run_baseline.sh, then this script from stage 5.
 set -euo pipefail
 
-stage=${stage:-5}
+stage=${stage:-3}
 stop_stage=${stop_stage:-11}
 
 AUDIO_MANIFEST_ROOT=${AUDIO_MANIFEST_ROOT:?path to <split>.audio_phone.tsv}
@@ -64,11 +65,51 @@ multi_ref_dir=${multi_ref_dir:-.}      # stage 9: en.N.norm.lc.rm files
 # kaldi-style CLI overrides: --stage 5 --stop-stage 7 ... (parse_options.sh)
 . "$(dirname "$0")/parse_options.sh"
 
-if [ "${stage}" -lt 5 ]; then
-  echo "$0: stages 1-3 (data preparation) are not ported to s2st_tpu_torch" \
-       "yet; run them with recipes/run_baseline.sh, then this script with" \
-       "--stage 5" >&2
-  exit 1
+if [ "${stage}" -le 1 ] && [ "${stop_stage}" -ge 1 ]; then
+  # reference stage 1 (run_baseline.sh:55-60): build <split>.audio.tsv
+  # manifests (id, src_audio, tgt_audio, n_frames, texts, speaker)
+  [ -n "${METADATA_TSVS}" ] || {
+    echo "stage 1 needs METADATA_TSVS (space-separated metadata files)"; exit 1; }
+  python -m s2st_tpu_torch.preprocessing.audio_manifest \
+    --metadata ${METADATA_TSVS} \
+    --audio-root "${AUDIO_DATA_ROOT}" \
+    --output-root "${AUDIO_MANIFEST_ROOT}"
+fi
+
+if [ "${stage}" -le 2 ] && [ "${stop_stage}" -ge 2 ]; then
+  # reference stage 2 (run_baseline.sh:62-81): split each manifest into nj
+  # parts, phonemize in parallel, concatenate back
+  for x in "${SPLIT}" dev train; do
+    [ -f "${AUDIO_MANIFEST_ROOT}/${x}.audio.tsv" ] || continue
+    splitdir=${AUDIO_MANIFEST_ROOT}/split_${g2p_nj}/${x}
+    mkdir -p "${splitdir}/log"
+    python -m s2st_tpu_torch.preprocessing.split_file \
+      --type split --n "${g2p_nj}" \
+      --input-file "${AUDIO_MANIFEST_ROOT}/${x}.audio.tsv" \
+      --output-path "${splitdir}"
+    pids=()
+    for j in $(seq 1 "${g2p_nj}"); do
+      part=${splitdir}/${x}.audio.${j}.tsv
+      [ -f "${part}" ] || continue
+      python -m s2st_tpu_torch.preprocessing.g2p \
+        --input-file "${part}" \
+        --output-file "${splitdir}/${x}.audio_phone.${j}.tsv" \
+        > "${splitdir}/log/log.${j}" 2>&1 &
+      pids+=($!)
+    done
+    for pid in "${pids[@]}"; do wait "${pid}"; done
+    python -m s2st_tpu_torch.preprocessing.split_file \
+      --type contat \
+      --file-part "${splitdir}/${x}.audio_phone."*.tsv \
+      --output-path "${AUDIO_MANIFEST_ROOT}"
+  done
+fi
+
+if [ "${stage}" -le 3 ] && [ "${stop_stage}" -ge 3 ]; then
+  python -m s2st_tpu_torch.cli.get_feature_manifest \
+    --audio-manifest-root "${AUDIO_MANIFEST_ROOT}" \
+    --output-root "${FEATURE_MANIFEST_ROOT}" \
+    --splits train dev "${SPLIT}" --ipa-vocab --use-g2p
 fi
 
 if [ "${stage}" -le 5 ] && [ "${stop_stage}" -ge 5 ]; then

@@ -36,7 +36,8 @@ import torch
 
 from ..data.language_pair_dataset import PAD
 from ..generate.sequence_generator import BeamConfig, beam_search
-from ..models.config_from_args import model_args_from_checkpoint
+from ..models.config_from_args import (add_model_overrides_arg,
+                                       model_args_from_checkpoint)
 from ..models.jax_bridge import load_jax_variables, read_jax_checkpoint
 from ..models.lightconv_args import (add_lightconv_model_args, apply_arch,
                                      build_lightconv_config)
@@ -60,6 +61,7 @@ def get_parser() -> argparse.ArgumentParser:
                    choices=["translation", "s2s_translation"])
     p.add_argument("--gen-subset", default="test")
     p.add_argument("--path", required=True, help="JAX .npz checkpoint")
+    add_model_overrides_arg(p)
     p.add_argument("--results-path", default=None)
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--max-tokens", type=int, default=40000)

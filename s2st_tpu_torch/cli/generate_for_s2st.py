@@ -46,7 +46,9 @@ from ..data.iterators import EpochBatchIterator
 from ..data.s2st_dataset import TrainSplit
 from ..generate.sequence_generator import (EOS, BeamConfig, beam_search_aux,
                                            score_sequences)
-from ..models.config_from_args import (add_model_args, build_model_config,
+from ..models.config_from_args import (add_model_args,
+                                       add_model_overrides_arg,
+                                       build_model_config,
                                        model_args_from_checkpoint)
 from ..models.jax_bridge import read_jax_checkpoint
 from ..models.s2st_transformer import cast_for_inference, from_jax_variables
@@ -66,6 +68,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--config-yaml", default="config.yaml")
     p.add_argument("--gen-subset", default="test")
     p.add_argument("--path", required=True, help="JAX .npz checkpoint")
+    add_model_overrides_arg(p)
     p.add_argument("--results-path", default=None)
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--max-tokens", type=int, default=40000)

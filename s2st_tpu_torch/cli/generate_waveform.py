@@ -2,10 +2,13 @@
 
 Counterpart of ``s2st_tpu/cli/generate_waveform.py`` (stage 7 of
 ``recipes/run_baseline.sh``): loads a JAX ``.npz`` checkpoint, rebuilds the
-model from the checkpoint's flag echo, then for each batch of the split
-encodes, decodes autoregressively (or teacher-forces), applies the postnet
-and GCMVN denormalisation, runs Griffin-Lim and dumps per-utterance WAVs
-and features. Runs on CUDA unless ``--device`` names another device.
+model from the checkpoint's flag echo (``--model-overrides`` over it;
+``--speaker-to-id`` gives the speaker count), then for each batch of the
+split encodes, decodes autoregressively (or teacher-forces; ``--kv-cache-
+dtype int8`` keeps the decoder's caches in int8), applies the postnet and
+GCMVN denormalisation, vocodes (``--vocoder griffin_lim``, or ``hifigan``
+from config.yaml's ``vocoder:`` block) and dumps per-utterance WAVs and
+features. Runs on CUDA unless ``--device`` names another device.
 
     python -m s2st_tpu_torch.cli.generate_waveform <data> \\
         --config-yaml config.yaml --gen-subset tst --path ckpt.npz \\
@@ -47,9 +50,12 @@ from ..data.manifest import GenerationSplit
 from ..generate.speech_generator import (GenerationConfig, decode_loop,
                                          postprocess,
                                          teacher_forcing_features)
-from ..generate.vocoder import GriffinLimVocoder
-from ..models.config_from_args import (add_model_args, build_model_config,
-                                       model_args_from_checkpoint)
+from ..generate.vocoder import get_vocoder
+from ..models.config_from_args import (add_model_args,
+                                       add_model_overrides_arg,
+                                       add_speaker_args, build_model_config,
+                                       model_args_from_checkpoint,
+                                       num_speakers)
 from ..models.jax_bridge import read_jax_checkpoint
 from ..models.s2st_transformer import cast_for_inference, from_jax_variables
 from ..nn.core import disable_tf32, resolve_device
@@ -82,8 +88,18 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--dump-eos-probs", action="store_true")
     p.add_argument("--dump-plots", action="store_true")
     p.add_argument("--dump-target", action="store_true")
+    p.add_argument("--vocoder", default="griffin_lim",
+                   choices=["griffin_lim", "hifigan"],
+                   help="hifigan: the generator that config.yaml's vocoder "
+                        "block names (checkpoint, config)")
+    p.add_argument("--kv-cache-dtype", default="bf16",
+                   choices=["bf16", "int8"],
+                   help="int8: the decoder's KV caches and cross K/V in "
+                        "int8 with a scale a (token, head)")
     p.add_argument("--device", default=None,
                    help="torch device; CUDA when not given")
+    add_model_overrides_arg(p)
+    add_speaker_args(p)
     add_model_args(p)
     return p
 
@@ -169,15 +185,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     data_cfg = data_config(args)
     variables, meta = read_jax_checkpoint(args.path.split(":")[0])
     margs = model_args_from_checkpoint(args, meta)
+    # the speaker count of --speaker-to-id, as JAX's task builds the model;
+    # serving passes no speaker to the decode, as JAX's infer does
     cfg = build_model_config(margs, variables,
-                             data_cfg.input_feat_per_channel)
+                             data_cfg.input_feat_per_channel,
+                             num_speakers(args) if args.speaker_to_id
+                             else None)
     model = cast_for_inference(
         from_jax_variables(cfg, variables).to(device).eval(), cfg.dtype)
     logger.info(f"loaded {args.path} (step {meta.get('step', '?')}) on "
                 f"{device}, compute {cfg.dtype}")
 
-    vocoder = GriffinLimVocoder.from_data_cfg(data_cfg, args.spec_bwd_max_iter,
-                                              device)
+    vocoder = get_vocoder(args.vocoder, data_cfg, args.spec_bwd_max_iter,
+                          device)
     gcmvn_mean = gcmvn_std = None
     stats_path = data_cfg.cmvn_stats_path("tgt_global_cmvn")
     if stats_path is not None:
@@ -187,7 +207,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     gen_cfg = GenerationConfig(
         max_iter=min(args.max_iter, cfg.max_target_positions
                      // max(cfg.n_frames_per_step, 1)),
-        eos_prob_threshold=args.eos_prob_threshold)
+        eos_prob_threshold=args.eos_prob_threshold,
+        kv_cache_dtype=args.kv_cache_dtype)
 
     split = GenerationSplit(args.data, data_cfg, args.gen_subset,
                             cfg.n_frames_per_step)

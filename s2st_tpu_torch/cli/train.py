@@ -44,6 +44,12 @@ checkpoint's meta and come back on resume. ``--write-checkpoints-
 asynchronously`` raises; the log-format, tensorboard and worker flags are
 accepted and ignored with a logged line.
 
+``--speaker-to-id`` (a JSON map of the manifest's speakers to ids) adds
+encoder and decoder speaker embeddings of ``--speaker-embed-dim`` for max
+id + 1 speakers, and each batch carries its rows' ids (an unknown speaker
+is 0), as JAX's task and dataset do (tasks/s2s_translation.py:42-43,
+:100-103, data/s2st_dataset.py:208-210).
+
 ``--use-hubert True`` trains over raw waveforms through the frozen HuBERT
 frontend (``--hubert-hidden/-layers/-ffn/-heads``), and
 ``--load-pretrained-hubert-from`` a fairseq ``.pt`` replaces its random
@@ -69,7 +75,9 @@ import torch
 
 from ..data.iterators import EpochBatchIterator, GroupedIterator
 from ..data.s2st_dataset import TrainSplit, to_device
-from ..models.config_from_args import add_model_args, model_config
+from ..models.config_from_args import (add_model_args, add_speaker_args,
+                                       model_config, num_speakers,
+                                       speaker_to_id)
 from ..models.hubert import load_torch_hubert
 from ..models.s2st_transformer import S2STTransformer, encoder_layer_keep
 from ..nn.core import disable_tf32, resolve_device
@@ -177,6 +185,7 @@ def get_parser() -> argparse.ArgumentParser:
     for name in IGNORED:
         p.add_argument("--" + name.replace("_", "-"), nargs="?", const=True,
                        default=None)
+    add_speaker_args(p)
     add_model_args(p)
     return p
 
@@ -295,9 +304,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     data_cfg = data_config(args)
     dicts = load_dictionaries(args.data, data_cfg)
     cfg = model_config(args, len(dicts[0]), len(dicts[1]),
-                       data_cfg.input_feat_per_channel)
+                       data_cfg.input_feat_per_channel,
+                       num_speakers=num_speakers(args))
+    speakers = speaker_to_id(args)
     split = TrainSplit(args.data, data_cfg, args.train_subset, *dicts,
-                       n_frames_per_step=args.n_frames_per_step)
+                       n_frames_per_step=args.n_frames_per_step,
+                       speaker_to_id=speakers)
     model = S2STTransformer(cfg).init_weights(args.seed)
     if cfg.use_hubert and args.load_pretrained_hubert_from:
         sd, _ = load_torch_hubert(args.load_pretrained_hubert_from)
@@ -367,7 +379,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not args.disable_validation:
         valid_itr = EpochBatchIterator(
             TrainSplit(args.data, data_cfg, args.valid_subset, *dicts,
-                       n_frames_per_step=args.n_frames_per_step),
+                       n_frames_per_step=args.n_frames_per_step,
+                       speaker_to_id=speakers),
             args.max_tokens, args.batch_size, seed=args.seed,
             required_batch_size_multiple=args.required_batch_size_multiple,
             max_positions=(args.max_source_positions

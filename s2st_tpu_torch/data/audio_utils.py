@@ -1,21 +1,37 @@
-"""Feature and waveform reads, PCM16 WAV writes and the mel filterbank.
+"""Feature and waveform reads, PCM16 WAV writes, the mel filterbanks and
+the features of stage 3.
 
 The port's own copies of ``s2st_tpu/data/audio_utils.py`` ``read_wav``
 (:41-69), ``parse_path`` and ``get_features_or_waveform`` (:100-123:
 ``.npy`` features, ``.wav`` files and zip slices holding either),
-``write_wav`` (:72-83), ``mel_filters`` (:157-196, librosa slaney mel) and
-``mel_filters_htk`` (:198-221, torchaudio's HTK mel of the MCD metric).
+``write_wav`` (:72-83), ``create_zip`` and ``get_zip_manifest`` (:126-154),
+``mel_filters`` (:157-196, librosa slaney mel), ``mel_filters_htk``
+(:198-221, torchaudio's HTK mel of the MCD metric), ``kaldi_mel_banks``
+(:223), ``compute_global_cmvn`` (:325) and ``resample`` (:343).
+
+Stage 3's features, ``kaldi_fbank`` (:287, the source's 80-d fbank) and
+``extract_logmel_spectrogram`` (:266, through ``tts_spectrogram``, the
+target's 80-bin log-mel), run in PyTorch on ``device`` (CUDA unless the
+caller names another; it raises without a card) in float64 up to the log,
+as the JAX package's numpy does: frames gathered by index, the FFT
+``torch.fft.rfft``, float32 numpy out.
 """
 
 from __future__ import annotations
 
 import io
 import mmap
+import struct
 import wave
+import zipfile
+from math import gcd
 from pathlib import Path
-from typing import BinaryIO, List, Tuple, Union
+from typing import BinaryIO, Dict, Iterable, List, Tuple, Union
 
 import numpy as np
+import torch
+
+from ..nn.core import resolve_device
 
 AUDIO_OR_FEATURE_SUFFIXES = {".npy", ".wav", ".flac", ".ogg"}
 
@@ -83,6 +99,33 @@ def get_features_or_waveform(path: str, need_waveform: bool = False
     if data[:2] == b"\x93N":
         return np.load(io.BytesIO(data))
     return read_wav(io.BytesIO(data), normalization=need_waveform)[0]
+
+
+def create_zip(data_root: Path, zip_path: Path) -> None:
+    """Every ``.npy`` under data_root, stored uncompressed in name order."""
+    paths = sorted(Path(data_root).glob("*.npy"))
+    with zipfile.ZipFile(zip_path, "w", zipfile.ZIP_STORED) as zf:
+        for p in paths:
+            zf.write(p, arcname=p.name)
+
+
+def get_zip_manifest(zip_path: Path) -> Dict[str, str]:
+    """member stem -> ``zipfile:offset:length`` of its stored bytes."""
+    with zipfile.ZipFile(zip_path, "r") as zf:
+        infos = zf.infolist()
+    manifest = {}
+    with open(zip_path, "rb") as f:
+        for info in infos:
+            f.seek(info.header_offset)
+            header = f.read(30)
+            if header[:4] != b"PK\x03\x04":
+                raise ValueError(f"{zip_path}: bad local header for "
+                                 f"{info.filename}")
+            name_len, extra_len = struct.unpack("<HH", header[26:30])
+            offset = info.header_offset + 30 + name_len + extra_len
+            manifest[Path(info.filename).stem] = \
+                f"{zip_path}:{offset}:{info.compress_size}"
+    return manifest
 
 
 def write_wav(path: str, waveform: np.ndarray, sample_rate: int) -> None:
@@ -160,3 +203,144 @@ def mel_filters_htk(sample_rate: int, n_fft: int, n_mels: int, f_min: float,
     lower = -ramps[:-2] / fdiff[:-1, None]
     upper = ramps[2:] / fdiff[1:, None]
     return np.maximum(0.0, np.minimum(lower, upper)).astype(np.float32)
+
+
+def kaldi_mel_banks(num_bins: int, window_length_padded: int,
+                    sample_rate: int, low_freq: float = 20.0,
+                    high_freq: float = 0.0) -> np.ndarray:
+    """Kaldi's MelBanks: unnormalised triangles on the HTK mel scale,
+    (num_bins, padded // 2); high_freq <= 0 counts down from Nyquist."""
+    num_fft_bins = window_length_padded // 2
+    if high_freq <= 0.0:
+        high_freq = 0.5 * sample_rate + high_freq
+    fft_bin_width = sample_rate / window_length_padded
+    mel_low, mel_high = hz_to_mel_htk(low_freq), hz_to_mel_htk(high_freq)
+    mel_delta = (mel_high - mel_low) / (num_bins + 1)
+    bin_mels = hz_to_mel_htk(np.arange(num_fft_bins) * fft_bin_width)
+    left = mel_low + np.arange(num_bins)[:, None] * mel_delta
+    center = left + mel_delta
+    right = center + mel_delta
+    up = (bin_mels[None, :] - left) / (center - left)
+    down = (right - bin_mels[None, :]) / (right - center)
+    return np.maximum(0.0, np.minimum(up, down)).astype(np.float32)
+
+
+def _povey_window(n: int) -> np.ndarray:
+    a = 2 * np.pi / (n - 1)
+    return (0.5 - 0.5 * np.cos(a * np.arange(n))) ** 0.85
+
+
+def _reflect_index(n: int, pad: int) -> np.ndarray:
+    """Indices of numpy's ``np.pad(x, pad, mode="reflect")`` into x, also
+    where pad >= n (numpy reflects again; torch's reflect pad refuses)."""
+    i = np.arange(-pad, n + pad)
+    if n == 1:
+        return np.zeros_like(i)
+    period = 2 * (n - 1)
+    j = np.mod(i, period)
+    return np.where(j >= n, period - j, j)
+
+
+def _frames(x: torch.Tensor, size: int, shift: int) -> torch.Tensor:
+    """(n_frames, size) windows of x every ``shift`` samples."""
+    n_frames = 1 + (x.shape[0] - size) // shift
+    idx = (torch.arange(size, device=x.device)[None, :]
+           + shift * torch.arange(n_frames, device=x.device)[:, None])
+    return x[idx]
+
+
+def tts_spectrogram(waveform: np.ndarray, n_fft: int, win_length: int,
+                    hop_length: int, device=None) -> torch.Tensor:
+    """The centred magnitude STFT (reflect pad of n_fft // 2, a periodic
+    Hann window zero-padded to n_fft): (F, T) float64 on the device."""
+    dev = resolve_device(device)
+    x = np.asarray(waveform, dtype=np.float64)
+    if x.shape[0] == 0:
+        raise ValueError("an empty waveform has no frames")
+    x = torch.from_numpy(x).to(dev)
+    pad = n_fft // 2
+    x = x[torch.from_numpy(_reflect_index(x.shape[0], pad)).to(dev)]
+    win = np.hanning(win_length + 1)[:-1]   # torch.hann_window(periodic)
+    wpad = n_fft - win_length
+    win = np.pad(win, (wpad // 2, wpad - wpad // 2))
+    frames = _frames(x, n_fft, hop_length) * torch.from_numpy(win).to(dev)
+    return torch.fft.rfft(frames, n=n_fft, dim=1).abs().T
+
+
+def extract_logmel_spectrogram(waveform: np.ndarray, sample_rate: int,
+                               win_length: int = 1024, hop_length: int = 256,
+                               n_fft: int = 1024, n_mels: int = 80,
+                               f_min: float = 0.0, f_max: float = 8000.0,
+                               eps: float = 1e-5, device=None) -> np.ndarray:
+    """(T,) waveform in [-1, 1] -> (frames, n_mels) float32 log-mel:
+    log(max(slaney_mel @ |STFT|, eps))."""
+    dev = resolve_device(device)
+    mag = tts_spectrogram(waveform, n_fft, win_length, hop_length, dev)
+    basis = torch.from_numpy(mel_filters(sample_rate, n_fft, n_mels, f_min,
+                                         f_max).astype(np.float64)).to(dev)
+    mel = basis @ mag
+    return torch.log(mel.clamp(min=eps)).T.float().cpu().numpy()
+
+
+def kaldi_fbank(waveform: np.ndarray, sample_rate: int = 16000,
+                num_mel_bins: int = 80, frame_length_ms: float = 25.0,
+                frame_shift_ms: float = 10.0, preemphasis: float = 0.97,
+                remove_dc_offset: bool = True, low_freq: float = 20.0,
+                high_freq: float = 0.0, device=None) -> np.ndarray:
+    """torchaudio.compliance.kaldi.fbank with its defaults (no dither, a
+    povey window, snip_edges, the power spectrum, the natural log) of a
+    (T,) waveform at 16-bit integer scale: (frames, num_mel_bins) float32,
+    (0, num_mel_bins) below one window."""
+    window_size = int(sample_rate * frame_length_ms * 1e-3)
+    window_shift = int(sample_rate * frame_shift_ms * 1e-3)
+    padded = 1 << (window_size - 1).bit_length()
+    x = np.asarray(waveform, dtype=np.float64)
+    if x.shape[0] < window_size:
+        return np.zeros((0, num_mel_bins), np.float32)
+    dev = resolve_device(device)
+    frames = _frames(torch.from_numpy(x).to(dev), window_size, window_shift)
+    if remove_dc_offset:
+        frames = frames - frames.mean(dim=1, keepdim=True)
+    if preemphasis != 0.0:
+        first = frames[:, :1]
+        frames = torch.cat([first - preemphasis * first,
+                            frames[:, 1:] - preemphasis * frames[:, :-1]],
+                           dim=1)
+    frames = frames * torch.from_numpy(_povey_window(window_size)).to(dev)
+    spec = torch.fft.rfft(frames, n=padded, dim=1)
+    power = (spec.real ** 2 + spec.imag ** 2)[:, :padded // 2]
+    banks = kaldi_mel_banks(num_mel_bins, padded, sample_rate, low_freq,
+                            high_freq)
+    mel = power @ torch.from_numpy(banks.T.astype(np.float64)).to(dev)
+    eps = float(np.finfo(np.float32).eps)
+    return torch.log(mel.clamp(min=eps)).float().cpu().numpy()
+
+
+def compute_global_cmvn(feature_iter: Iterable[np.ndarray]
+                        ) -> Dict[str, np.ndarray]:
+    """Mean and std over the frames of every (T, C) array, in float64 on
+    the host (one pass, the std floored at sqrt(1e-10))."""
+    mean_x = mean_x2 = None
+    n = 0
+    for frames in feature_iter:
+        frames = np.asarray(frames, dtype=np.float64)
+        n += frames.shape[0]
+        sx, sx2 = frames.sum(axis=0), (frames ** 2).sum(axis=0)
+        mean_x = sx if mean_x is None else mean_x + sx
+        mean_x2 = sx2 if mean_x2 is None else mean_x2 + sx2
+    mean_x /= n
+    mean_x2 /= n
+    std = np.sqrt(np.maximum(mean_x2 - mean_x ** 2, 1e-10))
+    return {"mean": mean_x.astype(np.float32), "std": std.astype(np.float32)}
+
+
+def resample(waveform: np.ndarray, orig_sr: int, new_sr: int) -> np.ndarray:
+    """Polyphase resampling on the host (scipy's ``resample_poly``, as the
+    JAX package does; scipy is on both machines and a file is resampled
+    once), in the waveform's dtype."""
+    if orig_sr == new_sr:
+        return waveform
+    from scipy.signal import resample_poly
+    g = gcd(orig_sr, new_sr)
+    return resample_poly(waveform, new_sr // g, orig_sr // g).astype(
+        waveform.dtype)

@@ -3,14 +3,16 @@
 Counterpart of ``s2st_tpu/data/data_cfg.py``: the ``features`` block, the
 src/tgt transform lists with their split wildcards, the global CMVN stats
 paths, ``audio_root``, ``input_feat_per_channel`` and ``use_hubert``
-(:24, :35-36). The file is read
-with a small reader for the block-style YAML that ``yaml.dump`` and the
-recipe write (nested maps, ``- item`` lists, scalars, flow lists), so the
+(:24, :35-36), ``vocoder`` (:129) and ``speaker_set_filename`` (:50).
+The file is read with a small reader for the block-style YAML that
+``yaml.dump`` and the recipe write (nested maps, ``- item`` lists,
+scalars, flow lists), and stage 3 writes it with ``dump_yaml``, so the
 port needs no YAML package.
 """
 
 from __future__ import annotations
 
+import re
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -88,6 +90,102 @@ def parse_yaml(text: str) -> Dict[str, Any]:
     return value
 
 
+# plain scalars that PyYAML's resolver reads as another type than str
+# (yaml/resolver.py: bool, float, int, merge, null, timestamp, value, yaml)
+_NOT_STR = re.compile(r"""^(?:
+    yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE|on|On|ON|off|Off|OFF
+  | [-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?
+  | \.[0-9][0-9_]*(?:[eE][-+][0-9]+)?
+  | [-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*
+  | [-+]?\.(?:inf|Inf|INF) | \.(?:nan|NaN|NAN)
+  | [-+]?0b[0-1_]+ | [-+]?0[0-7_]+ | [-+]?(?:0|[1-9][0-9_]*)
+  | [-+]?0x[0-9a-fA-F_]+ | [-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+
+  | << | ~ | null|Null|NULL | = | ! | & | \*
+  | [0-9]{4}-[0-9]{2}-[0-9]{2}
+  | [0-9]{4}-[0-9][0-9]?-[0-9][0-9]?(?:[Tt]|[\ \t]+)[0-9][0-9]?:[0-9]{2}
+    :[0-9]{2}(?:\.[0-9]*)?(?:[\ \t]*(?:Z|[-+][0-9][0-9]?(?::[0-9]{2})?))?
+)$""", re.X)
+_WIDTH = 80   # PyYAML folds a plain scalar with spaces past this column
+
+
+def _plain_ok(s: str) -> bool:
+    """Whether PyYAML writes s unquoted in block context."""
+    if not s or s[0] == " " or s[-1] == " " or _NOT_STR.match(s):
+        return False
+    if s[0] in "#,[]{}&*!|>'\"%@`":
+        return False
+    if s[0] in "-?:" and (len(s) == 1 or s[1] == " "):
+        return False
+    return ": " not in s and " #" not in s and not s.endswith(":")
+
+
+def _dump_str(s: str, column: int) -> str:
+    if not s.isascii() or not s.isprintable():
+        raise ValueError(f"dump_yaml writes printable ASCII only: {s!r}")
+    if " " in s and column + len(s) > _WIDTH:
+        raise ValueError(f"dump_yaml does not fold long lines: {s!r}")
+    return s if _plain_ok(s) else "'" + s.replace("'", "''") + "'"
+
+
+def _dump_scalar(v: Any, column: int) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v).lower()
+        if "." not in text and "e" in text:
+            text = text.replace("e", ".0e", 1)
+        return text
+    if isinstance(v, str):
+        return _dump_str(v, column)
+    raise ValueError(f"dump_yaml cannot write a {type(v).__name__}: {v!r}")
+
+
+def _dump_block(value: Dict[str, Any], indent: int, out: List[str]) -> None:
+    for key in sorted(value):
+        if not isinstance(key, str) or len(key) > 128:
+            raise ValueError(f"dump_yaml takes string keys: {key!r}")
+        head = " " * indent + _dump_str(key, indent) + ":"
+        v = value[key]
+        if isinstance(v, dict) and v:
+            out.append(head)
+            _dump_block(v, indent + 2, out)
+        elif isinstance(v, list) and v:
+            out.append(head)
+            for item in v:
+                if isinstance(item, (dict, list)):
+                    raise ValueError("dump_yaml writes lists of scalars only")
+                out.append(" " * indent + "- "
+                           + _dump_scalar(item, indent + 2))
+        elif isinstance(v, (dict, list)):
+            out.append(head + (" {}" if isinstance(v, dict) else " []"))
+        else:
+            out.append(head + " " + _dump_scalar(v, len(head) + 1))
+
+
+def dump_yaml(config: Dict[str, Any]) -> str:
+    """What ``yaml.dump(config, default_flow_style=False)`` writes for
+    nested maps of string keys over None, bool, int, float, printable
+    ASCII strings and lists of those: keys sorted, two spaces a level,
+    ``- item`` at the key's indent, PyYAML's float spelling (``1.0e-05``)
+    and its quoting; ``parse_yaml`` reads it back. Raises on any other
+    value."""
+    if not isinstance(config, dict):
+        raise ValueError("dump_yaml writes a map at the top level")
+    if not config:
+        return "{}\n"
+    out: List[str] = []
+    _dump_block(config, 0, out)
+    return "\n".join(out) + "\n"
+
+
 class S2STDataConfig:
     def __init__(self, yaml_path):
         yaml_path = Path(yaml_path)
@@ -138,3 +236,8 @@ class S2STDataConfig:
     @property
     def features(self) -> Optional[Dict]:
         return self.config.get("features")
+
+    @property
+    def vocoder(self) -> Optional[Dict]:
+        """The ``vocoder:`` block (type, checkpoint, config), or None."""
+        return self.config.get("vocoder")

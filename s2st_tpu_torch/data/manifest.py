@@ -3,7 +3,7 @@
 Reads what stages 5 and 7 read of ``s2st_tpu/data/s2st_dataset.py``: the
 TSV (``_load_tsv``, :55) with paths taken from ``audio_root``, features
 through the split's transforms (``data/feature_transforms.py``: global
-CMVN and SpecAugment) and the packed target log-mels. With the data
+and utterance CMVN, SpecAugment) and the packed target log-mels. With the data
 config's ``use_hubert`` the source is instead the raw waveform of the
 ``src_orig`` column (``src_audio`` where it is empty), untransformed
 (:158-166). Generation batches are the JAX batcher's greedy
@@ -88,10 +88,26 @@ def spec_augment(spec: np.ndarray, conf: Dict, rng: np.random.RandomState
     return spec
 
 
+def utterance_cmvn(x: np.ndarray, norm_means: bool = True,
+                   norm_vars: bool = True) -> np.ndarray:
+    """Each channel's mean (and std, floored at sqrt(1e-10)) over the
+    utterance's frames taken out (feature_transforms.py:91-110)."""
+    mean = x.mean(axis=0)
+    square_sums = (x ** 2).sum(axis=0)
+    if norm_means:
+        x = x - mean
+    if norm_vars:
+        var = square_sums / x.shape[0] - mean ** 2
+        x = x / np.sqrt(np.maximum(var, 1e-10))
+    return x.astype(np.float32)
+
+
 class FeatureTransforms:
-    """A split's feature transforms by name: global CMVN (``global_cmvn``,
-    ``src_global_cmvn``, ``tgt_global_cmvn``) and ``specaugment`` (the
-    train split's in the recipe's config.yaml); any other name raises."""
+    """A split's feature transforms by name, as the JAX package registers
+    them: global CMVN (``global_cmvn``, ``src_global_cmvn``,
+    ``tgt_global_cmvn``), ``utterance_cmvn`` (``norm_means``,
+    ``norm_vars``) and ``specaugment`` (the train split's in the recipe's
+    config.yaml); any other name raises."""
 
     def __init__(self, cfg: S2STDataConfig, names: Optional[List[str]]):
         self.steps = []
@@ -103,6 +119,10 @@ class FeatureTransforms:
                 std = stats["std"].astype(np.float32)
                 self.steps.append(
                     lambda x, rng, m=mean, s=std: (x - m) / s)
+            elif name == "utterance_cmvn":
+                self.steps.append(
+                    lambda x, rng, m=conf.get("norm_means", True),
+                    v=conf.get("norm_vars", True): utterance_cmvn(x, m, v))
             elif name == "specaugment":
                 self.steps.append(
                     lambda x, rng, c=conf: spec_augment(x, c, rng))

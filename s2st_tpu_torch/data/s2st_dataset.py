@@ -10,7 +10,9 @@ and ``collate`` (:233-323: rows sorted by source length, descending;
 ``prev_output_tokens`` a zero BOS frame then the shifted target; the text
 shifted with eos moved to the front; the token counts; padded to the
 given static shapes, with rows past the batch's of length 0; waveforms
-collate to a (B, L) source, :260-275). Batches and their order come from
+collate to a (B, L) source, :260-275), with each row's speaker id under
+``speaker`` where the split has a ``--speaker-to-id`` map (:208-210,
+:300-325). Batches and their order come from
 ``data/iterators.py``, whose pads then count samples.
 """
 
@@ -32,11 +34,13 @@ PAD = 1
 class TrainSplit(Manifest):
     def __init__(self, root: str, cfg: S2STDataConfig, split: str,
                  src_dict: Dictionary, tgt_dict: Dictionary,
-                 n_frames_per_step: int = 1):
+                 n_frames_per_step: int = 1,
+                 speaker_to_id: Optional[Dict[str, int]] = None):
         super().__init__(root, cfg, split)
         self.src_dict = src_dict
         self.tgt_dict = tgt_dict
         self.n_frames_per_step = n_frames_per_step
+        self.speaker_to_id = speaker_to_id
 
     def __len__(self) -> int:
         return len(self.samples)
@@ -50,9 +54,13 @@ class TrainSplit(Manifest):
         src = self.source(index, rng)
         tgt = pack_frames(self.tgt_transforms(get_features(s["tgt_audio"]),
                                               rng), self.n_frames_per_step)
-        return {"index": index, "src_speech": src, "tgt_speech": tgt,
+        item = {"index": index, "src_speech": src, "tgt_speech": tgt,
                 "src_text": self.src_dict.encode_line(s.get("src_text", "")),
                 "tgt_text": self.tgt_dict.encode_line(s.get("tgt_text", ""))}
+        if self.speaker_to_id is not None:
+            # an unknown speaker is 0 (s2st_dataset.py:208-210)
+            item["speaker"] = self.speaker_to_id.get(s.get("speaker", ""), 0)
+        return item
 
     def collate(self, items: List[Dict[str, np.ndarray]], **pads
                 ) -> Dict[str, Any]:
@@ -112,6 +120,10 @@ def collate(items: List[Dict[str, np.ndarray]],
     }
     batch.update({k: torch.from_numpy(v) for k, v in texts.items()})
     batch.update({k: torch.from_numpy(v) for k, v in lens.items()})
+    if "speaker" in items[0]:
+        speaker = np.zeros((b,), np.int64)   # pad rows: speaker 0
+        speaker[:len(items)] = [it["speaker"] for it in items]
+        batch["speaker"] = torch.from_numpy(speaker)
     return batch
 
 

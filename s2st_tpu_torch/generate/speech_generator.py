@@ -8,7 +8,9 @@ unpacking. JAX runs the steps in a ``lax.while_loop`` that stops once every
 row has finished; here they run in a Python loop that asks the device
 whether all rows have finished only every few steps, and then zeroes every
 frame after the step at which the JAX loop stops, so the output is the
-same (the postnet reads two frames past each valid end).
+same (the postnet reads two frames past each valid end). With
+``kv_cache_dtype="int8"`` the caches and the cross-attention K/V are int8
+(JAX's :78-90).
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..models.s2st_transformer import PAD, S2STTransformer
-from ..nn.attention import cross_attn_precompute, self_attn_cache_init
+from ..nn.attention import (cross_attn_precompute, cross_attn_precompute_int8,
+                            self_attn_cache_init, self_attn_cache_init_int8)
 from ..nn.transformer import (decoder_layer_step_fused,
                               fuse_decoder_layer_params, position_at_step)
 
@@ -33,6 +36,9 @@ class GenerationConfig:
     max_iter: int = 1500            # decode steps at the packed frame rate
     eos_prob_threshold: float = 0.5
     prenet_dropout_at_inference: bool = True  # the reference's always-on
+    kv_cache_dtype: str = "bf16"    # "int8": the decoder's self-attention
+    #   caches and cross K/V in int8 with a scale a (token, head); "bf16"
+    #   keeps them in the compute dtype
 
 
 def decode_loop(model: S2STTransformer, gen_cfg: GenerationConfig,
@@ -56,12 +62,20 @@ def decode_loop(model: S2STTransformer, gen_cfg: GenerationConfig,
     fused = [{k: v if "_ln_" in k else v.to(cfg.dtype)
               for k, v in fuse_decoder_layer_params(layer).items()}
              for layer in dec.transformer_layers]
-    cross_kv = [cross_attn_precompute(layer.encoder_attn, enc_out)
-                for layer in dec.transformer_layers]
-    caches = [self_attn_cache_init(b, max_iter, heads,
-                                   cfg.decoder_embed_dim // heads, cfg.dtype,
-                                   dev)
-              for _ in dec.transformer_layers]
+    head_dim = cfg.decoder_embed_dim // heads
+    if gen_cfg.kv_cache_dtype == "int8":
+        cross_kv = [cross_attn_precompute_int8(layer.encoder_attn, enc_out)
+                    for layer in dec.transformer_layers]
+        caches = [self_attn_cache_init_int8(b, max_iter, heads, head_dim, dev)
+                  for _ in dec.transformer_layers]
+    elif gen_cfg.kv_cache_dtype == "bf16":
+        cross_kv = [cross_attn_precompute(layer.encoder_attn, enc_out)
+                    for layer in dec.transformer_layers]
+        caches = [self_attn_cache_init(b, max_iter, heads, head_dim,
+                                       cfg.dtype, dev)
+                  for _ in dec.transformer_layers]
+    else:
+        raise ValueError(f"kv_cache_dtype {gen_cfg.kv_cache_dtype!r}")
     enc_pad = enc["encoder_padding_mask"]
     last = len(fused) - 1
     drop_gen = generator if gen_cfg.prenet_dropout_at_inference else None

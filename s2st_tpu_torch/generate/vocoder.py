@@ -1,9 +1,12 @@
-"""Griffin-Lim vocoder: log-mel -> pseudo-inverse mel -> Griffin-Lim, batched
-on the device (counterpart of ``s2st_tpu/generate/vocoder.py:29-78``).
+"""Vocoders: Griffin-Lim (log-mel -> pseudo-inverse mel -> Griffin-Lim,
+batched on the device) and HiFi-GAN (counterpart of
+``s2st_tpu/generate/vocoder.py``: ``GriffinLimVocoder`` :29-78,
+``HiFiGANVocoder`` :81-110, ``get_vocoder`` :113-119).
 """
 
 from __future__ import annotations
 
+import json
 from typing import Optional
 
 import numpy as np
@@ -59,3 +62,57 @@ class GriffinLimVocoder:
                    f_min=feat.get("f_min", 0.0),
                    f_max=feat.get("f_max", 8000.0),
                    spec_bwd_max_iter=spec_bwd_max_iter, device=device)
+
+
+class HiFiGANVocoder:
+    """The HiFi-GAN generator of a torch checkpoint, in fp32. It vocodes
+    the whole (B, T, n_mels) tensor it is given, frames past each row's
+    length included (JAX's takes no lengths either, :96-101), and a row of
+    T frames gives hop * T samples."""
+
+    def __init__(self, checkpoint_path: str, model_cfg: dict, device=None):
+        from ..models.hifigan import (HiFiGANConfig, HiFiGANGenerator,
+                                      load_torch_generator)
+        self.cfg = HiFiGANConfig.from_json(model_cfg)
+        self.model = HiFiGANGenerator(self.cfg)
+        self.model.load_state_dict(load_torch_generator(checkpoint_path,
+                                                        self.cfg))
+        self.model = self.model.to(device).eval()
+        self.sample_rate = model_cfg.get("sampling_rate", 16000)
+        self.hop_size = int(np.prod(self.cfg.upsample_rates))
+
+    @torch.no_grad()
+    def __call__(self, logmel: torch.Tensor,
+                 lengths: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        """logmel (B, T, n_mels) -> (B, hop * T); lengths and generator are
+        taken for Griffin-Lim's signature and not used."""
+        return self.model(logmel.float())
+
+    def wave_length(self, n_frames: int) -> int:
+        return self.hop_size * int(n_frames)
+
+    @classmethod
+    def from_data_cfg(cls, data_cfg: S2STDataConfig, device=None
+                      ) -> "HiFiGANVocoder":
+        """From config.yaml's ``vocoder:`` block: ``type: hifigan``,
+        ``checkpoint`` and ``config`` (the generator's JSON)."""
+        block = data_cfg.vocoder or {}
+        if block.get("type", "griffin_lim") != "hifigan":
+            raise ValueError("--vocoder hifigan needs a vocoder block with "
+                             "type: hifigan in config.yaml")
+        with open(data_cfg.abs_path(block["config"])) as f:
+            model_cfg = json.load(f)
+        return cls(data_cfg.abs_path(block["checkpoint"]), model_cfg, device)
+
+
+def get_vocoder(name: str, data_cfg: S2STDataConfig, spec_bwd_max_iter: int,
+                device=None):
+    """``--vocoder griffin_lim|hifigan``."""
+    if name == "griffin_lim":
+        return GriffinLimVocoder.from_data_cfg(data_cfg, spec_bwd_max_iter,
+                                               device)
+    if name == "hifigan":
+        return HiFiGANVocoder.from_data_cfg(data_cfg, device)
+    raise ValueError(f"Unknown vocoder {name}")

@@ -4,7 +4,8 @@ Counterpart of ``s2st_tpu/options.py``: the model flags with the same names
 and defaults (:222-303, :484-488, the HuBERT frontend's :70-75),
 ``model_args_from_checkpoint`` (:2371),
 which lets the checkpoint's own flag echo (``__meta__["args"]``) override
-the command line for every architectural key, and ``build_model_config``
+the command line for every architectural key and ``--model-overrides``
+override both, and ``build_model_config``
 (:2445-2509). ``model_config`` takes the vocabulary sizes from the caller
 (the training CLI's dictionaries); ``build_model_config`` takes them, and
 the speaker count, from a checkpoint's array shapes, so that generation
@@ -14,7 +15,9 @@ loads no dictionary.
 from __future__ import annotations
 
 import argparse
-from typing import Any, Dict
+import ast
+import json
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -89,15 +92,32 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--st-ce-weight", type=float, default=0.0)
 
 
+def add_model_overrides_arg(p: argparse.ArgumentParser) -> None:
+    """``--model-overrides`` of the generation CLIs (options.py:601)."""
+    p.add_argument("--model-overrides", default="{}",
+                   help="a Python dict literal of model flags that win over "
+                        "the checkpoint's echo and the command line")
+
+
 def model_args_from_checkpoint(args: argparse.Namespace,
                                meta: Dict[str, Any]) -> argparse.Namespace:
     """The checkpoint's flag echo over the command line, run-time keys
-    excepted; the command line alone when the checkpoint holds no echo."""
+    excepted, and ``--model-overrides`` (a Python dict literal, read with
+    ``ast.literal_eval``) over both; the command line alone when there is
+    neither (options.py:2371-2407)."""
+    overrides = {}
+    raw = (getattr(args, "model_overrides", None) or "").strip()
+    if raw and raw != "{}":
+        overrides = ast.literal_eval(raw)
+        if not isinstance(overrides, dict):
+            raise ValueError(f"--model-overrides is not a dict: {raw}")
     saved = meta.get("args")
-    if not saved:
+    if not saved and not overrides:
         return args
     merged = dict(vars(args))
-    merged.update({k: v for k, v in saved.items() if k not in GEN_CLI_KEYS})
+    merged.update({k: v for k, v in (saved or {}).items()
+                   if k not in GEN_CLI_KEYS})
+    merged.update(overrides)
     return argparse.Namespace(**merged)
 
 
@@ -105,10 +125,31 @@ def _ints(s) -> tuple:
     return tuple(int(x) for x in str(s).split(",") if x != "")
 
 
+def add_speaker_args(p: argparse.ArgumentParser) -> None:
+    """``--speaker-to-id`` (options.py:78); ``--speaker-embed-dim`` is a
+    model flag."""
+    p.add_argument("--speaker-to-id", default=None,
+                   help='a JSON dict, e.g. \'{"fisher_spanish": 0}\'')
+
+
+def speaker_to_id(args: argparse.Namespace) -> Optional[Dict[str, int]]:
+    """The ``--speaker-to-id`` map, or None (tasks/s2s_translation.py:42)."""
+    raw = getattr(args, "speaker_to_id", None)
+    return json.loads(raw) if raw else None
+
+
+def num_speakers(args: argparse.Namespace) -> int:
+    """max id + 1 of ``--speaker-to-id``, 0 without one (:100-101)."""
+    ids = speaker_to_id(args)
+    return max(ids.values()) + 1 if ids else 0
+
+
 def build_model_config(args: argparse.Namespace, variables: Dict[str, Any],
-                       input_feat_per_channel: int) -> S2STConfig:
-    """The config of a checkpoint's model: vocabularies and speakers from
-    its array shapes, the rest from ``args``."""
+                       input_feat_per_channel: int,
+                       speakers: Optional[int] = None) -> S2STConfig:
+    """The config of a checkpoint's model: vocabularies from its array
+    shapes, the rest from ``args``; the speaker count is ``speakers``
+    where given, else the checkpoint's."""
     params = variables["params"]
 
     def rows(*path, axis=0, default=0):
@@ -123,8 +164,10 @@ def build_model_config(args: argparse.Namespace, variables: Dict[str, Any],
         or rows("decoder", "ctc_proj", "w", axis=1, default=100)
     tgt_vocab = rows("aux_st_decoder", "embed", "w") \
         or rows("decoder", "ctc_proj_tgt", "w", axis=1, default=100)
+    if speakers is None:
+        speakers = rows("encoder", "embed_speaker", "w")
     return model_config(args, src_vocab, tgt_vocab, input_feat_per_channel,
-                        num_speakers=rows("encoder", "embed_speaker", "w"))
+                        num_speakers=speakers)
 
 
 def model_config(args: argparse.Namespace, src_vocab_size: int,

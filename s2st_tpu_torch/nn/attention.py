@@ -7,7 +7,9 @@ than the causal one, has no attention-probability dropout active and has a
 head_dim the kernels take (``kernels.attention.takes_head_dim``: a multiple
 of 8 up to 128) goes to ``kernels.attention.flash_attention`` (the gate of
 ``mha``, :137-140); the rest, and the one-query decode steps, use ``attend``
-(plain PyTorch, as JAX leaves them to XLA).
+(plain PyTorch, as JAX leaves them to XLA). The decode steps' caches hold
+the compute dtype, or int8 with a scale a (token, head) (``quantize_kv``,
+:169-200).
 """
 
 from __future__ import annotations
@@ -127,3 +129,42 @@ def cross_attn_precompute(attn: MultiheadAttention, enc_out: torch.Tensor
         "v": split_heads(linear(enc_out, attn.v_proj.weight, attn.v_proj.bias),
                          attn.num_heads),
     }
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (..., D) -> (int8 values, fp32 scale (..., 1)): symmetric absmax
+    over D, the scale floored at 1e-8 in the division, rounded half to
+    even (nn/attention.py:171-176)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+    q = torch.round(xf / scale.clamp(min=1e-8)).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype) -> torch.Tensor:
+    """int8 values times their scale in fp32, then the compute dtype."""
+    return (q.float() * scale).to(dtype)
+
+
+def self_attn_cache_init_int8(batch: int, max_len: int, num_heads: int,
+                              head_dim: int, device
+                              ) -> Dict[str, torch.Tensor]:
+    def zeros(d, dtype):
+        return torch.zeros((batch, max_len, num_heads, d), dtype=dtype,
+                           device=device)
+    return {"k": zeros(head_dim, torch.int8),
+            "k_scale": zeros(1, torch.float32),
+            "v": zeros(head_dim, torch.int8),
+            "v_scale": zeros(1, torch.float32)}
+
+
+def cross_attn_precompute_int8(attn: MultiheadAttention,
+                               enc_out: torch.Tensor
+                               ) -> Dict[str, torch.Tensor]:
+    """``cross_attn_precompute`` quantized: the encoder K/V that every
+    decode step reads again."""
+    kv = cross_attn_precompute(attn, enc_out)
+    kq, ks = quantize_kv(kv["k"])
+    vq, vs = quantize_kv(kv["v"])
+    return {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs}

@@ -16,7 +16,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from .attention import MultiheadAttention, attend, split_heads
+from .attention import (MultiheadAttention, attend, dequantize_kv, quantize_kv,
+                        split_heads)
 from .core import dropout, get_activation, layer_norm, linear, scaled
 
 
@@ -187,8 +188,10 @@ def decoder_layer_step_fused(lp: Dict[str, torch.Tensor], x_step: torch.Tensor,
     """One-token decode step (nn/transformer.py:263). x_step (B, 1, C);
     cache {"k", "v"} (B, Tmax, H, D) is written IN PLACE at ``step`` (JAX
     returns a new cache; here the buffer is reused to save a copy a step);
-    cache positions after ``step`` are masked. Returns (x_step, cache,
-    cross-attention weights (B, H, 1, Tk) fp32 or None)."""
+    cache positions after ``step`` are masked. A cache or cross K/V with
+    ``k_scale`` holds int8 values (``nn.attention.quantize_kv``; JAX's
+    :285-327), dequantised to the compute dtype for the products. Returns
+    (x_step, cache, cross-attention weights (B, H, 1, Tk) fp32 or None)."""
     act = get_activation(activation)
     b, _, c = x_step.shape
     scale = (c // num_heads) ** -0.5
@@ -205,12 +208,20 @@ def decoder_layer_step_fused(lp: Dict[str, torch.Tensor], x_step: torch.Tensor,
     h = norm("self_ln", x_step, True)
     q, k_new, v_new = linear(h, lp["qkv_w"], lp["qkv_b"]).chunk(3, dim=-1)
     q = split_heads(scaled(q, scale), num_heads)
-    cache["k"][:, step] = split_heads(k_new, num_heads)[:, 0].to(
-        cache["k"].dtype)
-    cache["v"][:, step] = split_heads(v_new, num_heads)[:, 0].to(
-        cache["v"].dtype)
-    out, _ = attend(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
-                    key_padding_mask=invalid)
+    if "k_scale" in cache:      # int8 values with a scale a (token, head)
+        for name, new in (("k", k_new), ("v", v_new)):
+            qv, sc = quantize_kv(split_heads(new, num_heads)[:, 0])
+            cache[name][:, step] = qv
+            cache[name + "_scale"][:, step] = sc
+        k_all = dequantize_kv(cache["k"], cache["k_scale"], q.dtype)
+        v_all = dequantize_kv(cache["v"], cache["v_scale"], q.dtype)
+    else:
+        cache["k"][:, step] = split_heads(k_new, num_heads)[:, 0].to(
+            cache["k"].dtype)
+        cache["v"][:, step] = split_heads(v_new, num_heads)[:, 0].to(
+            cache["v"].dtype)
+        k_all, v_all = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
+    out, _ = attend(q, k_all, v_all, key_padding_mask=invalid)
     x = residual + linear(out.reshape(b, 1, c), lp["self_out_w"],
                           lp["self_out_b"])
     x = norm("self_ln", x, False)
@@ -219,8 +230,12 @@ def decoder_layer_step_fused(lp: Dict[str, torch.Tensor], x_step: torch.Tensor,
     h = norm("cross_ln", x, True)
     q = split_heads(
         scaled(linear(h, lp["cross_q_w"], lp["cross_q_b"]), scale), num_heads)
-    out, w = attend(q, cross_kv["k"], cross_kv["v"],
-                    key_padding_mask=enc_padding_mask)
+    if "k_scale" in cross_kv:
+        ck = dequantize_kv(cross_kv["k"], cross_kv["k_scale"], q.dtype)
+        cv = dequantize_kv(cross_kv["v"], cross_kv["v_scale"], q.dtype)
+    else:
+        ck, cv = cross_kv["k"], cross_kv["v"]
+    out, w = attend(q, ck, cv, key_padding_mask=enc_padding_mask)
     x = residual + linear(out.reshape(b, 1, c), lp["cross_out_w"],
                           lp["cross_out_b"])
     x = norm("cross_ln", x, False)

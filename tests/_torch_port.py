@@ -110,3 +110,49 @@ def lightconv_port_model(pcfg, variables):
     model = LightConvModel(pcfg)
     load_jax_variables(model, numpy_tree(variables))
     return model.eval()
+
+
+# stage 1's inputs: English-side source text, Chinese-side target text (the
+# recipe's g2p keeps a target row only without Latin letters)
+SRC_SENTENCES = ["Mr. Smith went to St. Louis", "hello   world, how are you",
+                 "Dr. Who is here", "we meet at 10 o'clock",
+                 "the cat sat on the mat", "Capt. Hook and Lt. Dan"]
+TGT_SENTENCES = ["我们在2019年3月5日见面", "你好，世界！", "花了12.5元",
+                 "百分之50的人", "电话是13912345678", "今天天气很好"]
+
+
+def write_wav_pairs(root, splits=(("train", 4), ("dev", 2), ("tst", 2)),
+                    seed: int = 0, src_seconds=(0.3, 1.2),
+                    tgt_seconds=(0.2, 0.9), latin_row: bool = False) -> list:
+    """Seeded stage-1 inputs under root: source and target WAVs (16 kHz
+    PCM16 noise, every third with a silent stretch) and a metadata TSV a
+    split (id, src_wav, tgt_wav, src_text, tgt_text, speaker; two
+    speakers; with ``latin_row`` one target text holds Latin letters).
+    Returns the ``split:path`` specs of stage 1's --metadata."""
+    from s2st_tpu_torch.data.audio_utils import write_wav
+    from pathlib import Path
+    root = Path(root)
+    (root / "wavs").mkdir(parents=True, exist_ok=True)
+    r = np.random.RandomState(seed)
+    specs, k = [], 0
+    for split, n in splits:
+        lines = ["id\tsrc_wav\ttgt_wav\tsrc_text\ttgt_text\tspeaker"]
+        for i in range(n):
+            uid = f"{split}_{i:02d}"
+            for side, (lo, hi) in (("src", src_seconds),
+                                   ("tgt", tgt_seconds)):
+                wav = r.randn(int(r.uniform(lo, hi) * 16000)) * 0.1
+                if k % 3 == 0:
+                    wav[len(wav) // 4:len(wav) // 2] = 0.0
+                write_wav(str(root / "wavs" / f"{uid}_{side}.wav"),
+                          np.clip(wav, -1, 1), 16000)
+            tgt = TGT_SENTENCES[k % len(TGT_SENTENCES)]
+            if latin_row and k == 1:
+                tgt = tgt + " OK"
+            lines.append(f"{uid}\t{uid}_src.wav\t{uid}_tgt.wav\t"
+                         f"{SRC_SENTENCES[k % len(SRC_SENTENCES)]}\t{tgt}\t"
+                         f"spk{k % 2}")
+            k += 1
+        (root / f"meta_{split}.tsv").write_text("\n".join(lines) + "\n")
+        specs.append(f"{split}:{root / f'meta_{split}.tsv'}")
+    return specs

@@ -4,8 +4,9 @@
   interpreter loads neither jax nor any module of s2st_tpu, nor sacrebleu,
   matplotlib, transformers or safetensors (the card's machine has none of
   them).
-- Without a CUDA card the serving, training, text generation and
-  generate_for_s2st CLIs raise unless ``--device cpu`` is given, and
+- Without a CUDA card the serving, training, text generation,
+  generate_for_s2st and stage-3 feature CLIs raise unless ``--device cpu``
+  is given, and
   chip_smoke.py exits non-zero with no result line, as it does from a directory that holds nothing else of the
   repository.
 - The tests' shared helper keeps the JAX CLIs' compilation cache inside
@@ -68,7 +69,10 @@ def test_port_imports_neither_jax_nor_s2st_tpu():
                  "cli.score", "cli.evaluate_s2s_bleu",
                  "data.wav2vec2_processor", "models.hf_checkpoint",
                  "models.wav2vec2_ctc", "tools.learnable_corpus",
-                 "tools.convergence_gate"):
+                 "tools.convergence_gate", "preprocessing.manifest_utils",
+                 "preprocessing.cn_text_norm", "preprocessing.g2p",
+                 "preprocessing.split_file", "preprocessing.audio_manifest",
+                 "cli.get_feature_manifest", "models.hifigan"):
         assert f"s2st_tpu_torch.{name}" in _walk_names(), name
     assert bad == "[]", bad
 
@@ -124,6 +128,15 @@ def test_generate_for_s2st_cli_raises_without_cuda(tmp_path):
     from s2st_tpu_torch.cli import generate_for_s2st
     with pytest.raises(RuntimeError, match="CUDA"):
         generate_for_s2st.main([str(tmp_path), "--path", "x.npz"])
+
+
+def test_feature_manifest_cli_raises_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from s2st_tpu_torch.cli import get_feature_manifest
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_feature_manifest.main(["--audio-manifest-root", str(tmp_path),
+                                   "--output-root", str(tmp_path / "out")])
 
 
 def test_text_generate_cli_raises_without_cuda(tmp_path):
