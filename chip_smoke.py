@@ -215,6 +215,28 @@ library's SASS, and the attention libraries must hold some.
    distinct call held against the plain version, WAVs of the expected
    length; both vocoders' device ms on one served batch.
 
+20. The search options, fairseq .pt serving and asynchronous saves at
+   the recipe's width, bf16, seeded weights: (a) stages 10-11 on 16 of
+   phase 14's utterances (one batch) through generate_for_s2st with beam
+   search, --sampling --sampling-topk 10, --diverse-beam-groups 5,
+   --diversity-rate 0.5, --prefix-size 1 (stage 10), --constraints
+   ordered and unordered from a file the port's constraints_tools
+   extract wrote (C- lines), and the ensemble of two checkpoints: 12
+   attention launches a batch a model (24 for the ensemble), each
+   distinct call held against the plain version; (b) the first
+   checkpoint saved in fairseq's layout (.pt, the model from the
+   command line's flags): generate_for_s2st prints the .npz run's lines
+   and generate_waveform (30 steps) its features, equal; (c) LightConv
+   text generate on phase 10's corpus with --sampling, --diverse-beam-
+   groups 5 and a 2-checkpoint ensemble, and DynamicConv with top-p
+   sampling: 7 conv launches a batch a model, each distinct conv call
+   held against the plain version; (d) phase 13's training run with
+   --warmup-updates 1 --stop-min-lr 8e-4 (deterministic algorithms), with
+   synchronous saves and with --save-async: both stop after epoch 2 at
+   update 4 (e), their files (epoch, last and EMA) equal bit for bit;
+   each save's stall of the loop and its write, peak memory and ms an
+   update, side by side; both kernels >= 27 launches a microbatch.
+
 Prints the card's name and power limit, one JSON line of kernel
 measurements, and, last, {"ok": true, "device": {...}}.
 
@@ -1438,33 +1460,56 @@ def run_counted(argv) -> tuple:
 
 
 class TimedSaves:
-    """Times each checkpoint the train CLI writes, from the device-to-host
-    copy of its state (``state_flat``) to the last name's link, with the
-    file's size."""
+    """Times each checkpoint save of the train CLI: the stall of its loop
+    (from the snapshot of the state, ``StateSnapshot``, the device
+    synchronised before it, to the return of ``CheckpointManager.save``)
+    and the write (from the host copy of the state, ``StateSnapshot.flat``,
+    to the last name's link, in the writer's thread when saves are
+    asynchronous), with the file's size. ``records`` pairs them, in order,
+    once the run has waited for its writes."""
 
     def __enter__(self):
-        from s2st_tpu_torch.cli import train
-        self.train, self.records = train, []
-        self.flat, self.save = train.state_flat, train.CheckpointManager.save
+        from s2st_tpu_torch.train import checkpoint as ck
+        self.ck, self.stalls, self.writes = ck, [], []
+        self.init, self.save = ck.StateSnapshot.__init__, \
+            ck.CheckpointManager.save
+        self.flat, self.files = ck.StateSnapshot.flat, ck.save_checkpoint_files
+        snapped, starts = [], []
 
-        def flat(trainer):
+        def init(snap, *args, **kw):
             torch.cuda.synchronize()
-            self.t0 = time.perf_counter()
-            return self.flat(trainer)
+            snapped.append(time.perf_counter())
+            self.init(snap, *args, **kw)
 
         def save(mgr, *args, **kw):
             paths = self.save(mgr, *args, **kw)
-            self.records.append({
-                "ms": (time.perf_counter() - self.t0) * 1e3,
-                "mb": Path(paths[0]).stat().st_size / 1e6,
+            self.stalls.append({
+                "stall_ms": (time.perf_counter() - snapped.pop()) * 1e3,
                 "names": [Path(p).name for p in paths]})
             return paths
-        train.state_flat, train.CheckpointManager.save = flat, save
+
+        def flat(snap):
+            starts.append(time.perf_counter())
+            return self.flat(snap)
+
+        def files(paths, arrays, meta):
+            self.files(paths, arrays, meta)
+            self.writes.append({
+                "write_ms": (time.perf_counter() - starts.pop(0)) * 1e3,
+                "mb": Path(paths[0]).stat().st_size / 1e6})
+        ck.StateSnapshot.__init__, ck.CheckpointManager.save = init, save
+        ck.StateSnapshot.flat, ck.save_checkpoint_files = flat, files
         return self
 
+    @property
+    def records(self) -> list:
+        return [dict(s, **w) for s, w in zip(self.stalls, self.writes)]
+
     def __exit__(self, *exc):
-        self.train.state_flat = self.flat
-        self.train.CheckpointManager.save = self.save
+        self.ck.StateSnapshot.__init__ = self.init
+        self.ck.CheckpointManager.save = self.save
+        self.ck.StateSnapshot.flat = self.flat
+        self.ck.save_checkpoint_files = self.files
 
 
 class Deterministic:
@@ -1683,9 +1728,9 @@ def runtime_phase(card: str, data: Path) -> dict:
               f"(parameters, statistics, Adam state, EMA; deterministic "
               f"algorithms on); A kept {files}; attention launches fwd {fwd} "
               f"bwd {bwd} over {micro} microbatches ({card})", flush=True)
-        print(f"train runtime: checkpoint saves (device copy, write, "
-              f"links): "
-              + ", ".join(f"{r['ms']:.1f} ms for {r['mb']:.1f} MB "
+        print(f"train runtime: checkpoint saves (device-to-host copy, "
+              f"write, links; synchronous): "
+              + ", ".join(f"{r['stall_ms']:.1f} ms for {r['mb']:.1f} MB "
                           f"{'+'.join(r['names'])}" for r in saves.records)
               + f"; average of 2 files {out['average_s']:.3f} s, equal to "
               f"their numpy mean; served from the average ({card})",
@@ -1977,16 +2022,17 @@ def text_model(conv_type: str, dtype=torch.float32, seed: int = 0):
     return LightConvModel(cfg).init_weights(seed), echo
 
 
-def run_text_cli(data: Path, ckpt: Path, out: Path, score_reference: bool,
-                 card: str, label: str) -> dict:
-    """One run of the port's text generate CLI with both conv kernels'
-    counts set to 0 just before it; returns the counts, the batches and the
-    run's timing, after checking its lines."""
+def run_text_cli(data: Path, ckpt, out: Path, score_reference: bool,
+                 card: str, label: str, extra: tuple = ()) -> dict:
+    """One run of the port's text generate CLI (``ckpt`` a path, or a:b
+    for an ensemble; ``extra`` flags after the recipe's) with both conv
+    kernels' counts set to 0 just before it; returns the counts, the
+    batches and the run's timing, after checking its lines."""
     from s2st_tpu_torch.cli import generate
     from s2st_tpu_torch.kernels import conv as kc
     argv = [str(data), "--source-lang", "de", "--target-lang", "en",
             "--gen-subset", "test", "--path", str(ckpt), *TEXT_GEN_FLAGS,
-            "--results-path", str(out), "--device", "cuda"]
+            "--results-path", str(out), "--device", "cuda", *extra]
     if score_reference:
         argv.append("--score-reference")
     kc.lightconv.launches = kc.dynamicconv.launches = 0
@@ -2009,7 +2055,7 @@ def run_text_cli(data: Path, ckpt: Path, out: Path, score_reference: bool,
                              f"(want {TEXT_PAIRS}), last line {lines[-1]!r}")
     timing = json.loads((out / "timing.json").read_text())
     rec = {"counts": counts, "batches": len(timing["batches"]),
-           "timing": timing, "wall_s": wall, "bleu": bleu}
+           "timing": timing, "wall_s": wall, "bleu": bleu, "lines": lines}
     for b in timing["batches"]:
         if score_reference:
             detail = f"forward_ms {b['forward_ms']:.3f}"
@@ -2228,7 +2274,7 @@ def run_s2t_cli(argv, card: str, label: str,
     if rc != 0:
         raise AssertionError(f"generate_for_s2st ({label}) returned {rc}")
     lines = [ln for ln in buf.getvalue().splitlines()
-             if re.match(r"^[STHDP]-|^Generate ", ln)]
+             if re.match(r"^[STHDPC]-|^Generate ", ln)]
     hyps = [ln for ln in lines if ln.startswith("H-")]
     scores = [float(ln.split("\t")[1]) for ln in hyps]
     if len(hyps) != n_rows or not np.isfinite(scores).all():
@@ -3675,6 +3721,349 @@ def data_prep_phase(card: str) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# phase 20: search strategies, constraints, prefixes, ensembles; fairseq
+# .pt serving; asynchronous saves and --stop-min-lr
+# --------------------------------------------------------------------------
+
+# phase 20's stages 10-11 corpus: the first 16 of phase 14's utterances,
+# one batch under --max-tokens 50000
+SEARCH_FRAMES = S2T_FRAMES[:16]
+# each run: (flags after phase 14's sacrebleu line, checkpoints, scoring)
+SEARCH_RUNS = {
+    "beam": ([], "a", "sacrebleu"),
+    "sampling_topk": (["--sampling", "--sampling-topk", "10"], "a",
+                      "sacrebleu"),
+    "diverse_beam": (["--diverse-beam-groups", "5"], "a", "sacrebleu"),
+    "diverse_siblings": (["--diversity-rate", "0.5"], "a", "sacrebleu"),
+    "prefix": (["--prefix-size", "1"], "a", "wer"),
+    "constraints_ordered": (["--constraints", "ordered"], "a", "sacrebleu"),
+    "constraints_unordered": (["--constraints", "unordered"], "a",
+                              "sacrebleu"),
+    "ensemble": ([], "a:b", "sacrebleu"),
+    "pt": ([], "pt", "sacrebleu"),
+}
+TEXT_SEARCH_RUNS = {
+    "sampling": (["--sampling", "--sampling-topk", "10"], "lightweight", 1),
+    "diverse_beam": (["--diverse-beam-groups", "5"], "lightweight", 1),
+    "ensemble": ([], "lightweight", 2),
+    "dynamic_sampling": (["--sampling", "--sampling-topp", "0.9"],
+                         "dynamic", 1),
+}
+
+
+def recipe_flags() -> list:
+    """RECIPE_ARGS as command-line flags: a fairseq .pt's model comes from
+    the command line, as in JAX's CLIs."""
+    out = []
+    for key, value in RECIPE_ARGS.items():
+        flag = "--" + key.replace("_", "-")
+        if value is True:
+            out.append(flag)
+        elif value is not False:
+            out += [flag, str(value)]
+    return out
+
+
+class RecordConv:
+    """Keeps, for each distinct call of the conv kernels on a main path
+    (kind, shapes, padding, heads, dtypes), the first call's inputs and the
+    output the path got; ``hold_path_conv`` then holds each against the
+    plain version."""
+
+    def __enter__(self):
+        from s2st_tpu_torch.kernels import conv as kc
+        self.kc, self.table, self.calls = kc, dict(kc._FORWARD), {}
+
+        def recorder(kind):
+            kernel, plain = self.table[kind]
+
+            def record(x, weight, padding_l, heads):
+                out = kernel(x, weight, padding_l, heads)
+                key = (kind, tuple(x.shape), tuple(weight.shape), padding_l,
+                       heads, str(x.dtype).split(".")[-1],
+                       str(weight.dtype).split(".")[-1])
+                if key not in self.calls:
+                    self.calls[key] = (x.detach().clone(),
+                                       weight.detach().clone(),
+                                       out.detach().clone())
+                return out
+            return record, plain
+        for kind in self.table:
+            kc._FORWARD[kind] = recorder(kind)
+        return self
+
+    def __exit__(self, *exc):
+        self.kc._FORWARD.update(self.table)
+
+
+def hold_path_conv(calls: dict, label: str, card: str) -> float:
+    """Each recorded conv call's kernel output against the plain version
+    on the same inputs: fp32 within TOL_FP32, bf16 within TOL_BF16 x
+    max(1, max |x| / 4) (the output is a convex combination of x's rows,
+    rounded to bf16; phase 9's bound for unit-normal x). Returns the
+    largest error."""
+    from s2st_tpu_torch.kernels import conv as kc
+    worst = 0.0
+    with torch.inference_mode():
+        for (kind, xs, ws, pad, heads, xt, wt), (x, w, out) in calls.items():
+            ref = getattr(kc, f"{kind}_reference")(x, w, pad, heads)
+            err = (out.float() - ref.float()).abs()
+            max_err = float(err.max()) if err.numel() else 0.0
+            if xt == "float32":
+                atol, rtol = TOL_FP32
+                ok = bool((err <= atol + rtol * ref.float().abs()).all())
+                tol = f"atol {atol} + rtol {rtol}"
+            else:
+                bound = TOL_BF16 * max(1.0, float(x.float().abs().max()) / 4)
+                ok = max_err <= bound
+                tol = f"atol {bound:.4g}"
+            ok = ok and bool(torch.isfinite(out.float()).all())
+            print("path_conv " + json.dumps({
+                "path": label, "kernel": kind, "x": xs, "weight": ws,
+                "padding_l": pad, "heads": heads, "dtype": xt,
+                "weight_dtype": wt, "max_abs_err": max_err,
+                "tolerance": tol, "card": card}), flush=True)
+            if not ok:
+                raise AssertionError(f"{label}: {kind} at x {xs} weight {ws} "
+                                     f"{xt} disagrees with the plain version:"
+                                     f" max abs err {max_err} ({tol})")
+            worst = max(worst, max_err)
+    print(f"{label}: {len(calls)} distinct conv kernel calls held against "
+          f"the plain version, max abs err {worst:.3e} ({card})", flush=True)
+    return worst
+
+
+def search_s2t(work: Path, card: str) -> dict:
+    """Phase 20(a)-(b): stages 10-11 under every search option, and the
+    fairseq .pt of the same weights through both serving CLIs."""
+    from s2st_tpu_torch.cli import generate_waveform
+    from s2st_tpu_torch.data.data_cfg import S2STDataConfig
+    from s2st_tpu_torch.models.jax_bridge import write_jax_checkpoint
+    from s2st_tpu_torch.models.s2st_transformer import S2STTransformer
+    from s2st_tpu_torch.preprocessing import constraints_tools
+    from s2st_tpu_torch.tasks.s2s_translation import load_dictionaries
+    data = work / "data"
+    write_train_corpus(data, seed=7, frames=SEARCH_FRAMES)
+    shutil.copy(data / "train.tsv", data / "test.tsv")
+    dicts = load_dictionaries(str(data), S2STDataConfig(data / "config.yaml"))
+    cfg = recipe_config().replace(src_vocab_size=len(dicts[0]),
+                                  tgt_vocab_size=len(dicts[1]))
+    ckpts = {}
+    for name, seed in (("a", 4), ("b", 6)):
+        model = S2STTransformer(cfg).init_weights(seed)
+        ckpts[name] = work / f"checkpoint_{name}.npz"
+        write_jax_checkpoint(str(ckpts[name]), model,
+                             meta={"args": RECIPE_ARGS})
+        if name == "a":    # the same weights in fairseq's layout
+            ckpts["pt"] = work / "checkpoint_a.pt"
+            torch.save({"model": model.state_dict(),
+                        "cfg": {"model": {"_name": "s2st_transformer"}}},
+                       str(ckpts["pt"]))
+    ckpts["a:b"] = f"{ckpts['a']}:{ckpts['b']}"
+    cons = work / "constraints.tsv"
+    if constraints_tools.main(["extract", "--audio-manifest",
+                               str(data / "test.tsv"), "--field", "tgt_text",
+                               "-n", "2", "--max-len", "2", "--seed", "1",
+                               "-o", str(cons)]) != 0:
+        raise AssertionError("constraints_tools extract failed")
+    runs = {}
+    with RecordAttention() as rec_attn:
+        for label, (extra, which, scoring) in SEARCH_RUNS.items():
+            argv = s2t_argv(data, ckpts[which], work / label, scoring)
+            if which == "pt":
+                argv += recipe_flags()
+            if label.startswith("constraints"):
+                extra = extra + ["--constraints-file", str(cons)]
+            rec = run_s2t_cli(argv + extra, card, label,
+                              n_rows=len(SEARCH_FRAMES))
+            n_models = len(str(ckpts[which]).split(":"))
+            batches = rec["timing"]["batches"]
+            if rec["launches"] != 12 * n_models * len(batches):
+                raise AssertionError(
+                    f"search ({label}): flash_attention launched "
+                    f"{rec['launches']} times over {len(batches)} batches; "
+                    f"want {12 * n_models} a batch")
+            if label.startswith("constraints") and not any(
+                    ln.startswith("C-") for ln in rec["lines"]):
+                raise AssertionError(f"search ({label}): no C- line")
+            steps = sum(b["decode_steps"] for b in batches)
+            beam_ms = sum(b["beam_ms"] for b in batches)
+            print(f"search ({label}): {rec['timing']['sentences']} "
+                  f"sentences, {rec['timing']['sentences_per_s']:.2f} "
+                  f"sentences/s, beam {beam_ms / steps:.3f} ms a step over "
+                  f"{steps}, encode_ms {batches[0]['encode_ms']:.3f}; "
+                  f"flash_attention launches {rec['launches']} "
+                  f"({12 * n_models} a batch); {rec['result']} ({card})",
+                  flush=True)
+            runs[label] = rec
+    if runs["pt"]["lines"] != runs["beam"]["lines"]:
+        raise AssertionError("generate_for_s2st: the .pt's lines differ "
+                             "from the .npz's of the same weights")
+    if runs["sampling_topk"]["lines"] == runs["beam"]["lines"]:
+        raise AssertionError("search: sampling printed beam search's lines")
+    runs["path_max_abs_err"] = hold_path_attention(rec_attn.calls, "search",
+                                                   card)
+    # stage 7 from the .pt and from the .npz of the same weights
+    feats = {}
+    for which in ("a", "pt"):
+        out = work / f"stage7_{which}"
+        argv = [str(data), "--config-yaml", "config.yaml", "--gen-subset",
+                "tst", "--task", "s2s_translation", "--path",
+                str(ckpts[which]), "--results-path", str(out), "--max-iter",
+                "30", "--eos-prob-threshold", "1.5", "--spec-bwd-max-iter",
+                "8", "--dump-features", "--device", "cuda", *recipe_flags()]
+        from s2st_tpu_torch.kernels import attention as ka
+        ka.flash_attention.launches = 0
+        if generate_waveform.main(argv) != 0:
+            raise AssertionError(f"generate_waveform ({which}) failed")
+        runs[f"stage7_{which}_launches"] = ka.flash_attention.launches
+        feats[which] = np.load(out / "feat" / "utt3_pred.npy")
+    if feats["a"].shape != (120, 80) or not np.isfinite(feats["a"]).all() \
+            or not np.array_equal(feats["pt"], feats["a"]):
+        raise AssertionError(
+            f"generate_waveform: the .pt's features {feats['pt'].shape} "
+            f"differ from the .npz's {feats['a'].shape}: max abs diff "
+            f"{float(np.abs(feats['pt'] - feats['a']).max())}")
+    if runs["stage7_pt_launches"] != 12:
+        raise AssertionError(f"generate_waveform (.pt): "
+                             f"{runs['stage7_pt_launches']} kernel launches "
+                             f"for its batch; want 12")
+    print(f"search: the fairseq .pt serves generate_for_s2st's lines and "
+          f"generate_waveform's features (120, 80) of the .npz of the same "
+          f"weights, equal; 12 launches a batch ({card})", flush=True)
+    return runs
+
+
+def search_text(work: Path, card: str) -> dict:
+    """Phase 20(c): LightConv / DynamicConv text generate with sampling,
+    diverse beam and a 2-checkpoint ensemble."""
+    from s2st_tpu_torch.models.jax_bridge import write_jax_checkpoint
+    data = work / "text"
+    write_text_corpus(data, seed=11)
+    ckpts = {}
+    for conv_type in ("lightweight", "dynamic"):
+        paths = []
+        for seed in (12, 13):
+            model, echo = text_model(conv_type, seed=seed)
+            paths.append(work / f"lightconv_{conv_type}_{seed}.npz")
+            write_jax_checkpoint(str(paths[-1]), model, meta={"args": echo})
+        ckpts[conv_type] = paths
+    runs = {}
+    with RecordConv() as rec_conv:
+        for label, (extra, conv_type, n) in TEXT_SEARCH_RUNS.items():
+            path = ":".join(str(p) for p in ckpts[conv_type][:n])
+            rec = run_text_cli(data, path, work / f"text_{label}", False,
+                               card, f"search {label}", tuple(extra))
+            used = "lightconv" if conv_type == "lightweight" else \
+                "dynamicconv"
+            other = "dynamicconv" if used == "lightconv" else "lightconv"
+            want = 7 * n * rec["batches"]
+            if rec["counts"][used] != want or rec["counts"][other] != 0:
+                raise AssertionError(
+                    f"text search ({label}): launches {rec['counts']} over "
+                    f"{rec['batches']} batches; want {used} {want} and "
+                    f"{other} 0")
+            runs[label] = rec
+    runs["path_max_abs_err"] = hold_path_conv(rec_conv.calls, "text_search",
+                                              card)
+    return runs
+
+
+def save_async_runs(work: Path, card: str) -> dict:
+    """Phase 20(d)-(e): phase 13's training run (deterministic algorithms,
+    batches of 2, --update-freq 2, EMA, --keep-last-epochs 2) with
+    --warmup-updates 1 --stop-min-lr 8e-4, once with synchronous saves and
+    once with --save-async: both stop after epoch 2 (update 4; the next
+    update's rate 6.7e-4), their files equal bit for bit; each save's
+    stall and write, and peak memory, side by side."""
+    from s2st_tpu_torch.train.checkpoint import load_checkpoint_file
+    data = work / "train"
+    write_train_corpus(data, seed=3)
+    out = {}
+    with RecordAttention() as rec_attn, Deterministic():
+        for mode in ("sync", "async"):
+            extra = ["--warmup-updates", "1", "--stop-min-lr", "8e-4",
+                     "--max-epoch", "10"]
+            if mode == "async":
+                extra.append("--save-async")
+            with TimedSaves() as saves:
+                rec = run_train_cli(runtime_argv(data, work / mode, *extra),
+                                    work / mode, card, f"save {mode}")
+            rec["saves"] = saves.records
+            out[mode] = rec
+    for mode, rec in out.items():
+        micro = 2 * 4
+        if rec["fwd_launches"] < 27 * micro or \
+                rec["bwd_launches"] < 27 * micro:
+            raise AssertionError(f"save {mode}: {rec['fwd_launches']} forward"
+                                 f" and {rec['bwd_launches']} backward "
+                                 f"launches over {micro} microbatches; want "
+                                 f">= 27 each")
+        if rec["updates"] != 4:
+            raise AssertionError(f"save {mode}: {rec['updates']} updates; "
+                                 f"--stop-min-lr should stop at 4")
+    names = sorted(p.name for p in (work / "sync").glob("*.npz"))
+    if names != sorted(p.name for p in (work / "async").glob("*.npz")) or \
+            "checkpoint_last_ema.npz" not in names:
+        raise AssertionError(f"save: the runs kept different files: {names}")
+    arrays = 0
+    # checkpoint2 is checkpoint_last under another name in both runs
+    for name in ("checkpoint1.npz", "checkpoint_last.npz",
+                 "checkpoint_last_ema.npz"):
+        a, ma = load_checkpoint_file(str(work / "async" / name))
+        b, mb = load_checkpoint_file(str(work / "sync" / name))
+        for m in (ma, mb):
+            for key in ("save_dir", "write_checkpoints_asynchronously",
+                        "log_file", "tensorboard_logdir"):
+                m.get("args", {}).pop(key, None)
+        diff = sorted(k for k in a if k not in b
+                      or not np.array_equal(a[k], b[k]))
+        if diff or set(a) != set(b) or ma != mb:
+            raise AssertionError(f"save: the asynchronous run's {name} "
+                                 f"differs from the synchronous run's in "
+                                 f"{diff[:5]} (meta equal: {ma == mb})")
+        arrays += len(a)
+    last = load_checkpoint_file(str(work / "async" /
+                                    "checkpoint_last.npz"))[1]
+    if (last["step"], last["epoch"]) != (4, 2):
+        raise AssertionError(f"--stop-min-lr: checkpoint_last at step "
+                             f"{last['step']}, epoch {last['epoch']}; want "
+                             f"4, 2")
+    out["path_max_abs_err"] = hold_path_attention(rec_attn.calls,
+                                                  "save_async", card)
+    for mode in ("sync", "async"):
+        rec = out[mode]
+        print(f"save ({mode}): "
+              + ", ".join(f"stall {r['stall_ms']:.1f} ms, write "
+                          f"{r['write_ms']:.1f} ms for {r['mb']:.1f} MB "
+                          f"{'+'.join(r['names'])}" for r in rec["saves"])
+              + f"; {rec['step_ms']:.3f} ms/update, peak memory "
+              f"{rec['peak_gib']:.2f} GiB, wall {rec['wall_s']:.1f} s "
+              f"({card})", flush=True)
+    print(f"save: the asynchronous run's {len(names)} files equal the "
+          f"synchronous run's bit for bit in {arrays} arrays and their meta;"
+          f" --stop-min-lr 8e-4 stopped both after epoch 2 at update 4 "
+          f"({card})", flush=True)
+    return out
+
+
+def search_phase(card: str) -> dict:
+    """Phase 20: the search options of stages 10-11 and text generate,
+    fairseq .pt serving, asynchronous saves and --stop-min-lr."""
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_search_"))
+    t0 = time.perf_counter()
+    try:
+        out = {"s2t": search_s2t(work, card),
+               "text": search_text(work, card),
+               "save": save_async_runs(work, card)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 20: {out['seconds']:.1f} s ({card})", flush=True)
+    return out
+
+
 def convergence_runs() -> int:
     """``--convergence``: the full gate in fp32 and under --fp16 on the
     card; each prints its ``convergence`` JSON line, with the card's name
@@ -3810,6 +4199,7 @@ def main(argv=None) -> int:
         shutil.rmtree(stage7, ignore_errors=True)
     gate = gate_phase(card)
     prep = data_prep_phase(card)
+    search = search_phase(card)
 
     a = trained["a"]
     shapes = attention_shapes({**fwd, **hubert_kernel,
@@ -3836,7 +4226,12 @@ def main(argv=None) -> int:
             "gate_fast_bf16": gate["launches"],
             "data_prep_train": prep["train"]["fwd_launches"],
             **{f"data_prep_serve_{k}": v["launches"]
-               for k, v in prep["runs"].items()}},
+               for k, v in prep["runs"].items()},
+            **{f"search_{k}": search["s2t"][k]["launches"]
+               for k in SEARCH_RUNS},
+            "search_stage7_pt": search["s2t"]["stage7_pt_launches"],
+            "train_save_sync": search["save"]["sync"]["fwd_launches"],
+            "train_save_async": search["save"]["async"]["fwd_launches"]},
         "max_abs_err": serving["max_abs_err"],
         "path_max_abs_err": {
             "generate_for_s2st": s2t["path_max_abs_err"],
@@ -3844,7 +4239,9 @@ def main(argv=None) -> int:
             "hubert": hubert["path_max_abs_err"],
             "stage8_asr": asr["path_max_abs_err"],
             "gate_fast_bf16": gate["path_max_abs_err"],
-            "data_prep_serve": prep["path_max_abs_err"]},
+            "data_prep_serve": prep["path_max_abs_err"],
+            "search": search["s2t"]["path_max_abs_err"],
+            "train_save_async": search["save"]["path_max_abs_err"]},
         "ms": serving["kernel_graph_ms"],
         "plain_ms": serving["plain_graph_ms"],
         "bound_ms": serving["bound_ms"],
@@ -3863,7 +4260,9 @@ def main(argv=None) -> int:
             "train_runtime": runtime["bwd_launches"],
             "train_fp32": runtime["ms_per_update"]["fp32"]["bwd_launches"],
             "train_hubert": hubert["train_bwd_launches"],
-            "gate_fast_bf16": gate["bwd_launches"]},
+            "gate_fast_bf16": gate["bwd_launches"],
+            "train_save_sync": search["save"]["sync"]["bwd_launches"],
+            "train_save_async": search["save"]["async"]["bwd_launches"]},
         "launches_per_update": a["bwd_launches"] / a["updates"],
         "max_abs_err": bwd["max_abs_err"],
         "ms": bwd["bwd_graph_ms"],
@@ -3886,8 +4285,13 @@ def main(argv=None) -> int:
             "launches": text[beam_run]["counts"][kind],
             "launches_by_path": {
                 "beam": text[beam_run]["counts"][kind],
-                "score_reference": text[score_run]["counts"][kind]},
+                "score_reference": text[score_run]["counts"][kind],
+                **{f"search_{k}": v["counts"][kind]
+                   for k, v in search["text"].items()
+                   if k != "path_max_abs_err"}},
             "max_abs_err": rec["max_abs_err"],
+            "path_max_abs_err": {"text_search":
+                                 search["text"]["path_max_abs_err"]},
             "ms": rec["kernel_graph_ms"],
             "plain_ms": rec["plain_graph_ms"],
             "bound_ms": rec["bound_ms"],

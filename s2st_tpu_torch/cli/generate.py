@@ -17,8 +17,13 @@ With ``--results-path`` the lines go to ``<results-path>/generate-<split>.txt``
 and each batch's phase times (encode, beam loop, or the teacher-forced
 forward; the device is synchronised at each phase boundary) with the run's
 sentences and target tokens per second to ``<results-path>/timing.json``.
-Sampling, diverse search, constraints, prefixes and ensembles (``--path
-a:b``) are not ported and raise.
+The search flags are JAX's (``--sampling`` with ``--sampling-topk`` /
+``--sampling-topp``, ``--diverse-beam-groups``, ``--diversity-rate``,
+``--prefix-size`` from each reference; sampling draws from a
+``torch.Generator`` on the device seeded with ``--seed``); ``--path a:b``
+decodes with the ensemble of the checkpoints. As JAX's text CLI does,
+``--constraints`` and ``--constraints-file`` are accepted and change
+nothing.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ from typing import List, Optional
 import torch
 
 from ..data.language_pair_dataset import PAD
-from ..generate.sequence_generator import BeamConfig, beam_search
+from ..generate.sequence_generator import BeamConfig, GumbelNoise, \
+    beam_search
 from ..models.config_from_args import (add_model_overrides_arg,
                                        model_args_from_checkpoint)
 from ..models.jax_bridge import load_jax_variables, read_jax_checkpoint
@@ -45,6 +51,7 @@ from ..models.lightconv_model import LightConvModel, cast_for_inference
 from ..nn.core import disable_tf32, resolve_device
 from ..scoring import build_scorer
 from ..tasks.translation import TranslationTask
+from .generate_for_s2st import add_search_args, search_config
 from .generate_waveform import _PhaseClock
 
 logger = logging.getLogger("s2st_tpu_torch.generate")
@@ -60,7 +67,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--task", default="translation",
                    choices=["translation", "s2s_translation"])
     p.add_argument("--gen-subset", default="test")
-    p.add_argument("--path", required=True, help="JAX .npz checkpoint")
+    p.add_argument("--path", required=True,
+                   help="JAX .npz checkpoint; a:b an ensemble")
     add_model_overrides_arg(p)
     p.add_argument("--results-path", default=None)
     p.add_argument("--seed", type=int, default=1)
@@ -85,27 +93,15 @@ def get_parser() -> argparse.ArgumentParser:
                    nargs="?", const="@@ ", default=None)
     p.add_argument("--scoring", default="sacrebleu")
     p.add_argument("--score-reference", action="store_true")
-    # refused: later slices
-    p.add_argument("--sampling", action="store_true")
-    p.add_argument("--diverse-beam-groups", type=int, default=-1)
-    p.add_argument("--diversity-rate", type=float, default=-1.0)
-    p.add_argument("--prefix-size", type=int, default=0)
-    p.add_argument("--constraints", default=None)
+    add_search_args(p)
+    # parsed and unused, as in JAX's text CLI
+    p.add_argument("--constraints", choices=["ordered", "unordered"],
+                   default=None)
+    p.add_argument("--constraints-file", default=None)
     p.add_argument("--device", default=None,
                    help="torch device; CUDA when not given")
     add_lightconv_model_args(p)
     return p
-
-
-def _refuse_unported(args) -> None:
-    for flag, on in (("--sampling", args.sampling),
-                     ("--diverse-beam-groups", args.diverse_beam_groups > 0),
-                     ("--diversity-rate", args.diversity_rate > -1.0),
-                     ("--prefix-size", args.prefix_size > 0),
-                     ("--constraints", args.constraints is not None),
-                     ("--path a:b (ensembles)", ":" in args.path)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported")
 
 
 def beam_config(args, cfg) -> BeamConfig:
@@ -116,19 +112,20 @@ def beam_config(args, cfg) -> BeamConfig:
     static_max = min(b.max_target_positions - 2,
                      int(args.max_len_a * b.max_source_positions
                          + args.max_len_b))
-    return BeamConfig(beam=args.beam, max_len=max(static_max, 2),
-                      max_len_a=args.max_len_a,
-                      max_len_b=(float(args.max_len_b) if args.max_len_a > 0
-                                 else -1.0),
-                      min_len=args.min_len, len_penalty=args.lenpen,
-                      no_repeat_ngram_size=args.no_repeat_ngram_size)
+    return search_config(args, max_len=max(static_max, 2),
+                         max_len_a=args.max_len_a,
+                         max_len_b=(float(args.max_len_b)
+                                    if args.max_len_a > 0 else -1.0))
 
 
-def score_reference(model: LightConvModel, src: torch.Tensor,
+def score_reference(models: List[LightConvModel], src: torch.Tensor,
                     prev: torch.Tensor, target: torch.Tensor):
-    """SequenceScorer: each reference token's log-prob, their mean per
-    sentence and the reference lengths (cli/generate.py:233-252)."""
-    lp = torch.log_softmax(model(src, prev).float(), dim=-1)
+    """SequenceScorer: each reference token's log-prob (an ensemble's
+    mean probability), their mean per sentence and the reference lengths
+    (cli/generate.py:233-252)."""
+    lps = [torch.log_softmax(m(src, prev).float(), dim=-1) for m in models]
+    lp = lps[0] if len(lps) == 1 else \
+        torch.logsumexp(torch.stack(lps), dim=0) - math.log(len(lps))
     pos = torch.gather(lp, 2, target[..., None])[..., 0]
     keep = target != PAD
     pos = torch.where(keep, pos, 0.0)
@@ -144,23 +141,28 @@ def main(argv: Optional[List[str]] = None) -> int:
         stream=sys.stdout)
     argv = list(sys.argv[1:] if argv is None else argv)
     args = apply_arch(get_parser().parse_args(argv), argv)
-    _refuse_unported(args)
     disable_tf32()
     device = resolve_device(args.device)
 
     task = TranslationTask.setup_task(args)
     src_dict, tgt_dict = task.src_dict, task.tgt_dict
-    variables, meta = read_jax_checkpoint(args.path)
-    margs = model_args_from_checkpoint(args, meta)
-    cfg = build_lightconv_config(margs, len(src_dict), len(tgt_dict))
-    model = LightConvModel(cfg)
-    load_jax_variables(model, variables)
-    model = cast_for_inference(model.to(device).eval(), cfg.base.dtype)
-    logger.info(f"loaded {args.path} (step {meta.get('step', '?')}): "
-                f"{margs.arch}, {cfg.conv_type} convs, on {device}, compute "
-                f"{cfg.base.dtype}")
+    models, margs, cfg = [], None, None
+    for path in args.path.split(":"):
+        variables, meta = read_jax_checkpoint(path)
+        if margs is None:      # the first member's echo builds every model
+            margs = model_args_from_checkpoint(args, meta)
+            cfg = build_lightconv_config(margs, len(src_dict), len(tgt_dict))
+        model = LightConvModel(cfg)
+        load_jax_variables(model, variables)
+        models.append(cast_for_inference(model.to(device).eval(),
+                                         cfg.base.dtype))
+        logger.info(f"loaded {path} (step {meta.get('step', '?')}): "
+                    f"{margs.arch}, {cfg.conv_type} convs, on {device}, "
+                    f"compute {cfg.base.dtype}")
     bs_cfg = beam_config(args, cfg)
     nbest = min(args.nbest, args.beam)
+    noise = GumbelNoise(torch.Generator(device).manual_seed(args.seed)) \
+        if bs_cfg.strategy == "sampling" else None
 
     ds = task.load_dataset(args.gen_subset)
     batches = ds.batches(
@@ -190,7 +192,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                "src_tokens": int(src_np.shape[1])}
         if args.score_reference:
             pos, sc, lens = (x.cpu().numpy() for x in score_reference(
-                model, src, batch["prev_output_tokens"].to(device),
+                models, src, batch["prev_output_tokens"].to(device),
                 batch["target"].to(device)))
             rec["forward_ms"] = clock.lap()
             timing.append(rec)
@@ -209,15 +211,23 @@ def main(argv: Optional[List[str]] = None) -> int:
                 gen_tokens += n
                 n_done += 1
             continue
-        enc = model.encode(src)
-        rec["encode_ms"] = clock.lap()
         k = bs_cfg.beam
-        step_fn = model.make_beam_step(
-            enc["encoder_out"].repeat_interleave(k, dim=0),
-            enc["encoder_padding_mask"].repeat_interleave(k, dim=0))
-        out = beam_search(step_fn, model.init_beam_cache(len(ids) * k, device),
-                          len(ids), len(tgt_dict), bs_cfg, device,
-                          src_lengths=(src != PAD).sum(dim=1))
+        step_fns, caches = [], []
+        for model in models:
+            enc = model.encode(src)
+            step_fns.append(model.make_beam_step(
+                enc["encoder_out"].repeat_interleave(k, dim=0),
+                enc["encoder_padding_mask"].repeat_interleave(k, dim=0)))
+            caches.append(model.init_beam_cache(len(ids) * k, device))
+        rec["encode_ms"] = clock.lap()
+        prefix = None
+        if args.prefix_size > 0:
+            prefix = (batch["target"] if "target" in batch else
+                      torch.zeros_like(batch["src_tokens"])
+                      )[:, :args.prefix_size].to(device)
+        out = beam_search(step_fns, caches, len(ids), len(tgt_dict), bs_cfg,
+                          device, src_lengths=(src != PAD).sum(dim=1),
+                          prefix_tokens=prefix, noise=noise)
         rec["beam_ms"] = clock.lap()
         rec["decode_steps"] = out["steps"]
         timing.append(rec)

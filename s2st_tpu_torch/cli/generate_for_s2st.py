@@ -5,18 +5,21 @@ decodes with the aux ASR decoder over encoder tap 0 into the source
 dictionary (stage 10, ASR WER); any other scoring decodes with the aux ST
 decoder over the last tap into the target dictionary (stage 11, ST BLEU).
 The model is rebuilt from the JAX ``.npz`` checkpoint's flag echo
-(``__meta__["args"]``). Batches are the JAX CLI's (length order,
-``--max-tokens``, ``--batch-size``, a multiple of
+(``__meta__["args"]``), or, for a fairseq ``.pt``, from the command line's
+flags with the vocabularies and heads of the file's arrays
+(``models/fairseq_checkpoint.py``). Batches are the JAX CLI's (length
+order, ``--max-tokens``, ``--batch-size``, a multiple of
 ``--required-batch-size-multiple``); their padding rows are dropped
 before the encoder, since no real row depends on them. Beam search runs
 to ``min(200, max_target_positions)`` steps; ``--score-reference`` scores
 the references teacher-forced instead. Prints fairseq's S-/T-/H-/D- lines
-(P- lines under ``--score-reference``) and ``Generate <split> with
-beam=<k>: <score>`` to stdout; with ``--results-path`` each batch's phase
-times (encode, beam loop or teacher-forced forward; the device is
-synchronised at each phase boundary) and the run's sentences and tokens a
-second go to ``<results-path>/timing.json``. Runs on CUDA unless
-``--device`` names another device.
+(P- lines under ``--score-reference``, C- lines under ``--constraints``)
+and ``Generate <split> with beam=<k>: <score>`` to stdout; with
+``--results-path`` each batch's phase times (encode, beam loop or
+teacher-forced forward; the device is synchronised at each phase boundary)
+and the run's sentences and tokens a second go to
+``<results-path>/timing.json``. Runs on CUDA unless ``--device`` names
+another device.
 
     python -m s2st_tpu_torch.cli.generate_for_s2st <data> \\
         --config-yaml config.yaml --gen-subset test --task s2s_translation \\
@@ -26,8 +29,18 @@ second go to ``<results-path>/timing.json``. Runs on CUDA unless
 With ``--use-hubert True`` the sources are the split's raw waveforms, as
 in training, and the checkpoint's model runs its HuBERT frontend.
 
-Ensembles (``--path a:b``), sampling, diverse beam and siblings search,
-constraints and ``--prefix-size`` are not ported and raise.
+Search, as JAX's CLI chooses it (fairseq's ``build_generator``):
+``--sampling`` (``--sampling-topk`` / ``--sampling-topp``; the Gumbel noise
+from a ``torch.Generator`` on the device seeded with ``--seed``, so the
+draws are not JAX's), else ``--diverse-beam-groups G``
+(``--diverse-beam-strength``), else ``--diversity-rate`` (diverse
+siblings), else beam search. ``--prefix-size N`` forces the first N
+tokens of each reference; ``--constraints ordered|unordered`` with
+``--constraints-file`` (``<id>\t<phrase>\t<phrase>...``, phrases in the
+decoding dictionary; tables built once over the file) decodes under
+lexical constraints. ``--path a:b`` decodes with the ensemble of the
+checkpoints (each model encodes the batch once; their log-probs averaged
+in probability).
 """
 
 from __future__ import annotations
@@ -44,12 +57,15 @@ import torch
 
 from ..data.iterators import EpochBatchIterator
 from ..data.s2st_dataset import TrainSplit
-from ..generate.sequence_generator import (EOS, BeamConfig, beam_search_aux,
-                                           score_sequences)
+from ..generate.constrained import build_constraint_tables, pack_constraints
+from ..generate.sequence_generator import (EOS, BeamConfig, GumbelNoise,
+                                           beam_search_aux, score_sequences)
 from ..models.config_from_args import (add_model_args,
                                        add_model_overrides_arg,
                                        build_model_config,
                                        model_args_from_checkpoint)
+from ..models.fairseq_checkpoint import (is_torch_checkpoint, s2st_config,
+                                         s2st_from_fairseq, s2st_state_dict)
 from ..models.jax_bridge import read_jax_checkpoint
 from ..models.s2st_transformer import cast_for_inference, from_jax_variables
 from ..nn.core import disable_tf32, resolve_device
@@ -67,7 +83,9 @@ def get_parser() -> argparse.ArgumentParser:
                    choices=["s2s_translation"])
     p.add_argument("--config-yaml", default="config.yaml")
     p.add_argument("--gen-subset", default="test")
-    p.add_argument("--path", required=True, help="JAX .npz checkpoint")
+    p.add_argument("--path", required=True,
+                   help="JAX .npz or fairseq .pt checkpoint; a:b an "
+                        "ensemble")
     add_model_overrides_arg(p)
     p.add_argument("--results-path", default=None)
     p.add_argument("--seed", type=int, default=1)
@@ -87,7 +105,19 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--wer-lowercase", action="store_true")
     p.add_argument("--wer-remove-punct", action="store_true")
     p.add_argument("--score-reference", action="store_true")
-    # not ported: raise
+    add_search_args(p)
+    p.add_argument("--constraints", choices=["ordered", "unordered"],
+                   default=None)
+    p.add_argument("--constraints-file", default=None,
+                   help="<utt_id>\\t<phrase>\\t<phrase>... a line")
+    p.add_argument("--device", default=None,
+                   help="torch device; CUDA when not given")
+    add_model_args(p)
+    return p
+
+
+def add_search_args(p: argparse.ArgumentParser) -> None:
+    """The search flags of JAX's generation parser (options.py:636-649)."""
     p.add_argument("--sampling", action="store_true")
     p.add_argument("--sampling-topk", type=int, default=-1)
     p.add_argument("--sampling-topp", type=float, default=-1.0)
@@ -95,23 +125,77 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--diverse-beam-strength", type=float, default=0.5)
     p.add_argument("--diversity-rate", type=float, default=-1.0)
     p.add_argument("--prefix-size", type=int, default=0)
-    p.add_argument("--constraints", nargs="?", const="ordered", default=None)
-    p.add_argument("--constraints-file", default=None)
-    p.add_argument("--device", default=None,
-                   help="torch device; CUDA when not given")
-    add_model_args(p)
-    return p
 
 
-def _refuse_unported(args) -> None:
-    for flag, on in (("--sampling", args.sampling),
-                     ("--diverse-beam-groups", args.diverse_beam_groups > 0),
-                     ("--diversity-rate", args.diversity_rate > -1.0),
-                     ("--prefix-size", args.prefix_size > 0),
-                     ("--constraints", args.constraints is not None),
-                     ("--path a:b (ensembles)", ":" in args.path)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported")
+def search_config(args, **kw) -> BeamConfig:
+    """BeamConfig with the strategy fairseq's build_generator picks
+    (fairseq_task.py:339-463): sampling, else diverse beam, else diverse
+    siblings, else beam."""
+    strategy = "beam"
+    if args.sampling:
+        if args.sampling_topk > 0 and args.sampling_topp > 0:
+            raise ValueError(
+                "--sampling-topk and --sampling-topp are mutually exclusive")
+        strategy = "sampling"
+    elif args.diverse_beam_groups > 0:
+        strategy = "diverse_beam"
+    elif args.diversity_rate > -1.0:
+        strategy = "diverse_siblings"
+    return BeamConfig(beam=args.beam, min_len=args.min_len,
+                      len_penalty=args.lenpen,
+                      no_repeat_ngram_size=args.no_repeat_ngram_size,
+                      strategy=strategy, sampling_topk=args.sampling_topk,
+                      sampling_topp=args.sampling_topp,
+                      diversity_num_groups=max(args.diverse_beam_groups, 1),
+                      diversity_strength=args.diverse_beam_strength,
+                      diversity_rate=max(args.diversity_rate, 0.0), **kw)
+
+
+def load_model(path: str, args, data_cfg, which: str, device,
+               margs=None):
+    """(model cast for inference on ``device``, the flag namespace it was
+    built from) of one checkpoint: a JAX ``.npz`` with
+    its flag echo, or a fairseq ``.pt`` with the command line's flags.
+    ``margs`` (the first member's, for an ensemble) replaces the echo."""
+    feat = data_cfg.input_feat_per_channel
+    if is_torch_checkpoint(path):
+        sd = s2st_state_dict(path)
+        margs = margs or model_args_from_checkpoint(args, {})
+        cfg = s2st_config(sd, margs, feat)
+        if not getattr(cfg, which.replace("_decoder", "")):
+            raise ValueError(f"{path} has no {which}; train with the "
+                             f"matching ce-weight")
+        model = s2st_from_fairseq(cfg, sd)
+        logger.info(f"loaded fairseq checkpoint {path}")
+    else:
+        variables, meta = read_jax_checkpoint(path)
+        margs = margs or model_args_from_checkpoint(args, meta)
+        params = variables["params"]
+        cfg = build_model_config(margs, variables, feat).replace(
+            aux_asr="aux_asr_decoder" in params,
+            aux_st="aux_st_decoder" in params,
+            ctc="ctc_proj" in params["decoder"])
+        if which not in params:
+            raise ValueError(f"{path} has no {which}; train with the "
+                             f"matching ce-weight")
+        model = from_jax_variables(cfg, variables)
+        logger.info(f"loaded {path} (step {meta.get('step', '?')})")
+    return cast_for_inference(model.to(device).eval(), cfg.dtype), margs
+
+
+def read_constraints(path: str, out_dict) -> tuple:
+    """The constraints file: {id: [token ids a phrase]}, {id: [phrases]}
+    (empty fields skipped)."""
+    cons_map, cons_text = {}, {}
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            parts = line.rstrip("\n").split("\t")
+            phrases = [ph for ph in parts[1:] if ph.strip()]
+            cons_map[parts[0]] = [
+                [int(t) for t in out_dict.encode_line(ph, append_eos=False)]
+                for ph in phrases]
+            cons_text[parts[0]] = phrases
+    return cons_map, cons_text
 
 
 @torch.inference_mode()
@@ -121,38 +205,45 @@ def main(argv: Optional[List[str]] = None) -> int:
         format="%(asctime)s | %(levelname)s | %(name)s | %(message)s",
         stream=sys.stdout)
     args = get_parser().parse_args(argv)
-    _refuse_unported(args)
     disable_tf32()
     device = resolve_device(args.device)
 
     data_cfg = data_config(args)
     src_dict, tgt_dict = load_dictionaries(args.data, data_cfg)
-    variables, meta = read_jax_checkpoint(args.path)
-    margs = model_args_from_checkpoint(args, meta)
-    params = variables["params"]
-    cfg = build_model_config(margs, variables,
-                             data_cfg.input_feat_per_channel).replace(
-        aux_asr="aux_asr_decoder" in params, aux_st="aux_st_decoder" in params,
-        ctc="ctc_proj" in params["decoder"])
     use_asr = args.scoring == "wer"
     which = "aux_asr_decoder" if use_asr else "aux_st_decoder"
-    if which not in params:
-        raise ValueError(f"{args.path} has no {which}; train with the "
-                         f"matching ce-weight")
-    model = cast_for_inference(
-        from_jax_variables(cfg, variables).to(device).eval(), cfg.dtype)
-    dec = getattr(model, which)
     out_dict = src_dict if use_asr else tgt_dict
-    logger.info(f"loaded {args.path} (step {meta.get('step', '?')}): "
-                f"{which} on {device}, compute {cfg.dtype}")
-    bs_cfg = BeamConfig(beam=args.beam,
-                        max_len=min(200, cfg.max_target_positions),
-                        min_len=args.min_len, len_penalty=args.lenpen,
-                        no_repeat_ngram_size=args.no_repeat_ngram_size)
+    models, margs = [], None
+    for path in args.path.split(":"):
+        model, margs = load_model(path, args, data_cfg, which, device,
+                                  margs)
+        models.append(model)
+    cfg = models[0].cfg
+    decs = [getattr(m, which) for m in models]
+    logger.info(f"{which} of {len(models)} model(s) on {device}, compute "
+                f"{cfg.dtype}")
+    bs_cfg = search_config(args, max_len=min(200, cfg.max_target_positions))
     nbest = min(args.nbest, args.beam)
+    noise = GumbelNoise(torch.Generator(device).manual_seed(args.seed)) \
+        if bs_cfg.strategy == "sampling" else None
 
     split = TrainSplit(args.data, data_cfg, args.gen_subset, src_dict,
                        tgt_dict, n_frames_per_step=cfg.n_frames_per_step)
+    tables = cons_text = None
+    if args.constraints:
+        if not args.constraints_file:
+            raise ValueError("--constraints needs --constraints-file")
+        if args.prefix_size > 0:
+            raise ValueError("--constraints and --prefix-size are exclusive")
+        cons_map, cons_text = read_constraints(args.constraints_file,
+                                               out_dict)
+        per_utt = [cons_map.get(str(uid), []) for uid in split.ids]
+        logger.info(f"constrained decoding ({args.constraints}): "
+                    f"{sum(1 for c in per_utt if c)}/{len(per_utt)} "
+                    f"utterances have constraints")
+        tables = build_constraint_tables(pack_constraints(per_utt),
+                                         len(out_dict), args.constraints,
+                                         device)
     itr = EpochBatchIterator(
         split, args.max_tokens, args.batch_size, seed=args.seed,
         required_batch_size_multiple=args.required_batch_size_multiple,
@@ -173,15 +264,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         src_lens = batch["src_speech_lens"][:n_rows].to(device)
         rec = {"batch": bi, "rows": n_rows,
                "src_frames": int(batch["src_speech"].shape[1])}
-        enc = model.encode(src, src_lens)
-        taps = enc["out_middle_layers"]
-        tap = taps[0] if (use_asr or len(taps) == 1) else taps[1]
-        pad = enc["encoder_padding_mask"]
+        taps, pads = [], []
+        for model in models:
+            enc = model.encode(src, src_lens)
+            t = enc["out_middle_layers"]
+            taps.append(t[0] if (use_asr or len(t) == 1) else t[1])
+            pads.append(enc["encoder_padding_mask"])
         rec["encode_ms"] = clock.lap()
         if args.score_reference:
             toks = batch[text_key][:n_rows]
             lens = batch[f"{text_key}_len"][:n_rows]
-            out = score_sequences(dec, tap, pad, toks.to(device),
+            out = score_sequences(decs, taps, pads, toks.to(device),
                                   lens.to(device))
             pos = out["positional_scores"].cpu().numpy()
             sc = out["score"].cpu().numpy()
@@ -203,7 +296,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                 scorer.add_string(ref, hyp)
                 n_done += 1
             continue
-        out = beam_search_aux(dec, tap, pad, bs_cfg)
+        search = {"noise": noise}
+        if tables is not None:
+            search["constraints"] = tables.select(ids)
+        elif args.prefix_size > 0:
+            search["prefix_tokens"] = \
+                batch[text_key][:n_rows, :args.prefix_size].to(device)
+        out = beam_search_aux(decs, taps, pads, bs_cfg, **search)
         tokens, lengths, scores = (out[k].cpu().numpy()
                                    for k in ("tokens", "lengths", "scores"))
         rec["beam_ms"] = clock.lap()
@@ -214,6 +313,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             ref = split.samples[idx].get(text_key, "")
             print(f"S-{sid}\t{sid}")
             print(f"T-{sid}\t{ref}")
+            if tables is not None:
+                for ph in cons_text.get(str(sid), []):
+                    print(f"C-{sid}\t{ph}")
             for j in range(nbest):
                 n = int(lengths[row, j])
                 hyp_ids = tokens[row, j, 1:1 + n]

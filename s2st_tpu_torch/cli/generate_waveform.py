@@ -3,7 +3,9 @@
 Counterpart of ``s2st_tpu/cli/generate_waveform.py`` (stage 7 of
 ``recipes/run_baseline.sh``): loads a JAX ``.npz`` checkpoint, rebuilds the
 model from the checkpoint's flag echo (``--model-overrides`` over it;
-``--speaker-to-id`` gives the speaker count), then for each batch of the
+``--speaker-to-id`` gives the speaker count), or a fairseq ``.pt`` into
+the model of the command line's flags with the vocabularies and heads of
+the file's arrays (``models/fairseq_checkpoint.py``), then for each batch of the
 split encodes, decodes autoregressively (or teacher-forces; ``--kv-cache-
 dtype int8`` keeps the decoder's caches in int8), applies the postnet and
 GCMVN denormalisation, vocodes (``--vocoder griffin_lim``, or ``hifigan``
@@ -56,6 +58,8 @@ from ..models.config_from_args import (add_model_args,
                                        add_speaker_args, build_model_config,
                                        model_args_from_checkpoint,
                                        num_speakers)
+from ..models.fairseq_checkpoint import (is_torch_checkpoint, s2st_config,
+                                         s2st_from_fairseq, s2st_state_dict)
 from ..models.jax_bridge import read_jax_checkpoint
 from ..models.s2st_transformer import cast_for_inference, from_jax_variables
 from ..nn.core import disable_tf32, resolve_device
@@ -71,7 +75,8 @@ def get_parser() -> argparse.ArgumentParser:
                    choices=["s2s_translation"])
     p.add_argument("--config-yaml", default="config.yaml")
     p.add_argument("--gen-subset", default="test")
-    p.add_argument("--path", required=True, help="JAX .npz checkpoint")
+    p.add_argument("--path", required=True,
+                   help="JAX .npz or fairseq .pt checkpoint (a:b serves a)")
     p.add_argument("--results-path", required=True)
     p.add_argument("--max-tokens", type=int, default=40000)
     p.add_argument("--batch-size", "--max-sentences", type=int, default=None)
@@ -183,18 +188,25 @@ def main(argv: Optional[List[str]] = None) -> int:
     device = resolve_device(args.device)
 
     data_cfg = data_config(args)
-    variables, meta = read_jax_checkpoint(args.path.split(":")[0])
-    margs = model_args_from_checkpoint(args, meta)
+    path = args.path.split(":")[0]
     # the speaker count of --speaker-to-id, as JAX's task builds the model;
     # serving passes no speaker to the decode, as JAX's infer does
-    cfg = build_model_config(margs, variables,
-                             data_cfg.input_feat_per_channel,
-                             num_speakers(args) if args.speaker_to_id
-                             else None)
-    model = cast_for_inference(
-        from_jax_variables(cfg, variables).to(device).eval(), cfg.dtype)
-    logger.info(f"loaded {args.path} (step {meta.get('step', '?')}) on "
-                f"{device}, compute {cfg.dtype}")
+    speakers = num_speakers(args) if args.speaker_to_id else None
+    if is_torch_checkpoint(path):
+        sd = s2st_state_dict(path)
+        cfg = s2st_config(sd, model_args_from_checkpoint(args, {}),
+                          data_cfg.input_feat_per_channel, speakers)
+        model = s2st_from_fairseq(cfg, sd)
+        logger.info(f"loaded fairseq checkpoint {path}")
+    else:
+        variables, meta = read_jax_checkpoint(path)
+        margs = model_args_from_checkpoint(args, meta)
+        cfg = build_model_config(margs, variables,
+                                 data_cfg.input_feat_per_channel, speakers)
+        model = from_jax_variables(cfg, variables)
+        logger.info(f"loaded {path} (step {meta.get('step', '?')})")
+    model = cast_for_inference(model.to(device).eval(), cfg.dtype)
+    logger.info(f"serving on {device}, compute {cfg.dtype}")
 
     vocoder = get_vocoder(args.vocoder, data_cfg, args.spec_bwd_max_iter,
                           device)

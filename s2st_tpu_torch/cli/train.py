@@ -40,9 +40,19 @@ prints JAX's ``valid | ...`` line and, with ``--log-file``, a JSON line
 ``--keep-best-checkpoints`` files), and drives ``--patience`` and, under
 ``--lr-scheduler reduce_lr_on_plateau``, the ``--lr-shrink`` of the rate
 (:345-375); ``best_val``, ``patience_left`` and ``lr_scale`` ride in each
-checkpoint's meta and come back on resume. ``--write-checkpoints-
-asynchronously`` raises; the log-format, tensorboard and worker flags are
-accepted and ignored with a logged line.
+checkpoint's meta and come back on resume. ``--eval-bleu`` and its
+options are accepted and change nothing, as in JAX, whose validation
+scores BLEU only for tasks with ``build_valid_bleu`` (:616-618; not
+``s2s_translation``); the log-format, tensorboard and worker flags are
+accepted and ignored with a logged line. ``--stop-min-lr`` ends the run at
+the end of the first epoch after which the rate of the next update,
+``schedule(num_updates + 1) * lr_scale``, is below it (:583-590).
+
+``--write-checkpoints-asynchronously`` (``--save-async``) hands each save
+to a background writer (``train/checkpoint.py``): the loop stalls only for
+a copy of the state on the device, and the writer copies it to the host,
+writes it and applies the retention, in order; the run waits for the
+writer before it exits. The files are those of a synchronous run.
 
 ``--speaker-to-id`` (a JSON map of the manifest's speakers to ids) adds
 encoder and decoder speaker embeddings of ``--speaker-embed-dim`` for max
@@ -81,8 +91,8 @@ from ..models.config_from_args import (add_model_args, add_speaker_args,
 from ..models.hubert import load_torch_hubert
 from ..models.s2st_transformer import S2STTransformer, encoder_layer_keep
 from ..nn.core import disable_tf32, resolve_device
-from ..train.checkpoint import (CheckpointManager, ema_flat, load_ema,
-                                restore_state, state_flat, write_npz)
+from ..train.checkpoint import (CheckpointManager, StateSnapshot,
+                                load_ema, restore_state)
 from ..train.ema import EMAConfig, ema_step, init_ema
 from ..train.losses import LossConfig
 from ..tasks.s2s_translation import (build_eval_inference_fn, data_config,
@@ -115,6 +125,7 @@ def get_parser() -> argparse.ArgumentParser:
                    action="store_true")
     p.add_argument("--max-update", type=int, default=0)
     p.add_argument("--max-epoch", type=int, default=0)
+    p.add_argument("--stop-min-lr", type=float, default=-1.0)
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--log-interval", type=int, default=100)
     p.add_argument("--log-file", default=None,
@@ -174,9 +185,17 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--validate-interval", type=int, default=1)
     p.add_argument("--validate-interval-updates", type=int, default=0)
     p.add_argument("--patience", type=int, default=-1)
-    # a later slice: raises
+    # validation-time BLEU (options.py:180-188): no effect on this task
+    p.add_argument("--eval-bleu", action="store_true")
+    p.add_argument("--eval-bleu-args", default="{}")
+    p.add_argument("--eval-bleu-detok", default="space")
+    p.add_argument("--eval-bleu-detok-args", default="{}")
+    p.add_argument("--eval-bleu-remove-bpe", default=None, nargs="?",
+                   const="@@ ")
+    p.add_argument("--eval-bleu-print-samples", action="store_true")
     p.add_argument("--write-checkpoints-asynchronously", "--save-async",
-                   action="store_true")
+                   action="store_true",
+                   help="write checkpoints in a background thread")
     p.add_argument("--use-flash-attention", action="store_true",
                    help="JAX's switch to its attention kernel; the port takes "
                    "its kernels wherever the function allows (no attention "
@@ -191,10 +210,7 @@ def get_parser() -> argparse.ArgumentParser:
 
 
 def check_args(args: argparse.Namespace) -> None:
-    """Raise on what this slice does not port; log what it ignores."""
-    if args.write_checkpoints_asynchronously:
-        raise NotImplementedError("not ported yet: --write-checkpoints-"
-                                  "asynchronously (sync saves only)")
+    """Log what the port accepts and ignores."""
     for name in IGNORED:
         if getattr(args, name) is not None:
             logger.info(f"--{name.replace('_', '-')} is accepted and ignored")
@@ -335,7 +351,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         args.save_dir, args.best_checkpoint_metric,
         args.maximize_best_checkpoint_metric, args.keep_best_checkpoints,
         args.keep_last_epochs, args.keep_interval_updates,
-        args.no_epoch_checkpoints)
+        args.no_epoch_checkpoints, args.write_checkpoints_asynchronously)
     # --restore-file: the default name means <save-dir>/checkpoint_last.npz;
     # another is looked for as given, then under --save-dir
     restore_path, restored_from_last = None, False
@@ -457,11 +473,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         meta = {"iterator": itr_sd, "lr_scale": st["lr_scale"],
                 "best_val": st["best_val"],
                 "patience_left": st["patience_left"], "args": echo}
-        mgr.save(state_flat(trainer), trainer.step, epoch,
-                 val_metric=val_metric, end_of_epoch=end_of_epoch,
-                 num_updates=updates, extra_meta=meta)
-        if ema is not None:
-            write_npz(str(ema_path), ema_flat(trainer, ema))
+        mgr.save(StateSnapshot(trainer, ema,
+                               copy=args.write_checkpoints_asynchronously),
+                 trainer.step, epoch, val_metric=val_metric,
+                 end_of_epoch=end_of_epoch, num_updates=updates,
+                 extra_meta=meta)
 
     def sync():
         if device.type == "cuda":
@@ -536,7 +552,15 @@ def main(argv: Optional[List[str]] = None) -> int:
             elif epoch % args.save_interval == 0:
                 save(epoch, epoch_itr.state_dict(), True,
                      val_metric=val_metric)
+        if args.stop_min_lr > 0:
+            cur_lr = trainer.lr_schedule(num_updates + 1) * st["lr_scale"]
+            if cur_lr < args.stop_min_lr:
+                logger.info(f"stopping: lr {cur_lr:.3e} < --stop-min-lr "
+                            f"{args.stop_min_lr:.3e}")
+                stop = True
         epoch += 1
+    if mgr is not None:
+        mgr.wait()      # every submitted save is on disk
     logger.info(f"done training at update {num_updates} (step "
                 f"{trainer.step})")
     return 0

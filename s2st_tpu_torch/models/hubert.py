@@ -22,15 +22,14 @@ config says. The trunk is always post-LN (``encoder.layer_norm`` before the
 layers), as JAX's ``encode`` runs every checkpoint, pre-LN ones included.
 
 ``load_torch_hubert`` reads a fairseq checkpoint (``{"model": state_dict,
-"cfg": ...}``) with ``torch.load`` and needs neither fairseq nor omegaconf:
-classes of modules that are not installed unpickle as plain records, and
-the config is read from their contents.
+"cfg": ...}``) through ``models/fairseq_checkpoint.py``'s reader, which
+needs neither fairseq nor omegaconf: classes of modules that are not
+installed unpickle as plain records, and the config is read from their
+contents.
 """
 
 from __future__ import annotations
 
-import pickle
-import types
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -40,6 +39,7 @@ from torch import nn
 
 from ..nn.core import layer_norm, lengths_to_padding_mask, linear
 from ..nn.transformer import TransformerEncoderLayer
+from .fairseq_checkpoint import plain, read_torch_checkpoint
 
 BASE_CONV_LAYERS: Tuple[Tuple[int, int, int], ...] = (
     (512, 10, 5), (512, 3, 2), (512, 3, 2), (512, 3, 2), (512, 3, 2),
@@ -225,63 +225,8 @@ class HubertModel(nn.Module):
 # fairseq checkpoint import
 # ---------------------------------------------------------------------------
 
-class _Absent:
-    """Unpickles an instance of a class whose module is not installed
-    (omegaconf's DictConfig and nodes, fairseq's dataclasses). Pickle may
-    restore one without calling ``__init__``, hence the class defaults."""
-
-    args: tuple = ()
-    state: Any = None
-
-    def __init__(self, *args, **kwargs):
-        self.args, self.state = args, kwargs or None
-
-    def __setstate__(self, state):
-        self.state = state
-
-
-class _Unpickler(pickle.Unpickler):
-    def find_class(self, module, name):
-        try:
-            return super().find_class(module, name)
-        except (ImportError, AttributeError):
-            return type(name, (_Absent,), {"__module__": module})
-
-
-_pickle = types.ModuleType("s2st_tpu_torch_pickle")
-_pickle.Unpickler = _Unpickler
-_pickle.load = lambda f, **kw: _Unpickler(f, **kw).load()
-
-
-def _plain(x):
-    """Nested dicts and lists from a config that may hold unpickled
-    omegaconf containers (``_content``) and value nodes (``_val``)."""
-    if isinstance(x, _Absent):
-        state = x.state
-        if isinstance(state, tuple) and state and isinstance(state[-1], dict):
-            state = state[-1]
-        if isinstance(state, dict):
-            if "_content" in state:
-                return _plain(state["_content"])
-            if "_val" in state:
-                return _plain(state["_val"])
-            return {k: _plain(v) for k, v in state.items()}
-        return _plain(x.args[0]) if x.args else None
-    if isinstance(x, dict):
-        return {k: _plain(v) for k, v in x.items()}
-    if isinstance(x, (list, tuple)):
-        return [_plain(v) for v in x]
-    return x
-
-
-def read_torch_checkpoint(path: str) -> Dict[str, Any]:
-    """A fairseq ``.pt`` as a dict, with or without omegaconf installed."""
-    return torch.load(path, map_location="cpu", weights_only=False,
-                      pickle_module=_pickle)
-
-
 def _model_cfg(state: Dict[str, Any]) -> Dict[str, Any]:
-    cfg = _plain(state.get("cfg"))
+    cfg = plain(state.get("cfg"))
     if isinstance(cfg, dict) and isinstance(cfg.get("model"), dict):
         return cfg["model"]
     return {}

@@ -15,11 +15,24 @@ The port's own copy of ``s2st_tpu/train/checkpoint.py``:
   ``restore_state`` (:182-224): the parameters always, the statistics
   where the file has them, Adam's state and the step unless
   ``reset_optimizer``;
-- ``CheckpointManager`` (:368-496), synchronous: ``checkpoint{epoch}``,
+- ``CheckpointManager`` (:368-496): ``checkpoint{epoch}``,
   ``checkpoint_{epoch}_{updates}``, ``checkpoint_last``, the best files
   when a validation metric is given, and the retention of
   ``keep_last_epochs``, ``keep_interval_updates`` and
-  ``keep_best_checkpoints``;
+  ``keep_best_checkpoints``; with ``write_asynchronously`` each save's
+  host copy, write and retention run in one background worker
+  (``AsyncWriter``, :305-342) in submission order, so ``checkpoint_last``
+  is always the newest state; a worker's error is raised at the next save
+  or ``wait()``, which the trainer calls before it reads the save dir and
+  before it exits;
+- ``StateSnapshot``: what a save reads (the model's variables, Adam's
+  moments and count, the EMA shadow). For an asynchronous save it holds
+  copies on the device, made on the training stream after the update and
+  fenced by an event (``_snapshot_state``, :345-361): the next update
+  changes the live tensors in place (``torch._foreach_*``), never the
+  copies. The worker copies them to the host on a stream of its own, which
+  waits for that event only, so the copy does not queue behind the next
+  update; the copies are freed once that copy is done;
 - ``average_checkpoints`` (:498-522): the parameters' mean accumulated in
   fp64 and cast to the last file's dtypes, with the last file's
   statistics, optimizer state and meta.
@@ -27,18 +40,24 @@ The port's own copy of ``s2st_tpu/train/checkpoint.py``:
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
+import queue
 import re
 import shutil
+import threading
+import weakref
+import zipfile
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..models.jax_bridge import SEP, flatten_tree, jax_layout, jax_variables
+from ..models.jax_bridge import (SEP, _to_jax, flatten_tree, jax_layout,
+                                 unflatten_tree)
 
 logger = logging.getLogger(__name__)
 
@@ -80,12 +99,44 @@ def _tensor(arr: np.ndarray, kind: str) -> torch.Tensor:
     return _from_jax_layout(t, kind)
 
 
-def _param_entries(model) -> List[Tuple[str, str, str]]:
+def _param_entries(model, layout=None) -> List[Tuple[str, str, str]]:
     """(name, JAX key, kind) of each trained parameter, in the order of
     ``model.parameters()`` (the optimizer's)."""
-    layout = {name: (key, kind) for name, key, kind in jax_layout(model)}
+    layout = {name: (key, kind)
+              for name, key, kind in layout or jax_layout(model)}
     return [(name,) + layout[name] for name, p in model.named_parameters()
             if p.requires_grad]
+
+
+# a model's layout and trained entries, taken once: the walk costs tens of
+# ms, which a save would otherwise add to the training loop's stall
+_LAYOUTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _layouts(model):
+    if model not in _LAYOUTS:
+        layout = jax_layout(model)
+        _LAYOUTS[model] = (layout, _param_entries(model, layout))
+    return _LAYOUTS[model]
+
+
+def _device_copies(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Copies of ``tensors`` that later in-place updates cannot touch: one
+    buffer a (device, dtype), filled by ``torch._foreach_copy_`` in a few
+    launches however many tensors there are."""
+    groups: Dict[tuple, List[int]] = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault((t.device, t.dtype), []).append(i)
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    for (dev, dtype), idx in groups.items():
+        sizes = [tensors[i].numel() for i in idx]
+        flat = torch.empty(sum(sizes), dtype=dtype, device=dev)
+        views = [v.view(tensors[i].shape)
+                 for v, i in zip(flat.split(sizes), idx)]
+        torch._foreach_copy_(views, [tensors[i].detach() for i in idx])
+        for v, i in zip(views, idx):
+            out[i] = v
+    return out
 
 
 def opt_key(moment: str, param_key: str) -> str:
@@ -93,25 +144,114 @@ def opt_key(moment: str, param_key: str) -> str:
     return OPT + moment + SEP + param_key.split(SEP, 1)[1]
 
 
+class StateSnapshot:
+    """The tensors a save reads: the model's variables (JAX key, tensor,
+    layout kind), Adam's moments and count, and, with ``ema``, the EMA
+    shadow. With ``copy`` every tensor is a copy on its device that later
+    updates cannot touch, and on a CUDA device an event marks where the
+    copies end on the training stream."""
+
+    def __init__(self, trainer, ema: Optional[Sequence[torch.Tensor]] = None,
+                 copy: bool = False):
+        model, opt = trainer.model, trainer.optimizer
+        sd = model.state_dict()
+        layout, entries = _layouts(model)
+        self.variables = [(key, sd[name], kind)
+                          for name, key, kind in layout]
+        self.moments = [(opt_key(m, key), t, kind)
+                        for i, (_, key, kind) in enumerate(entries)
+                        for m, t in (("mu", opt.mu[i]), ("nu", opt.nu[i]))]
+        self.ema = None if ema is None else [
+            (key, t, kind) for t, (_, key, kind) in zip(ema, entries)]
+        self.count = int(opt.count)
+        self.event = None
+        if copy:
+            parts = [p for p in ("variables", "moments", "ema")
+                     if getattr(self, p) is not None]
+            with torch.no_grad():
+                copies = iter(_device_copies(
+                    [t for p in parts for _, t, _ in getattr(self, p)]))
+            for p in parts:
+                setattr(self, p, [(k, next(copies), kind)
+                                  for k, _, kind in getattr(self, p)])
+            dev = self.variables[0][1].device
+            if dev.type == "cuda":
+                self.event = torch.cuda.Event()
+                self.event.record(torch.cuda.current_stream(dev))
+
+    def flat(self) -> Dict[str, np.ndarray]:
+        """The parameters, statistics and Adam state as flat host arrays in
+        the JAX layout."""
+        flat = flatten_tree(unflatten_tree(
+            {key: _to_jax(t, kind) for key, t, kind in self.variables}))
+        flat[OPT_COUNT] = np.asarray(self.count, np.int32)
+        for key, t, kind in self.moments:
+            flat[key] = _host(t, kind)
+        return flat
+
+    def ema_flat(self) -> Dict[str, np.ndarray]:
+        """An evaluation checkpoint of the EMA shadow: its parameters and
+        the model's statistics (``cli/train.py::save_ema``, :409-421)."""
+        flat = flatten_tree({"stats": unflatten_tree(
+            {key: _to_jax(t, kind) for key, t, kind in self.variables
+             if key.startswith("stats" + SEP)}).get("stats", {})})
+        for key, t, kind in self.ema:
+            flat[key] = _host(t, kind)
+        return flat
+
+
 def state_flat(trainer) -> Dict[str, np.ndarray]:
     """The trainer's parameters, statistics and Adam state as flat host
     arrays in the JAX layout."""
-    flat = flatten_tree(jax_variables(trainer.model))
-    opt = trainer.optimizer
-    flat[OPT_COUNT] = np.asarray(opt.count, np.int32)
-    for i, (_, key, kind) in enumerate(_param_entries(trainer.model)):
-        flat[opt_key("mu", key)] = _host(opt.mu[i], kind)
-        flat[opt_key("nu", key)] = _host(opt.nu[i], kind)
-    return flat
+    return StateSnapshot(trainer).flat()
 
 
-def ema_flat(trainer, ema: Sequence[torch.Tensor]) -> Dict[str, np.ndarray]:
-    """An evaluation checkpoint of the EMA shadow: its parameters and the
-    model's current statistics (``cli/train.py::save_ema``, :409-421)."""
-    flat = flatten_tree({"stats": jax_variables(trainer.model)["stats"]})
-    for t, (_, key, kind) in zip(ema, _param_entries(trainer.model)):
-        flat[key] = _host(t, kind)
-    return flat
+class AsyncWriter:
+    """One background worker draining a FIFO of checkpoint writes. An
+    error in a write is raised by the next ``submit`` or ``wait``. On a
+    CUDA device the writes run on a stream of the worker's own."""
+
+    def __init__(self):
+        self._q: "queue.Queue" = queue.Queue()
+        self._err: Optional[BaseException] = None
+        self._stream = None
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="checkpoint-writer")
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            fn = self._q.get()
+            try:
+                fn()
+            except BaseException as e:  # raised at the next submit/wait
+                self._err = e
+            finally:
+                fn = None           # the snapshot's copies go now
+                self._q.task_done()
+
+    def _reraise(self):
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err
+
+    def stream_for(self, event):
+        """A context in which the worker's copies wait for ``event`` (the
+        snapshot's end on the training stream) and nothing else."""
+        if event is None:
+            return contextlib.nullcontext()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream()
+        self._stream.wait_event(event)
+        return torch.cuda.stream(self._stream)
+
+    def submit(self, fn) -> None:
+        self._reraise()
+        self._q.put(fn)
+
+    def wait(self) -> None:
+        self._q.join()
+        self._reraise()
 
 
 def load_ema(trainer, ema: Sequence[torch.Tensor], path: str) -> None:
@@ -124,9 +264,21 @@ def load_ema(trainer, ema: Sequence[torch.Tensor], path: str) -> None:
 
 
 def write_npz(path: str, flat: Dict[str, np.ndarray]) -> None:
-    """np.savez under a temporary name, then os.replace."""
+    """An uncompressed ``.npz`` in np.savez's layout (a ``<key>.npy``
+    member a key, version 1.0 headers) under a temporary name, then
+    os.replace. Each member's data goes out in one write from the array's
+    own buffer: no copy, and the interpreter lock is free while it is
+    checksummed and written, so that a training loop in another thread
+    keeps running (np.savez copies 16 MiB chunks under the lock)."""
     tmp = path + ".tmp.npz"
-    np.savez(tmp, **flat)
+    with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, arr in flat.items():
+            arr = np.asarray(arr, order="C")
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array_header_1_0(
+                    f, np.lib.format.header_data_from_array_1_0(arr))
+                f.write(arr.reshape(-1).view(np.uint8))
     os.replace(tmp, path)
 
 
@@ -198,13 +350,15 @@ def restore_state(trainer, path: str, reset_optimizer: bool = False
 
 
 class CheckpointManager:
-    """The save dir's files and their retention, written synchronously."""
+    """The save dir's files and their retention, written in the caller's
+    thread or, with ``write_asynchronously``, by an ``AsyncWriter``."""
 
     def __init__(self, save_dir: str, best_checkpoint_metric: str = "loss",
                  maximize_best_checkpoint_metric: bool = False,
                  keep_best_checkpoints: int = -1, keep_last_epochs: int = -1,
                  keep_interval_updates: int = -1,
-                 no_epoch_checkpoints: bool = False):
+                 no_epoch_checkpoints: bool = False,
+                 write_asynchronously: bool = False):
         self.save_dir = Path(save_dir)
         self.save_dir.mkdir(parents=True, exist_ok=True)
         self.metric = best_checkpoint_metric
@@ -214,15 +368,20 @@ class CheckpointManager:
         self.keep_interval_updates = keep_interval_updates
         self.no_epoch_checkpoints = no_epoch_checkpoints
         self.best: Optional[float] = None
+        self.writer = AsyncWriter() if write_asynchronously else None
         probe = self.save_dir / ".writability_probe"
         probe.write_text("ok")
         probe.unlink()
 
-    def save(self, flat: Dict[str, np.ndarray], step: int, epoch: int,
+    def save(self, state, step: int, epoch: int,
              val_metric: Optional[float] = None, end_of_epoch: bool = True,
              num_updates: Optional[int] = None,
              extra_meta: Optional[Dict] = None) -> List[str]:
-        """Write one state under every name it takes; returns the paths."""
+        """Write one state under every name it takes; returns the paths.
+        ``state``: flat host arrays, or a ``StateSnapshot``, whose arrays
+        are made where the files are written, with
+        ``checkpoint_last_ema.npz`` after them where it holds an EMA
+        shadow. Asynchronously, the files exist once ``wait()`` returns."""
         meta = dict(extra_meta or {})
         meta["epoch"] = epoch
         targets = []
@@ -238,21 +397,43 @@ class CheckpointManager:
         wrote_interval = not end_of_epoch and num_updates is not None
         if wrote_interval:
             targets.append(f"checkpoint_{epoch}_{num_updates}.npz")
-        if val_metric is not None and self.keep_best > 0:
+        gc_best = val_metric is not None and self.keep_best > 0
+        if gc_best:
             targets.append(f"checkpoint.best_{self.metric}_"
                            f"{val_metric:.3f}.{step}.npz")
         targets.append("checkpoint_last.npz")
         meta["step"] = step
         paths = [str(self.save_dir / t) for t in targets]
-        save_checkpoint_files(paths, flat, meta)
-        if wrote_epoch:
-            self._gc(r"checkpoint(\d+)\.npz", 1, self.keep_last_epochs)
-        if wrote_interval:
-            self._gc(r"checkpoint_(\d+)_(\d+)\.npz", 2,
-                     self.keep_interval_updates)
-        if val_metric is not None and self.keep_best > 0:
-            self._gc_best()
+        snap = state if isinstance(state, StateSnapshot) else None
+
+        def write():
+            with (self.writer.stream_for(snap.event) if self.writer and snap
+                  else contextlib.nullcontext()):
+                save_checkpoint_files(paths, snap.flat() if snap else state,
+                                      meta)
+                if wrote_epoch:
+                    self._gc(r"checkpoint(\d+)\.npz", 1,
+                             self.keep_last_epochs)
+                if wrote_interval:
+                    self._gc(r"checkpoint_(\d+)_(\d+)\.npz", 2,
+                             self.keep_interval_updates)
+                if gc_best:
+                    self._gc_best()
+                if snap is not None and snap.ema is not None:
+                    write_npz(str(self.save_dir / "checkpoint_last_ema.npz"),
+                              snap.ema_flat())
+
+        if self.writer is not None:
+            self.writer.submit(write)
+        else:
+            write()
         return paths
+
+    def wait(self) -> None:
+        """Block until every submitted write is on disk (nothing to wait
+        for when writes are synchronous); raises a write's error."""
+        if self.writer is not None:
+            self.writer.wait()
 
     def _gc(self, pattern: str, group: int, keep: int) -> None:
         """Keep the ``keep`` files of the pattern with the highest number
@@ -280,6 +461,7 @@ class CheckpointManager:
             p.unlink()
 
     def last_checkpoint(self) -> Optional[str]:
+        self.wait()
         p = self.save_dir / "checkpoint_last.npz"
         return str(p) if p.is_file() else None
 

@@ -380,22 +380,6 @@ def test_cli_prints_the_lines_of_jax_generate_for_s2st(cli_setup, mode,
         in timing
 
 
-def test_cli_refuses_what_is_not_ported(cli_setup):
-    from s2st_tpu_torch.cli.generate_for_s2st import main as port_main
-    corpus, ckpt = cli_setup
-    base = [str(corpus), "--path", str(ckpt), "--device", "cpu"]
-    for extra, name in ((["--sampling"], "--sampling"),
-                        (["--diverse-beam-groups", "2"],
-                         "--diverse-beam-groups"),
-                        (["--prefix-size", "1"], "--prefix-size"),
-                        (["--constraints"], "--constraints")):
-        with pytest.raises(NotImplementedError, match=name):
-            port_main(base + extra)
-    with pytest.raises(NotImplementedError, match="ensembles"):
-        port_main([str(corpus), "--path", f"{ckpt}:{ckpt}", "--device",
-                   "cpu"])
-
-
 def test_generate_waveform_takes_the_stage7_line(cli_setup, tmp_path):
     """recipes/run_baseline.sh:164-178 word for word (tiny values), with
     --device cpu and a short decode: the _targ WAVs and features beside

@@ -72,7 +72,9 @@ def test_port_imports_neither_jax_nor_s2st_tpu():
                  "tools.convergence_gate", "preprocessing.manifest_utils",
                  "preprocessing.cn_text_norm", "preprocessing.g2p",
                  "preprocessing.split_file", "preprocessing.audio_manifest",
-                 "cli.get_feature_manifest", "models.hifigan"):
+                 "cli.get_feature_manifest", "models.hifigan",
+                 "generate.constrained", "models.fairseq_checkpoint",
+                 "preprocessing.constraints_tools"):
         assert f"s2st_tpu_torch.{name}" in _walk_names(), name
     assert bad == "[]", bad
 
@@ -147,34 +149,26 @@ def test_text_generate_cli_raises_without_cuda(tmp_path):
         generate.main([str(tmp_path), "--path", "x.npz"])
 
 
-@pytest.mark.parametrize("flags", [["--sampling"],
-                                   ["--diverse-beam-groups", "2"],
-                                   ["--diversity-rate", "0.5"],
-                                   ["--prefix-size", "1"],
-                                   ["--constraints", "ordered"],
-                                   ["--path", "a.npz:b.npz"]])
-def test_text_generate_cli_refuses_later_slices_flags(tmp_path, flags):
-    from s2st_tpu_torch.cli import generate
-    with pytest.raises(NotImplementedError, match="not ported"):
-        generate.main([str(tmp_path), "--path", "x.npz", "--device", "cpu",
-                       *flags])
-
-
 def test_train_cli_refuses_later_slices_flags(tmp_path):
-    """Asynchronous saves wait for a later slice, with validation on or
-    off; validation and its flags are ported and pass the check."""
+    """Asynchronous saves, --stop-min-lr and the --eval-bleu flags are
+    ported: accepted with validation on or off, as validation and its
+    flags are."""
     from s2st_tpu_torch.cli import train
     off = "--disable-validation"
-    for flags in (["--write-checkpoints-asynchronously"],
-                  [off, "--write-checkpoints-asynchronously"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            train.main([str(tmp_path), "--device", "cpu", *flags])
     for flags in (["--eval-inference"], [],
                   ["--validate-interval-updates", "5"], ["--patience", "3"],
                   ["--valid-subset", "dev", "--validate-after-updates",
-                   "10", "--lr-scheduler", "reduce_lr_on_plateau"]):
-        train.check_args(train.get_parser().parse_args(
-            [str(tmp_path), "--device", "cpu", *flags]))
+                   "10", "--lr-scheduler", "reduce_lr_on_plateau"],
+                  ["--write-checkpoints-asynchronously"],
+                  [off, "--save-async", "--stop-min-lr", "1e-9"],
+                  ["--eval-bleu", "--eval-bleu-remove-bpe",
+                   "--eval-bleu-print-samples"]):
+        args = train.get_parser().parse_args(
+            [str(tmp_path), "--device", "cpu", *flags])
+        train.check_args(args)
+    assert args.eval_bleu and args.eval_bleu_remove_bpe == "@@ "
+    assert train.get_parser().parse_args(
+        [str(tmp_path), "--save-async"]).write_checkpoints_asynchronously
 
 
 @pytest.mark.parametrize("where", ["repo", "bare"])
