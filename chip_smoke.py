@@ -236,6 +236,30 @@ library's SASS, and the attention libraries must hold some.
    update 4 (e), their files (epoch, last and EMA) equal bit for bit;
    each save's stall of the loop and its write, peak memory and ms an
    update, side by side; both kernels >= 27 launches a microbatch.
+21. The paper's training recipes at their widths (512-d, 12 + 6 layers,
+   4 heads, --max-tokens 40000), --fp16 with --use-flash-attention
+   --attention-dropout 0, 3 updates each, each line's flags recorded from
+   recipes/run_pretraining_torch.sh and run_mix_tuning_torch.sh (a
+   ``python`` on their PATH that writes its arguments) and run through
+   the train CLI in this process: (a) pretraining stage 1 (l1/mse/eos/attn
+   weights 0, CTC and aux CE 1.0, taps 6,8) on phase 6's corpus; (b)
+   stage 2 warm-started from (a)'s checkpoint_last.npz, whose encoder
+   arrays the model must hold bit for bit right after the warm start; (c)
+   mix-tuning stage 1 (--arch s2t_transformer_hubert --criterion s2t_loss
+   --test-type st) on phase 16's corpus from a seeded hubert-base .pt,
+   the frontend bit-unchanged with zero Adam moments; (d) mix-tuning stage
+   2 over train_fisher (10 utterances) and train_mls (6) with
+   sampling_alpha 0.5, warm-started from (c), without --speaker-to-id and
+   with --asr-ce-weight 0 --st-ce-weight 0 (JAX's line as written raises:
+   the S2T encoder lacks the aux norms and speaker table): each epoch's
+   rows must be the draw numpy computes here. Each update must launch
+   exactly the attention kernels the model holds (forward: 47 in (a) and
+   (b), 36 in (c), 35 in (d), the frontend's 12 included; backward: 47,
+   24, 23); the first forward and backward kernel call of each distinct
+   shape is held against the plain version (each backward check must
+   also refuse two wrong answers); prints the second update's
+   ms, the third's device ms and idle share (torch.profiler) and peak
+   memory.
 
 Prints the card's name and power limit, one JSON line of kernel
 measurements, and, last, {"ok": true, "device": {...}}.
@@ -835,13 +859,15 @@ def agreement_phase(card: str) -> None:
             raise AssertionError(f"{name}: card and CPU disagree: {err}")
 
 
-def _profiled(fn):
+def _profiled(fn, host_events: bool = True):
     """(result, wall ms, device kernel ms, device activities, every device
     activity as (name, ms, count), largest first) of one call under
-    torch.profiler; the device idles for wall - kernel ms."""
+    torch.profiler; the device idles for wall - kernel ms. Without
+    ``host_events`` only the device is traced (a smaller trace for calls
+    of tens of thousands of launches)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host_events
+                 + [ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
@@ -1158,10 +1184,12 @@ def recipe_train_argv(data: Path, save: Path, max_update: int) -> list:
         "--log-interval", "1"]
 
 
-def run_train_cli(argv, save: Path, card: str, label: str) -> dict:
+def run_train_cli(argv, save: Path, card: str, label: str,
+                  s2t: bool = False) -> dict:
     """One run of the port's train CLI with every kernel count set to 0
     just before it; returns the counts, the per-update log, the
-    validations' records and peak memory."""
+    validations' records and peak memory. An ``s2t`` run's targets are
+    text tokens, an S2ST run's spectrogram frames."""
     from s2st_tpu_torch.cli import train
     from s2st_tpu_torch.kernels import attention as ka
     save.mkdir(parents=True)
@@ -1183,7 +1211,9 @@ def run_train_cli(argv, save: Path, card: str, label: str) -> dict:
             raise AssertionError(f"train ({label}): non-finite loss or grad "
                                  f"norm at update {rec['num_updates']}")
     steady = [r["step_ms"] for r in log[1:]] or [log[0]["step_ms"]]
-    frames = log[-1]["ntokens"] * 4          # packed steps * 4 frames
+    # packed steps * 4 frames, or the S2T model's target tokens
+    frames, unit = (log[-1]["ntokens"], "tokens") if s2t else \
+        (log[-1]["ntokens"] * 4, "frames")
     out = {"updates": len(log), "fwd_launches": fwd, "bwd_launches": bwd,
            "wall_s": wall,
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1191,11 +1221,12 @@ def run_train_cli(argv, save: Path, card: str, label: str) -> dict:
            "step_ms": sum(steady) / len(steady),
            "losses": [r["loss"] for r in log],
            "gnorms": [r["gnorm"] for r in log], "valid": valid}
-    out["target_frames_per_s"] = frames / (out["step_ms"] / 1e3)
+    out[f"target_{unit}_per_s"] = frames / (out["step_ms"] / 1e3)
     print(f"train ({label}): {out['updates']} updates in {wall:.1f} s; "
           f"{out['step_ms']:.3f} ms/update after the first "
-          f"({out['first_step_ms']:.1f} ms), {out['target_frames_per_s']:.0f} "
-          f"target frames/s ({frames} a batch), peak memory "
+          f"({out['first_step_ms']:.1f} ms), "
+          f"{out[f'target_{unit}_per_s']:.0f} target {unit}/s ({frames} a "
+          f"batch), peak memory "
           f"{out['peak_gib']:.2f} GiB; flash_attention launches fwd {fwd} "
           f"bwd {bwd}; losses {out['losses']}; grad norms {out['gnorms']} "
           f"({card})", flush=True)
@@ -4081,6 +4112,437 @@ def convergence_runs() -> int:
     return 0 if ok else 1
 
 
+# Phase 21: the paper's training recipes (recipes/run_pretraining_torch.sh,
+# recipes/run_mix_tuning_torch.sh): each line's flags, 3 updates at the
+# recipe's widths under --fp16 with the kernel configuration
+PAPER_UPDATES = 3
+PAPER_FLAGS = ("--use-flash-attention", "--attention-dropout", "0",
+               "--device", "cuda", "--log-interval", "1",
+               "--disable-validation", "--no-epoch-checkpoints",
+               "--save-interval", "100")
+PAPER_ALPHA = 0.5
+# mix-tuning stage 2's two corpora: the first 10 and the last 6 of phase
+# 16's 16 utterances
+PAPER_CORPORA = (("train_fisher", slice(0, 10)), ("train_mls", slice(10, 16)))
+
+
+def recipe_train_lines(script: str, env: dict, work: Path) -> list:
+    """The flags of each ``python -m s2st_tpu_torch.cli.train`` line of a
+    port recipe script, as bash expands them with ``env``: recorded by a
+    ``python`` on its PATH that writes its arguments and exits."""
+    shim = work / "record_bin"
+    shim.mkdir(exist_ok=True)
+    log = work / f"{script}.jsonl"
+    (shim / "python").write_text(
+        f"#!{sys.executable}\nimport json, sys\n"
+        f"open({str(log)!r}, 'a').write(json.dumps(sys.argv[1:]) + '\\n')\n")
+    (shim / "python").chmod(0o755)
+    res = subprocess.run(
+        ["bash", str(REPO / "recipes" / f"{script}.sh")],
+        env={**os.environ, "PATH": f"{shim}:{os.environ['PATH']}", **env},
+        capture_output=True, text=True, timeout=60)
+    if res.returncode != 0:
+        raise AssertionError(f"{script}.sh: {res.stderr[-2000:]}")
+    lines = [json.loads(line) for line in log.read_text().splitlines()]
+    if not lines or any(line[:2] != ["-m", "s2st_tpu_torch.cli.train"]
+                        for line in lines):
+        raise AssertionError(f"{script}.sh ran {lines}")
+    return [line[2:] for line in lines]
+
+
+def paper_launches(args) -> tuple:
+    """(forward, backward) attention kernel launches of one update of the
+    train CLI's model of ``args`` with every attention on the kernel: the
+    frontend's layers (forward only: it is frozen), the encoder's, each
+    decoder layer's self and cross attention, less the last spectrogram
+    decoder layer's cross attention, whose weights the loss reads."""
+    from s2st_tpu_torch.models.config_from_args import is_s2t
+    hub = args.hubert_layers if args.use_hubert else 0
+    fwd = args.encoder_layers + 2 * args.decoder_layers
+    if not is_s2t(args):
+        fwd -= 1
+        fwd += 2 * args.asr_decoder_layers * (args.asr_ce_weight > 0)
+        fwd += 2 * args.st_decoder_layers * (args.st_ce_weight > 0)
+    return fwd + hub, fwd
+
+
+class RecordAttentionBwd:
+    """Keeps, for each distinct call of the attention backward kernel on a
+    main path, the first call's inputs and the gradients the path got;
+    ``hold_path_attention_bwd`` then holds each against the plain
+    version."""
+
+    def __enter__(self):
+        from s2st_tpu_torch.kernels import attention as ka
+        self.ka, self.fn, self.calls = ka, ka.flash_attention_backward, {}
+
+        def record(q, k, v, out, row_max, row_logsum, grad_out, kpm=None,
+                   causal=False):
+            grads = self.fn(q, k, v, out, row_max, row_logsum, grad_out, kpm,
+                            causal)
+            key = (tuple(q.shape), k.shape[1], str(q.dtype).split(".")[-1],
+                   bool(causal), kpm is not None)
+            if key not in self.calls:
+                self.calls[key] = tuple(
+                    None if x is None else x.detach().clone()
+                    for x in (q, k, v, kpm, grad_out, out) + tuple(grads))
+            return grads
+        ka.flash_attention_backward = record
+        return self
+
+    def __exit__(self, *exc):
+        self.ka.flash_attention_backward = self.fn
+
+
+def bwd_error_bound(q, k, v, kpm, causal, g, out) -> tuple:
+    """Elementwise bounds on a bf16 backward's error against the plain
+    version's fp32 autograd (all inputs fp32 copies): the kernel rounds P
+    and dS = P (dP - D) to bf16 before its products (each a relative 2^-8
+    of its terms, and the result's own rounding), and takes D = rowsum(dO *
+    o) from the bf16 output o (an error of 2^-8 rowsum|dO||o| a row, which
+    dS carries as P times it). So |ddQ| <= 4u |dS||K| + 2u r P|K|, |ddK| <=
+    4u |dS|^T|Q| + 2u P^T (r|Q|), |ddV| <= 4u P^T|dO|, u = 2^-8, r the
+    rows' rowsum|dO||o|, products over the keys or queries a row sees."""
+    u = 2.0 ** -8
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    tq, tk = logits.shape[-2:]
+    if causal:
+        logits = logits + torch.triu(torch.full(
+            (tq, tk), -1e9, device=q.device), diagonal=1)
+    if kpm is not None:
+        logits = logits.masked_fill(kpm[:, None, None, :], -1e9)
+    p = torch.softmax(logits, dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g, v)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    r = (g.abs() * out.abs()).sum(-1).transpose(1, 2)[..., None]  # (B,H,Tq,1)
+    dq = 4 * u * torch.einsum("bhqk,bkhd->bqhd", ds.abs(), k.abs()) \
+        + 2 * u * torch.einsum("bhqk,bkhd->bqhd", p * r, k.abs())
+    dk = 4 * u * torch.einsum("bhqk,bqhd->bkhd", ds.abs(), q.abs()) \
+        + 2 * u * torch.einsum("bhqk,bqhd->bkhd", p * r, q.abs())
+    dv = 4 * u * torch.einsum("bhqk,bqhd->bkhd", p, g.abs())
+    return dq, dk, dv
+
+
+def _bwd_within(got, want, bounds) -> tuple:
+    """(every gradient finite and within its bound elementwise, max abs
+    err, largest err / bound)."""
+    ok, max_err, share = True, 0.0, 0.0
+    for x, y, bound in zip(got, want, bounds):
+        err = (x.float() - y).abs()
+        if err.numel():
+            max_err = max(max_err, float(err.max()))
+            share = max(share, float((err / bound).max()))
+        ok = ok and bool(torch.isfinite(x.float()).all()) and \
+            bool((err <= bound).all())
+    return ok, max_err, share
+
+
+def hold_path_attention_bwd(calls: dict, label: str, card: str) -> float:
+    """Each recorded backward call's dq, dk, dv against the plain
+    version's fp32 autograd on the same inputs and dO: fp32 within phase
+    5's TOL_BWD_FP32; bf16 within ``bwd_error_bound`` elementwise plus
+    1e-3 of the gradient's largest magnitude (phase 5's bound, 3e-2 of
+    it alone, fails on the path's gradients, whose dS cancels to near 0
+    in most rows). Each call's check must also refuse two wrong answers,
+    dq set to 0 and dk and dv swapped (dq or dk set to 1 where dO, and so
+    every gradient, is 0), or it checks nothing there. Returns the largest
+    error."""
+    from s2st_tpu_torch.kernels import attention as ka
+    worst = 0.0
+    for (shape, tk, dtype, causal, masked), (q, k, v, kpm, g, out, *got) in \
+            calls.items():
+        leaves = [x.float().requires_grad_() for x in (q, k, v)]
+        want = torch.autograd.grad(ka.flash_attention_reference(
+            *leaves, kpm, causal), leaves, g.float())
+        if dtype == "float32":
+            atol, rtol = TOL_BWD_FP32
+            bounds = [atol + rtol * y.abs() for y in want]
+        else:
+            with torch.no_grad():
+                bounds = [b + 1e-3 * y.abs().max() for b, y in zip(
+                    bwd_error_bound(*(x.float() for x in (q, k, v)), kpm,
+                                    causal, g.float(), out.float()), want)]
+        ok, max_err, worst_share = _bwd_within(got, want, bounds)
+        dq, dk, dv = got
+        # where dO is 0 (a loss term weighted 0 upstream) every gradient
+        # and every bound is 0, so ones stand in for the wrong answers
+        zero = not any(bool(y.any()) for y in want)
+        wrong = ((torch.ones_like(dq), dk, dv), (dq, torch.ones_like(dk), dv)
+                 ) if zero else ((torch.zeros_like(dq), dk, dv), (dq, dv, dk))
+        caught = [not _bwd_within(w, want, bounds)[0] for w in wrong]
+        b, tq, h, d = shape
+        print("path_case_bwd " + json.dumps({
+            "path": label, "B": b, "Tq": tq, "Tk": tk, "H": h, "D": d,
+            "dtype": dtype, "causal": causal, "key_padding": masked,
+            "max_abs_err": max_err, "err_over_bound": worst_share,
+            "max_abs_grad": [float(y.abs().max()) for y in want],
+            "dO_zero": zero, "refuses_wrong_answers": caught,
+            "card": card}),
+            flush=True)
+        if not ok:
+            raise AssertionError(f"{label}: the backward kernel at B={b} "
+                                 f"Tq={tq} Tk={tk} D={d} {dtype} disagrees "
+                                 f"with the plain version: {max_err} "
+                                 f"({worst_share:.3f} of the bound)")
+        if not all(caught):
+            raise AssertionError(f"{label}: the backward check at B={b} "
+                                 f"Tq={tq} Tk={tk} D={d} {dtype} passes a "
+                                 f"wrong answer (refused {caught})")
+        worst = max(worst, max_err)
+    print(f"{label}: {len(calls)} distinct backward kernel calls held "
+          f"against the plain version, each refusing two wrong answers, "
+          f"max abs err {worst:.3e} ({card})", flush=True)
+    return worst
+
+
+def run_paper_line(argv: list, card: str, label: str, extra=()) -> dict:
+    """One recipe line through the port's train CLI in this process, with
+    PAPER_FLAGS and ``extra``: each update's attention launches (forward,
+    backward) must be paper_launches' for the line's model; the second
+    update's ms, the third's device ms and wall under torch.profiler
+    (device events only) and the idle share of that one update, peak
+    memory; every distinct kernel call, forward and backward, held against
+    the plain version."""
+    from s2st_tpu_torch.cli import train
+    from s2st_tpu_torch.kernels import attention as ka
+    from s2st_tpu_torch.models.config_from_args import apply_arch, is_s2t
+    from s2st_tpu_torch.train.trainer import Trainer
+    argv = [*argv, "--max-update", str(PAPER_UPDATES), *PAPER_FLAGS, *extra]
+    save = Path(argv[argv.index("--save-dir") + 1])
+    argv += ["--log-file", str(save / "log.jsonl")]
+    args = apply_arch(train.get_parser().parse_args(argv), argv)
+    want = paper_launches(args)
+    orig, per_update, prof = Trainer.train_step, [], {}
+
+    def step(self, *a, **k):
+        f0, b0 = ka.flash_attention.launches, ka.flash_attention.bwd_launches
+        if self.step == PAPER_UPDATES - 1:
+            out, wall, busy, n, top = _profiled(lambda: orig(self, *a, **k),
+                                                host_events=False)
+            if busy <= 0:
+                raise AssertionError(f"{label}: the profiler saw no device "
+                                     f"time")
+            prof.update(wall_ms=wall, device_ms=busy, activities=n,
+                        top=top[:5])
+        else:
+            out = orig(self, *a, **k)
+        torch.cuda.synchronize()
+        per_update.append((ka.flash_attention.launches - f0,
+                           ka.flash_attention.bwd_launches - b0))
+        return out
+
+    Trainer.train_step = step
+    try:
+        with RecordAttention() as rf, RecordAttentionBwd() as rb:
+            run = run_train_cli(argv, save, card, label, s2t=is_s2t(args))
+    finally:
+        Trainer.train_step = orig
+    if run["updates"] != PAPER_UPDATES or \
+            per_update != [want] * PAPER_UPDATES:
+        raise AssertionError(f"{label}: {run['updates']} updates, launches "
+                             f"(fwd, bwd) an update {per_update}; want "
+                             f"{PAPER_UPDATES} of {want}")
+    run["launches_per_update"] = want
+    run["update_ms"] = json.loads((save / "log.jsonl").read_text()
+                                  .splitlines()[1])["step_ms"]
+    prof["idle"] = 1 - prof["device_ms"] / prof["wall_ms"]
+    run["profile"] = {k: prof[k] for k in ("wall_ms", "device_ms", "idle")}
+    run["fwd_err"] = hold_path_attention(rf.calls, label, card)
+    run["bwd_err"] = hold_path_attention_bwd(rb.calls, label, card)
+    print(f"paper {label}: {want[0]} forward and {want[1]} backward kernel "
+          f"launches an update; {run['update_ms']:.3f} ms an update (the "
+          f"second); the third under torch.profiler: device "
+          f"{prof['device_ms']:.3f} ms in {prof['activities']} activities "
+          f"of {prof['wall_ms']:.3f} ms wall with the profiler, idle share "
+          f"{prof['idle']:.3f}; peak memory "
+          f"{run['peak_gib']:.2f} GiB ({card})", flush=True)
+    for key, ms, count in prof["top"]:
+        print(f"paper {label}:   {ms:9.3f} ms  {count:6d}x  {key[:60]}",
+              flush=True)
+    return run
+
+
+class CheckWarmStart:
+    """Wraps the train CLI's warm start: right after it, before the first
+    update, each warmed parameter must equal the file's array bit for
+    bit."""
+
+    def __enter__(self):
+        from s2st_tpu_torch.cli import train
+        from s2st_tpu_torch.models.jax_bridge import _to_jax, jax_layout
+        from s2st_tpu_torch.train.checkpoint import load_checkpoint_file
+        self.train, self.fn, self.leaves = train, \
+            train.load_pretrained_component, 0
+
+        def check(model, path, component):
+            names = self.fn(model, path, component)
+            flat = load_checkpoint_file(path)[0]
+            layout = {n: (key, kind) for n, key, kind in jax_layout(model)}
+            sd = model.state_dict()
+            for name in names:
+                key, kind = layout[name]
+                if not np.array_equal(_to_jax(sd[name], kind), flat[key]):
+                    raise AssertionError(f"warm start: {key} differs from "
+                                         f"{path}")
+            self.leaves += len(names)
+            return names
+        train.load_pretrained_component = check
+        return self
+
+    def __exit__(self, *exc):
+        self.train.load_pretrained_component = self.fn
+
+
+class RecordDraws:
+    """The ids of the rows each collate of a resampled train split took,
+    in order (one batch an epoch here)."""
+
+    def __enter__(self):
+        from s2st_tpu_torch.data.s2st_dataset import TrainSplit
+        self.cls, self.fn, self.batches = TrainSplit, TrainSplit.collate, []
+        rec = self
+
+        def collate(split, items, **pads):
+            if split.resampled:
+                rec.batches.append([split.ids[it["index"]] for it in items])
+            return rec.fn(split, items, **pads)
+        TrainSplit.collate = collate
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.collate = self.fn
+
+
+def numpy_draws(data: Path, epochs: int, seed: int = 1) -> list:
+    """Each epoch's ids of mix-tuning stage 2's corpora under
+    PAPER_ALPHA, drawn here with numpy alone: each TSV's source frames, its
+    ratio (p_i^alpha / sum p^alpha) / p_i, then ceil(n_i * ratio) rows of
+    each by RandomState([42, seed, epoch]).choice, with replacement where
+    the ratio is at least 1."""
+    rows = []
+    for name, _ in PAPER_CORPORA:
+        header, *lines = (data / f"{name}.tsv").read_text().splitlines()
+        cols = header.split("\t")
+        rows.append([dict(zip(cols, line.split("\t"))) for line in lines])
+    sizes = np.array([sum(int(r["src_n_frames"]) for r in c) for c in rows],
+                     np.float64)
+    p = sizes / sizes.sum()
+    ratios = p ** PAPER_ALPHA / (p ** PAPER_ALPHA).sum() / p
+    out = []
+    for epoch in range(1, epochs + 1):
+        ids = []
+        for corpus, ratio in zip(rows, ratios):
+            rng = np.random.RandomState([42, seed, epoch])
+            ids += [corpus[i]["id"] for i in rng.choice(
+                len(corpus), int(np.ceil(len(corpus) * ratio)),
+                replace=ratio >= 1.0)]
+        out.append(ids)
+    return out
+
+
+def paper_recipes_phase(card: str) -> dict:
+    """21: the paper's recipes at their widths, --fp16, with
+    --use-flash-attention --attention-dropout 0, 3 updates each, every
+    line's flags recorded from the port's recipe scripts:
+    (a) pretraining stage 1 (text losses only); (b) stage 2, warm-started
+    from (a)'s checkpoint_last.npz, the warmed leaves equal to the file's
+    before the first update; (c) mix-tuning stage 1 (s2t_transformer_hubert,
+    s2t_loss, st) from a seeded hubert-base .pt, the frontend bit-unchanged;
+    (d) mix-tuning stage 2 over train_fisher,train_mls resampled with
+    sampling_alpha 0.5, warm-started from (c), without --speaker-to-id and
+    the aux decoders (JAX's line raises there, ROADMAP §3): each epoch's
+    rows the numpy draw."""
+    from s2st_tpu_torch.cli import train
+    from s2st_tpu_torch.data.dictionary import Dictionary
+    from s2st_tpu_torch.models.config_from_args import apply_arch
+    from s2st_tpu_torch.models.jax_bridge import (load_jax_variables,
+                                                  read_jax_checkpoint)
+    from s2st_tpu_torch.tasks.s2s_translation import build_model_and_loss
+    from s2st_tpu_torch.train import checkpoint as pckpt
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_paper_"))
+    runs = {}
+    try:
+        data = work / "fbank"
+        write_train_corpus(data, seed=21)
+        stage1, stage2 = recipe_train_lines(
+            "run_pretraining_torch", {"FEATURE_MANIFEST_ROOT": str(data),
+                                      "SAVE_DIR": str(work / "pretrain")},
+            work)
+        runs["pretrain_stage1"] = run_paper_line(stage1, card,
+                                                 "pretrain_stage1")
+        with CheckWarmStart() as warm:
+            runs["pretrain_stage2"] = run_paper_line(stage2, card,
+                                                     "pretrain_stage2")
+        print(f"paper pretrain_stage2: {warm.leaves} encoder parameter "
+              f"arrays equal stage 1's checkpoint_last.npz bit for bit "
+              f"before the first update ({card})", flush=True)
+        shutil.rmtree(work / "pretrain")
+
+        wave = work / "wave"
+        write_hubert_corpus(wave, seed=22)
+        header, *rows = (wave / "train.tsv").read_text().splitlines()
+        for name, part in PAPER_CORPORA:
+            (wave / f"{name}.tsv").write_text(
+                "\n".join([header] + rows[part]) + "\n")
+        with open(wave / "config.yaml", "a") as f:
+            f.write(f"sampling_alpha: {PAPER_ALPHA}\n")
+        pt = work / "hubert_base.pt"
+        trunk = write_hubert_pt(pt, seed=23)
+        st, finetune = recipe_train_lines(
+            "run_mix_tuning_torch", {"FEATURE_MANIFEST_ROOT": str(wave),
+                                     "SAVE_DIR": str(work / "mix"),
+                                     "hubert_path": str(pt)}, work)
+        runs["mix_st_pretrain"] = run_paper_line(st, card, "mix_st_pretrain")
+        ckpt = work / "mix" / "st_pretrain" / "checkpoint_last.npz"
+        args = apply_arch(train.get_parser().parse_args(st), st)
+        dicts = [Dictionary.load(str(wave / f)) for f in ("src_vocab.txt",
+                                                          "tgt_vocab.txt")]
+        _, model, _ = build_model_and_loss(args, len(dicts[0]),
+                                           len(dicts[1]), 80)
+        model.encoder.hubert.carry_pretraining(
+            {k: tuple(v.shape) for k, v in trunk.items()})
+        load_jax_variables(model, read_jax_checkpoint(str(ckpt))[0])
+        frontend = model.encoder.hubert.state_dict()
+        flat = pckpt.load_checkpoint_file(str(ckpt))[0]
+        hub = [k for k in flat if k.startswith("params::hubert::")]
+        if set(frontend) != set(trunk) or not all(
+                torch.equal(frontend[k], trunk[k]) for k in trunk) or any(
+                flat[pckpt.opt_key(m, k)].any() for k in hub
+                for m in ("mu", "nu")):
+            raise AssertionError("mix_st_pretrain: the frontend moved or its "
+                                 "Adam moments are not 0")
+        print(f"paper mix_st_pretrain: the frontend's {len(hub)} parameter "
+              f"arrays bit-unchanged over {PAPER_UPDATES} updates, their "
+              f"Adam moments 0 ({card})", flush=True)
+        del model, flat
+
+        # JAX's line raises (ROADMAP §3): the S2T encoder has no aux norms
+        # and no speaker table, and one --speaker-embed-dim cannot size
+        # both speaker tables at these widths
+        i = finetune.index("--speaker-to-id")
+        finetune = finetune[:i] + finetune[i + 2:]
+        with CheckWarmStart() as warm, RecordDraws() as draws:
+            runs["mix_finetune"] = run_paper_line(
+                finetune, card, "mix_finetune",
+                ("--asr-ce-weight", "0", "--st-ce-weight", "0"))
+        want = numpy_draws(wave, PAPER_UPDATES)
+        if [sorted(b) for b in draws.batches] != [sorted(w) for w in want]:
+            raise AssertionError(f"mix_finetune: the epochs' rows "
+                                 f"{draws.batches} are not numpy's draws "
+                                 f"{want}")
+        print(f"paper mix_finetune: {warm.leaves} encoder arrays warm-"
+              f"started from mix_st_pretrain bit for bit; epochs 1-"
+              f"{PAPER_UPDATES} took numpy's draws of train_fisher,train_mls "
+              f"(alpha {PAPER_ALPHA}): {[len(b) for b in draws.batches]} "
+              f"rows ({card})", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"paper recipes phase: {time.perf_counter() - t0:.1f} s ({card})",
+          flush=True)
+    return runs
+
+
 def attention_shapes(fwd: dict, bwd: dict) -> dict:
     """The attention kernels' graph-replay times at each main shape of
     phases 1 and 5 beside SDPA's, the plain version's and the bound."""
@@ -4200,6 +4662,7 @@ def main(argv=None) -> int:
     gate = gate_phase(card)
     prep = data_prep_phase(card)
     search = search_phase(card)
+    paper = paper_recipes_phase(card)
 
     a = trained["a"]
     shapes = attention_shapes({**fwd, **hubert_kernel,
@@ -4231,7 +4694,8 @@ def main(argv=None) -> int:
                for k in SEARCH_RUNS},
             "search_stage7_pt": search["s2t"]["stage7_pt_launches"],
             "train_save_sync": search["save"]["sync"]["fwd_launches"],
-            "train_save_async": search["save"]["async"]["fwd_launches"]},
+            "train_save_async": search["save"]["async"]["fwd_launches"],
+            **{f"paper_{k}": v["fwd_launches"] for k, v in paper.items()}},
         "max_abs_err": serving["max_abs_err"],
         "path_max_abs_err": {
             "generate_for_s2st": s2t["path_max_abs_err"],
@@ -4241,7 +4705,8 @@ def main(argv=None) -> int:
             "gate_fast_bf16": gate["path_max_abs_err"],
             "data_prep_serve": prep["path_max_abs_err"],
             "search": search["s2t"]["path_max_abs_err"],
-            "train_save_async": search["save"]["path_max_abs_err"]},
+            "train_save_async": search["save"]["path_max_abs_err"],
+            **{f"paper_{k}": v["fwd_err"] for k, v in paper.items()}},
         "ms": serving["kernel_graph_ms"],
         "plain_ms": serving["plain_graph_ms"],
         "bound_ms": serving["bound_ms"],
@@ -4262,9 +4727,12 @@ def main(argv=None) -> int:
             "train_hubert": hubert["train_bwd_launches"],
             "gate_fast_bf16": gate["bwd_launches"],
             "train_save_sync": search["save"]["sync"]["bwd_launches"],
-            "train_save_async": search["save"]["async"]["bwd_launches"]},
+            "train_save_async": search["save"]["async"]["bwd_launches"],
+            **{f"paper_{k}": v["bwd_launches"] for k, v in paper.items()}},
         "launches_per_update": a["bwd_launches"] / a["updates"],
         "max_abs_err": bwd["max_abs_err"],
+        "path_max_abs_err": {f"paper_{k}": v["bwd_err"]
+                             for k, v in paper.items()},
         "ms": bwd["bwd_graph_ms"],
         "plain_ms": bwd["plain_bwd_graph_ms"],
         "bound_ms": bwd["bound_ms"],

@@ -1,7 +1,7 @@
-"""Training: stage 5 of the recipe through the port.
+"""Training: stage 5 of the recipe and the paper's recipes through the port.
 
 Counterpart of ``s2st_tpu/cli/train.py::main`` (:28-600) for ``--task
-s2s_translation --criterion s2st_loss --arch s2st_transformer``:
+s2s_translation`` with ``--arch s2st_transformer`` or an S2T arch:
 dictionaries and data config from ``<data>``, a seeded random model, Adam
 with the inverse-sqrt schedule as the JAX CLI builds it, the JAX CLI's
 epoch batches (``data/iterators.py``) grouped by ``--update-freq`` (a list
@@ -60,6 +60,20 @@ id + 1 speakers, and each batch carries its rows' ids (an unknown speaker
 is 0), as JAX's task and dataset do (tasks/s2s_translation.py:42-43,
 :100-103, data/s2st_dataset.py:208-210).
 
+The arch picks the model and its loss, as in JAX (``--criterion`` is
+accepted): ``s2st_transformer`` with ``s2st_loss``, or an
+``s2t_transformer`` arch (``_hubert``, the s/xs/sp/m/mp/l/lp ladder; its
+defaults under the flags given) with ``s2t_loss`` over the target text
+(``--test-type st``) or the source text (``asr``); an S2T run validates by
+its loss, ``--eval-inference`` being for ``s2st*`` archs (:302).
+``--load-pretrained-encoder-from`` and ``--load-pretrained-decoder-from``
+(a ``.npz`` or a fairseq ``.pt``) then warm-start those components'
+parameters, after the frontend's load and before a resume, which wins
+(:182-190; ``train/checkpoint.py::load_pretrained_component``). A
+``--train-subset`` of comma-separated TSVs concatenates them, and with
+``sampling_alpha`` in config.yaml each epoch resamples them by
+temperature (``data/s2st_dataset.py``).
+
 ``--use-hubert True`` trains over raw waveforms through the frozen HuBERT
 frontend (``--hubert-hidden/-layers/-ffn/-heads``), and
 ``--load-pretrained-hubert-from`` a fairseq ``.pt`` replaces its random
@@ -86,16 +100,18 @@ import torch
 from ..data.iterators import EpochBatchIterator, GroupedIterator
 from ..data.s2st_dataset import TrainSplit, to_device
 from ..models.config_from_args import (add_model_args, add_speaker_args,
-                                       model_config, num_speakers,
+                                       apply_arch, is_s2t, num_speakers,
                                        speaker_to_id)
 from ..models.hubert import load_torch_hubert
-from ..models.s2st_transformer import S2STTransformer, encoder_layer_keep
+from ..models.s2st_transformer import encoder_layer_keep
 from ..nn.core import disable_tf32, resolve_device
 from ..train.checkpoint import (CheckpointManager, StateSnapshot,
-                                load_ema, restore_state)
+                                load_ema, load_pretrained_component,
+                                restore_state)
 from ..train.ema import EMAConfig, ema_step, init_ema
 from ..train.losses import LossConfig
-from ..tasks.s2s_translation import (build_eval_inference_fn, data_config,
+from ..tasks.s2s_translation import (build_eval_inference_fn,
+                                     build_model_and_loss, data_config,
                                      load_dictionaries)
 from ..train.optim import PLATEAU, schedule_from_args
 from ..train.trainer import Trainer
@@ -113,7 +129,10 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("data")
     p.add_argument("--task", default="s2s_translation",
                    choices=["s2s_translation"])
-    p.add_argument("--criterion", default="s2st_loss", choices=["s2st_loss"])
+    p.add_argument("--criterion", default="s2st_loss",
+                   choices=["s2st_loss", "s2t_loss"],
+                   help="the arch binds its loss, as in JAX: s2st_loss for "
+                   "s2st_transformer, s2t_loss for the s2t_transformer archs")
     p.add_argument("--config-yaml", default="config.yaml")
     p.add_argument("--train-subset", default="train")
     p.add_argument("--valid-subset", default="valid")
@@ -163,6 +182,10 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--restore-file", default="checkpoint_last.npz")
     p.add_argument("--reset-optimizer", action="store_true")
     p.add_argument("--reset-dataloader", action="store_true")
+    p.add_argument("--load-pretrained-encoder-from", default=None,
+                   help="warm-start the encoder from a .npz or fairseq .pt")
+    p.add_argument("--load-pretrained-decoder-from", default=None,
+                   help="warm-start the decoder from a .npz or fairseq .pt")
     p.add_argument("--save-interval", type=int, default=1)
     p.add_argument("--save-interval-updates", type=int, default=0)
     p.add_argument("--keep-interval-updates", type=int, default=-1)
@@ -312,21 +335,22 @@ def main(argv: Optional[List[str]] = None) -> int:
         level=logging.INFO,
         format="%(asctime)s | %(levelname)s | %(name)s | %(message)s",
         stream=sys.stdout)
-    args = get_parser().parse_args(argv)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = apply_arch(get_parser().parse_args(argv), argv)
     disable_tf32()
     device = resolve_device(args.device)
     check_args(args)
 
     data_cfg = data_config(args)
     dicts = load_dictionaries(args.data, data_cfg)
-    cfg = model_config(args, len(dicts[0]), len(dicts[1]),
-                       data_cfg.input_feat_per_channel,
-                       num_speakers=num_speakers(args))
+    model_cfg, model, loss_fn = build_model_and_loss(
+        args, len(dicts[0]), len(dicts[1]), data_cfg.input_feat_per_channel,
+        num_speakers=num_speakers(args))
+    cfg = model_cfg.base if is_s2t(args) else model_cfg
     speakers = speaker_to_id(args)
     split = TrainSplit(args.data, data_cfg, args.train_subset, *dicts,
                        n_frames_per_step=args.n_frames_per_step,
-                       speaker_to_id=speakers)
-    model = S2STTransformer(cfg).init_weights(args.seed)
+                       speaker_to_id=speakers, seed=args.seed)
     if cfg.use_hubert and args.load_pretrained_hubert_from:
         sd, _ = load_torch_hubert(args.load_pretrained_hubert_from)
         model.encoder.hubert.carry_pretraining(
@@ -334,6 +358,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         model.encoder.hubert.load_state_dict(sd, strict=True)
         logger.info(f"loaded pretrained hubert from "
                     f"{args.load_pretrained_hubert_from}")
+    # component warm starts, after the frontend's load (:182-190)
+    for path, component in ((args.load_pretrained_encoder_from, "encoder"),
+                            (args.load_pretrained_decoder_from, "decoder")):
+        if path:
+            load_pretrained_component(model, path, component)
+            logger.info(f"warm-started {component} from {path}")
     model = model.to(device)
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"model params: {n_params:,}; {len(split)} utterances in "
@@ -345,7 +375,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                                   .split(",")),
                       eps=args.adam_eps, weight_decay=args.weight_decay,
                       stats_dtype=torch.bfloat16 if args.adam_bf16_stats
-                      else None)
+                      else None, loss_fn=loss_fn)
 
     mgr = None if args.no_save else CheckpointManager(
         args.save_dir, args.best_checkpoint_metric,
@@ -396,14 +426,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         valid_itr = EpochBatchIterator(
             TrainSplit(args.data, data_cfg, args.valid_subset, *dicts,
                        n_frames_per_step=args.n_frames_per_step,
-                       speaker_to_id=speakers),
+                       speaker_to_id=speakers, seed=args.seed),
             args.max_tokens, args.batch_size, seed=args.seed,
             required_batch_size_multiple=args.required_batch_size_multiple,
             max_positions=(args.max_source_positions
                            if args.skip_invalid_size_inputs_valid_test
                            else None),
             num_batch_buckets=args.num_batch_buckets, shuffle=False)
-        if args.eval_inference:
+        if args.eval_inference and args.arch.startswith("s2st"):
             eval_fn = build_eval_inference_fn(
                 model, data_cfg, args.spec_bwd_max_iter,
                 max_iter=max(64, args.max_target_positions

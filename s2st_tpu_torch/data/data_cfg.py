@@ -216,6 +216,12 @@ class S2STDataConfig:
     def audio_root(self) -> str:
         return self.config.get("audio_root", "")
 
+    @property
+    def sampling_alpha(self) -> float:
+        """The temperature of a multi-corpus train split's resampling
+        (data_cfg.py:82); 1.0 keeps the corpora as they are."""
+        return self.config.get("sampling_alpha", 1.0)
+
     def transforms_for(self, key: str, split: str, is_train: bool
                        ) -> Optional[List[str]]:
         """Transform names for a split: the split's own entry, else

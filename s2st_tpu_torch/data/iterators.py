@@ -16,6 +16,8 @@ The port's own copy of what stage 5 uses of ``s2st_tpu/data/iterators.py``:
   (:258-307; a waveform source's time pad counts its samples, :296-300),
   and ``state_dict`` / ``next_epoch_itr(offset)`` for a resume
   in the middle of an epoch;
+- a temperature-resampled dataset (``resampled``, ``set_epoch``) draws
+  each epoch's rows before its batches are formed (:207-221);
 - ``GroupedIterator`` (:396-413) for ``--update-freq``.
 
 The dataset gives ``src_n_frames`` (the lengths batches are formed from),
@@ -137,6 +139,13 @@ class EpochBatchIterator:
         return self._frozen
 
     def batches_for_epoch(self, epoch: int) -> List[np.ndarray]:
+        """The epoch's batches; a resampled dataset first draws the
+        epoch's rows, and its batches are formed from them anew
+        (:207-221), so a resume in the middle of an epoch draws them
+        again."""
+        if getattr(self.dataset, "resampled", False):
+            self.dataset.set_epoch(epoch)
+            self._frozen = None
         batches = list(self.frozen_batches())
         if self.shuffle:
             np.random.RandomState(self.seed + epoch).shuffle(batches)

@@ -142,27 +142,38 @@ class FeatureTransforms:
 
 class Manifest:
     """A split's TSV rows with paths taken from ``audio_root``, and the
-    split's source and target transforms."""
+    split's source and target transforms. A comma-separated split names
+    several TSVs (``train_fisher,train_mls``), whose rows are concatenated
+    in that order, each keeping its own columns; ``corpora`` holds each
+    TSV's rows (``S2STDatasetCreator.from_tsv``, s2st_dataset.py:346-364).
+    The transforms are those of the whole name, as JAX looks them up."""
 
     def __init__(self, root: str, cfg: S2STDataConfig, split: str):
-        tsv = Path(root) / f"{split}.tsv"
-        if not tsv.is_file():
-            raise FileNotFoundError(f"Dataset not found: {tsv}")
-        self.samples = load_tsv(tsv)
+        self.corpora = []
         audio_root = Path(cfg.audio_root)
-        for s in self.samples:
-            for k in ("src_audio", "tgt_audio", "src_orig"):
-                if s.get(k) and not s[k].startswith("/"):
-                    s[k] = (audio_root / s[k]).as_posix()
+        for name in split.split(","):
+            tsv = Path(root) / f"{name}.tsv"
+            if not tsv.is_file():
+                raise FileNotFoundError(f"Dataset not found: {tsv}")
+            samples = load_tsv(tsv)
+            for s in samples:
+                for k in ("src_audio", "tgt_audio", "src_orig"):
+                    if s.get(k) and not s[k].startswith("/"):
+                        s[k] = (audio_root / s[k]).as_posix()
+            self.corpora.append(samples)
         self.use_hubert = cfg.use_hubert
-        self.ids = [s["id"] for s in self.samples]
-        self.src_n_frames = np.array([int(s["src_n_frames"])
-                                      for s in self.samples])
+        self.set_samples([s for c in self.corpora for s in c])
         is_train = split.startswith("train")
         self.src_transforms = FeatureTransforms(
             cfg, cfg.transforms_for("src_transforms", split, is_train))
         self.tgt_transforms = FeatureTransforms(
             cfg, cfg.transforms_for("tgt_transforms", split, is_train))
+
+    def set_samples(self, samples: List[Dict[str, str]]) -> None:
+        self.samples = samples
+        self.ids = [s["id"] for s in samples]
+        self.src_n_frames = np.array([int(s["src_n_frames"])
+                                      for s in samples])
 
     def source(self, index: int,
                rng: Optional[np.random.RandomState] = None) -> np.ndarray:

@@ -14,11 +14,21 @@ collate to a (B, L) source, :260-275), with each row's speaker id under
 ``speaker`` where the split has a ``--speaker-to-id`` map (:208-210,
 :300-325). Batches and their order come from
 ``data/iterators.py``, whose pads then count samples.
+
+A train split of several corpora (``--train-subset train_a,train_b``)
+under a ``sampling_alpha`` other than 1.0 is resampled by temperature
+(``S2STDatasetCreator.from_tsv``, :365-400, and ``set_epoch``, :135-150):
+each corpus's ratio comes from the source frames pooled by its
+(src_lang, tgt_lang) pair (by corpus where the TSV has neither column),
+and every epoch draws ceil(len * ratio) of its rows with
+``RandomState([42, seed, epoch]).choice``, with replacement where the
+ratio is at least 1; the iterator forms that epoch's batches anew.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import logging
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,17 +40,74 @@ from .manifest import Manifest, pack_frames
 
 PAD = 1
 
+logger = logging.getLogger(__name__)
+
+
+def resampling_ratios(corpora: List[List[Dict[str, str]]], alpha: float
+                      ) -> List[float]:
+    """Each corpus's size ratio of temperature ``alpha`` (the reference's
+    get_size_ratios, pooled by language pair, s2st_dataset.py:368-393)."""
+    def pair(rows, k):
+        s = rows[0] if rows else {}
+        return (s.get("src_lang", ""), s.get("tgt_lang", "")) \
+            if ("src_lang" in s or "tgt_lang" in s) else ("", f"#{k}")
+    pairs = [pair(rows, k) for k, rows in enumerate(corpora)]
+    sizes = np.array([sum(int(s["src_n_frames"]) for s in rows)
+                      for rows in corpora], np.float64)
+    pooled: Dict = {}
+    for p, sz in zip(pairs, sizes):
+        pooled[p] = pooled.get(p, 0.0) + sz
+    total = sum(pooled.values())
+    prob = {p: (v / total) ** alpha for p, v in pooled.items()}
+    prob_sum = sum(prob.values())
+    return [float((prob[p] / prob_sum) * total / pooled[p]) for p in pairs]
+
+
+def resample(corpora: List[List[Dict[str, str]]], ratios: Sequence[float],
+             seed: int, epoch: int) -> List[Dict[str, str]]:
+    """One epoch's rows: ceil(len * ratio) of each corpus in turn, drawn
+    by ``RandomState([42, seed, epoch])`` (a fresh one a corpus), with
+    replacement where the ratio is at least 1 (set_epoch, :135-150)."""
+    drawn = []
+    for rows, ratio in zip(corpora, ratios):
+        n = int(np.ceil(len(rows) * ratio))
+        rng = np.random.RandomState([42, seed % (2 ** 32), epoch])
+        drawn.extend(rows[i] for i in rng.choice(len(rows), n,
+                                                 replace=ratio >= 1.0))
+    return drawn
+
 
 class TrainSplit(Manifest):
     def __init__(self, root: str, cfg: S2STDataConfig, split: str,
                  src_dict: Dictionary, tgt_dict: Dictionary,
                  n_frames_per_step: int = 1,
-                 speaker_to_id: Optional[Dict[str, int]] = None):
+                 speaker_to_id: Optional[Dict[str, int]] = None,
+                 seed: int = 1):
         super().__init__(root, cfg, split)
         self.src_dict = src_dict
         self.tgt_dict = tgt_dict
         self.n_frames_per_step = n_frames_per_step
         self.speaker_to_id = speaker_to_id
+        self.seed = seed
+        self.ratios = None
+        if split.startswith("train") and len(self.corpora) > 1 \
+                and cfg.sampling_alpha != 1.0:
+            self.ratios = resampling_ratios(self.corpora, cfg.sampling_alpha)
+            logger.info(f"temperature resampling (alpha="
+                        f"{cfg.sampling_alpha}): ratios="
+                        f"{[round(r, 3) for r in self.ratios]}")
+            self.set_epoch(1)
+
+    @property
+    def resampled(self) -> bool:
+        """Whether each epoch draws its own rows (and batches)."""
+        return self.ratios is not None
+
+    def set_epoch(self, epoch: int) -> None:
+        """Draw the epoch's rows of a resampled split; else nothing."""
+        if self.ratios is not None:
+            self.set_samples(resample(self.corpora, self.ratios, self.seed,
+                                      epoch))
 
     def __len__(self) -> int:
         return len(self.samples)

@@ -6,7 +6,9 @@ and defaults (:222-303, :484-488, the HuBERT frontend's :70-75),
 which lets the checkpoint's own flag echo (``__meta__["args"]``) override
 the command line for every architectural key and ``--model-overrides``
 override both, and ``build_model_config``
-(:2445-2509). ``model_config`` takes the vocabulary sizes from the caller
+(:2445-2509), and the S2T archs with their defaults (``S2T_ARCHS``,
+``apply_arch``) and config (``s2t_config``). ``model_config`` takes the
+vocabulary sizes from the caller
 (the training CLI's dictionaries); ``build_model_config`` takes them, and
 the speaker count, from a checkpoint's array shapes, so that generation
 loads no dictionary.
@@ -17,7 +19,7 @@ from __future__ import annotations
 import argparse
 import ast
 import json
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -90,6 +92,53 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--ctc-weight-tgt", type=float, default=0.0)
     p.add_argument("--asr-ce-weight", type=float, default=0.0)
     p.add_argument("--st-ce-weight", type=float, default=0.0)
+    # the S2T criterion's targets (options.py:281-282)
+    p.add_argument("--test-type", default="st", choices=["st", "asr"])
+
+
+# the S2T archs' defaults (options.py:735-737, :1008-1013, :1938-2004):
+# the size suffix -> (width, heads, FFN width, dropout, encoder layers,
+# decoder layers), the layers None where the size keeps the flags'; each
+# size also with ``_hubert``, which turns the frontend on
+_S2T_SIZES = {"": None,
+              "_s": (256, 4, 2048, 0.1, None, None),
+              "_xs": (256, 4, 1024, 0.3, 6, 3),
+              "_sp": (256, 4, 2048, 0.1, 16, None),
+              "_m": (512, 8, 2048, 0.15, None, None),
+              "_mp": (512, 8, 2048, 0.15, 16, None),
+              "_l": (1024, 16, 4096, 0.2, None, None),
+              "_lp": (1024, 16, 4096, 0.2, 16, None)}
+S2T_ARCHS = {f"s2t_transformer{hub}{suffix}": (bool(hub), size)
+             for hub in ("", "_hubert")
+             for suffix, size in _S2T_SIZES.items()}
+
+
+def apply_arch(args: argparse.Namespace, argv: List[str]
+               ) -> argparse.Namespace:
+    """An S2T arch's defaults over the parsed flags, each flag given in
+    ``argv`` kept (``_two_pass``, options.py:2293-2320)."""
+    if args.arch not in S2T_ARCHS:
+        return args
+    hubert, size = S2T_ARCHS[args.arch]
+    defaults = {"use_hubert": True} if hubert else {}
+    if size:
+        dim, heads, ffn, drop, enc, dec = size
+        defaults.update(encoder_embed_dim=dim, decoder_embed_dim=dim,
+                        encoder_ffn_embed_dim=ffn, decoder_ffn_embed_dim=ffn,
+                        encoder_attention_heads=heads,
+                        decoder_attention_heads=heads, dropout=drop)
+        defaults.update({k: v for k, v in (("encoder_layers", enc),
+                                           ("decoder_layers", dec)) if v})
+    explicit = {a[2:].split("=")[0].replace("-", "_")
+                for a in argv if a.startswith("--")}
+    for key, value in defaults.items():
+        if key not in explicit:
+            setattr(args, key, value)
+    return args
+
+
+def is_s2t(args: argparse.Namespace) -> bool:
+    return getattr(args, "arch", "s2st_transformer") in S2T_ARCHS
 
 
 def add_model_overrides_arg(p: argparse.ArgumentParser) -> None:
@@ -168,6 +217,23 @@ def build_model_config(args: argparse.Namespace, variables: Dict[str, Any],
         speakers = rows("encoder", "embed_speaker", "w")
     return model_config(args, src_vocab, tgt_vocab, input_feat_per_channel,
                         num_speakers=speakers)
+
+
+def s2t_config(args: argparse.Namespace, src_vocab_size: int,
+               tgt_vocab_size: int, input_feat_per_channel: int,
+               num_speakers: int = 0):
+    """The S2T model's config (tasks/s2s_translation.py:278-290): the base
+    config of the flags, the decoder's depth and width, and the source
+    vocabulary for ``--test-type asr``, the target's for ``st``."""
+    from .s2t_transformer import S2TConfig
+    base = model_config(argparse.Namespace(**{**vars(args),
+                                              "arch": "s2st_transformer"}),
+                        src_vocab_size, tgt_vocab_size,
+                        input_feat_per_channel, num_speakers)
+    return S2TConfig(base=base, decoder_layers=args.decoder_layers,
+                     decoder_embed_dim=args.decoder_embed_dim,
+                     vocab_size=src_vocab_size if args.test_type == "asr"
+                     else tgt_vocab_size)
 
 
 def model_config(args: argparse.Namespace, src_vocab_size: int,

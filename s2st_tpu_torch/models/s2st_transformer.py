@@ -188,8 +188,15 @@ class S2STEncoder(nn.Module):
         x = x + positions_for_lengths(self.pos_table, out_lengths, t_out, PAD,
                                       x.dtype)
         if speaker is not None and self.embed_speaker is not None:
-            x = x + self.embed_speaker.weight.to(x.dtype)[
+            spk = self.embed_speaker.weight.to(x.dtype)[
                 speaker.reshape(-1)][:, None, :]
+            if spk.shape[-1] != x.shape[-1]:
+                # one --speaker-embed-dim sizes both tables (JAX's fault,
+                # options.py:2490-2491): JAX's add raises TypeError
+                raise TypeError(f"add got incompatible shapes for "
+                                f"broadcasting: {tuple(x.shape)}, "
+                                f"{tuple(spk.shape)}")
+            x = x + spk
         x = dropout(x, cfg.dropout, generator)
         middle: List[torch.Tensor] = []
         for i, layer in enumerate(self.transformer_layers):
@@ -277,6 +284,14 @@ class SpectrogramDecoder(nn.Module):
         x = prev_output.to(cfg.dtype)
         if speaker is not None and self.embed_speaker is not None:
             spk = self.embed_speaker.weight.to(cfg.dtype)[speaker.reshape(-1)]
+            if spk.shape[-1] != x.shape[-1]:
+                # the decoder's speaker frame replaces the first frame: as
+                # JAX's concatenate, a width other than the frame's raises
+                # TypeError
+                raise TypeError(f"Cannot concatenate arrays with shapes that "
+                                f"differ in dimensions other than the one "
+                                f"being concatenated: {tuple(spk.shape)}, "
+                                f"{tuple(x.shape)}")
             x = torch.cat([spk[:, None, :], x[:, 1:, :]], dim=1)
         x = self.prenet_in(x, generator)
         drop = generator if train else None
@@ -419,56 +434,65 @@ class S2STTransformer(nn.Module):
                 pad, drop)
         return out
 
-    @torch.no_grad()
     def init_weights(self, seed: int) -> "S2STTransformer":
         """Seeded random init with the JAX package's distributions
-        (models/s2st_transformer.py:149-257): torch-default uniform
-        linears, xavier attention projections (gain 1/sqrt(2) for q/k/v),
-        xavier convs (relu gain in the subsampler, tanh/linear gain in the
-        postnet), normal(0, dim^-0.5) embeddings with a zero pad row."""
-        g = torch.Generator().manual_seed(seed)
+        (models/s2st_transformer.py:149-257; ``seeded_init``)."""
+        seeded_init(self, torch.Generator().manual_seed(seed), self.encoder,
+                    self.decoder.postnet)
+        with torch.no_grad():
+            self.decoder.pos_emb_alpha.fill_(1.0)
+        return self
 
-        def uniform(t, bound):
-            t.copy_(torch.rand(t.shape, generator=g) * (2 * bound) - bound)
 
-        def xavier(w, fan_in, fan_out, gain):
-            uniform(w, gain * math.sqrt(6.0 / (fan_in + fan_out)))
+@torch.no_grad()
+def seeded_init(model: nn.Module, g: torch.Generator, encoder: S2STEncoder,
+                postnet: Optional[Postnet] = None) -> None:
+    """Draw ``model``'s weights from ``g`` with the JAX package's
+    distributions: torch-default uniform linears, xavier attention
+    projections (gain 1/sqrt(2) for q/k/v), xavier convs (relu gain in the
+    subsampler, tanh/linear gain in the postnet), normal(0, dim^-0.5)
+    embeddings with a zero pad row and text output projections, then the
+    HuBERT frontend's init."""
+    def uniform(t, bound):
+        t.copy_(torch.rand(t.shape, generator=g) * (2 * bound) - bound)
 
-        for mod in self.modules():
-            if isinstance(mod, nn.Linear):
-                uniform(mod.weight, 1.0 / math.sqrt(mod.in_features))
-                if mod.bias is not None:
-                    uniform(mod.bias, 1.0 / math.sqrt(mod.in_features))
-            elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d)):
-                mod.reset_parameters()
-            elif isinstance(mod, nn.Embedding):
-                mod.weight.copy_(torch.randn(mod.weight.shape, generator=g)
-                                 * mod.embedding_dim ** -0.5)
-                if mod.padding_idx is not None:
-                    mod.weight[mod.padding_idx] = 0.0
-        for mod in self.modules():
-            if isinstance(mod, MultiheadAttention):
-                for proj, gain in ((mod.q_proj, 2 ** -0.5),
-                                   (mod.k_proj, 2 ** -0.5),
-                                   (mod.v_proj, 2 ** -0.5),
-                                   (mod.out_proj, 1.0)):
-                    xavier(proj.weight, proj.in_features, proj.out_features,
-                           gain)
-            elif isinstance(mod, AuxTextDecoder):
-                w = mod.output_projection.weight
-                w.copy_(torch.randn(w.shape, generator=g) * w.shape[1] ** -0.5)
-        convs = [(c, math.sqrt(2.0)) for c in self.encoder.subsample.conv_layers]
-        post = self.decoder.postnet.convolutions
+    def xavier(w, fan_in, fan_out, gain):
+        uniform(w, gain * math.sqrt(6.0 / (fan_in + fan_out)))
+
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear):
+            uniform(mod.weight, 1.0 / math.sqrt(mod.in_features))
+            if mod.bias is not None:
+                uniform(mod.bias, 1.0 / math.sqrt(mod.in_features))
+        elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d)):
+            mod.reset_parameters()
+        elif isinstance(mod, nn.Embedding):
+            mod.weight.copy_(torch.randn(mod.weight.shape, generator=g)
+                             * mod.embedding_dim ** -0.5)
+            if mod.padding_idx is not None:
+                mod.weight[mod.padding_idx] = 0.0
+    for mod in model.modules():
+        if isinstance(mod, MultiheadAttention):
+            for proj, gain in ((mod.q_proj, 2 ** -0.5),
+                               (mod.k_proj, 2 ** -0.5),
+                               (mod.v_proj, 2 ** -0.5),
+                               (mod.out_proj, 1.0)):
+                xavier(proj.weight, proj.in_features, proj.out_features,
+                       gain)
+        elif isinstance(mod, AuxTextDecoder):
+            w = mod.output_projection.weight
+            w.copy_(torch.randn(w.shape, generator=g) * w.shape[1] ** -0.5)
+    convs = [(c, math.sqrt(2.0)) for c in encoder.subsample.conv_layers]
+    if postnet is not None:
+        post = postnet.convolutions
         convs += [(blk[0], 5.0 / 3.0 if i < len(post) - 1 else 1.0)
                   for i, blk in enumerate(post)]
-        for conv, gain in convs:
-            cout, cin, k = conv.weight.shape
-            xavier(conv.weight, cin * k, cout * k, gain)
-            uniform(conv.bias, 1.0 / math.sqrt(cin * k))
-        self.decoder.pos_emb_alpha.fill_(1.0)
-        if self.encoder.hubert is not None:
-            self.encoder.hubert.init_weights(g)
-        return self
+    for conv, gain in convs:
+        cout, cin, k = conv.weight.shape
+        xavier(conv.weight, cin * k, cout * k, gain)
+        uniform(conv.bias, 1.0 / math.sqrt(cin * k))
+    if encoder.hubert is not None:
+        encoder.hubert.init_weights(g)
 
 
 def from_jax_variables(cfg: S2STConfig, variables: Dict[str, Any]

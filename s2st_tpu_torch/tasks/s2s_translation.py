@@ -1,6 +1,8 @@
-"""Validation with inference for the S2ST task: MCD-DTW on generated speech.
+"""The S2ST task: the model and loss of an arch, and validation with
+inference (MCD-DTW on generated speech).
 
-Counterpart of ``s2st_tpu/tasks/s2s_translation.py``: the data config as
+Counterpart of ``s2st_tpu/tasks/s2s_translation.py``: the arch's model
+and loss (``build_model_and_loss``), the data config as
 ``setup_task`` reads it (:47-49, ``--use-hubert`` switching the sources to
 raw waveforms), ``gcmvn_stats`` (:300) and ``build_eval_inference_fn``
 (:312-372), which takes fbank or waveform batches alike. For a validation
@@ -15,14 +17,19 @@ of JAX's function are not produced.
 
 from __future__ import annotations
 
+import functools
 from pathlib import Path
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..data.data_cfg import S2STDataConfig
 from ..data.dictionary import Dictionary
+from ..models.config_from_args import is_s2t, model_config, s2t_config
+from ..models.s2st_transformer import S2STTransformer
+from ..models.s2t_transformer import S2TTransformer
+from ..train.losses import s2st_loss, s2t_loss
 from ..generate.speech_generator import GenerationConfig, generate_features
 from ..ops.dsp import griffin_lim, logmel_to_linear, make_pinv_mel_basis
 from ..ops.mcd import batch_mcd
@@ -45,6 +52,24 @@ def load_dictionaries(data: str, data_cfg: S2STDataConfig
     """The source and target dictionaries that config.yaml names."""
     return tuple(Dictionary.load(str(Path(data) / data_cfg.config[key]))
                  for key in ("src_vocab_filename", "tgt_vocab_filename"))
+
+
+def build_model_and_loss(args, src_vocab_size: int, tgt_vocab_size: int,
+                         input_feat_per_channel: int, num_speakers: int = 0
+                         ) -> Tuple[Any, torch.nn.Module, Callable]:
+    """arch -> (config, model with seeded weights, loss function)
+    (``build_model_and_loss``, :113-290): an S2T arch builds the S2T model
+    and binds ``s2t_loss`` for ``--test-type``, ``s2st_transformer`` the
+    S2ST model and ``s2st_loss``; ``--criterion`` does not choose, as in
+    JAX. Any other arch raises."""
+    if is_s2t(args):
+        cfg = s2t_config(args, src_vocab_size, tgt_vocab_size,
+                         input_feat_per_channel, num_speakers)
+        return cfg, S2TTransformer(cfg).init_weights(args.seed), \
+            functools.partial(s2t_loss, test_type=args.test_type)
+    cfg = model_config(args, src_vocab_size, tgt_vocab_size,
+                       input_feat_per_channel, num_speakers)
+    return cfg, S2STTransformer(cfg).init_weights(args.seed), s2st_loss
 
 
 def gcmvn_stats(data_cfg: S2STDataConfig

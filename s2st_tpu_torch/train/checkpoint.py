@@ -33,6 +33,8 @@ The port's own copy of ``s2st_tpu/train/checkpoint.py``:
   copies. The worker copies them to the host on a stream of its own, which
   waits for that event only, so the copy does not queue behind the next
   update; the copies are freed once that copy is done;
+- ``load_pretrained_component`` (:272-298): the warm start of one
+  component from a ``.npz`` or a fairseq ``.pt``, JAX's errors included;
 - ``average_checkpoints`` (:498-522): the parameters' mean accumulated in
   fp64 and cast to the last file's dtypes, with the last file's
   statistics, optimizer state and meta.
@@ -317,6 +319,83 @@ def peek_meta(path: str) -> Dict:
 def load_checkpoint_file(path: str) -> Tuple[Dict[str, np.ndarray], Dict]:
     with np.load(path, allow_pickle=False) as z:
         return {k: z[k] for k in z.files if k != "__meta__"}, _meta(z)
+
+
+# what JAX's fairseq reader takes from a .pt whatever the component: it
+# maps the whole file as an S2ST checkpoint and these entries without a
+# default (models/torch_import.py:131-156), so a file without them (an S2T
+# checkpoint) raises KeyError before any component is taken
+_S2ST_PT_ENTRIES = ("decoder.prenet.1.weight", "decoder.prenet.1.bias",
+                    "decoder.pos_emb_alpha", "decoder.feat_proj.weight",
+                    "decoder.feat_proj.bias", "decoder.eos_proj.weight",
+                    "decoder.eos_proj.bias")
+
+
+def _component_names(names, component: str) -> set:
+    """The entries of a component in fairseq's names, as JAX's trees hold
+    them: the frontend (``params::hubert``), the postnet's batch counts
+    (optional in a file) and position buffers left out."""
+    return {n for n in names if n.startswith(component + ".")
+            and not n.startswith("encoder.hubert.")
+            and not n.endswith(("num_batches_tracked", "_float_tensor"))
+            and "version" not in n}
+
+
+@torch.no_grad()
+def load_pretrained_component(model, path: str, component: str
+                              ) -> List[str]:
+    """Warm-start the parameters of one component (``encoder`` or
+    ``decoder``) from a checkpoint (``load_pretrained_component``,
+    s2st_tpu/train/checkpoint.py:272-298); returns the names loaded. The
+    statistics, the other components and the HuBERT frontend
+    (``params::hubert``) stay as they are.
+
+    A JAX ``.npz``: every parameter of the component must be in the file,
+    else KeyError (``checkpoint missing <path>``); a shape that differs
+    raises ValueError; leaves of the file the model lacks are ignored
+    (``unflatten_into(strict=True)``, :73-98). A fairseq ``.pt`` is read
+    as an S2ST checkpoint, as JAX's reader reads it (KeyError without the
+    spectrogram decoder's entries), and its entries of the component must
+    be the model's, with the same shapes, else ValueError (JAX's
+    ``tree_map`` over the two trees)."""
+    prefix = "params" + SEP + component + SEP
+    entries = sorted(((name, key, kind) for name, key, kind
+                      in jax_layout(model) if key.startswith(prefix)),
+                     key=lambda e: e[1])
+    current = model.state_dict()
+    sd = {}
+    if path.endswith((".pt", ".bin")):
+        from ..models.fairseq_checkpoint import s2st_state_dict
+        file_sd = s2st_state_dict(path)
+        for k in _S2ST_PT_ENTRIES:
+            if k not in file_sd:
+                raise KeyError(k)
+        ours = _component_names(current, component)
+        theirs = _component_names(file_sd, component)
+        if ours != theirs:
+            raise ValueError(
+                f"{path}: the {component}'s entries differ from the model's: "
+                f"missing {sorted(ours - theirs)[:4]}, extra "
+                f"{sorted(theirs - ours)[:4]}")
+        for name, _, _ in entries:
+            sd[name] = file_sd[name]
+            if tuple(sd[name].shape) != tuple(current[name].shape):
+                raise ValueError(f"shape mismatch {tuple(sd[name].shape)} "
+                                 f"vs {tuple(current[name].shape)}")
+    else:
+        flat, _ = load_checkpoint_file(path)
+        for name, key, kind in entries:
+            rel = key[len(prefix):]
+            if key not in flat:
+                raise KeyError(f"checkpoint missing {rel}")
+            sd[name] = _tensor(flat[key], kind)
+            if tuple(sd[name].shape) != tuple(current[name].shape):
+                raise ValueError(
+                    f"shape mismatch for {rel}: ckpt {tuple(flat[key].shape)}"
+                    f" vs model {tuple(current[name].shape)}")
+    model.load_state_dict({n: t.to(current[n].dtype) for n, t in sd.items()},
+                          strict=False)
+    return list(sd)
 
 
 @torch.no_grad()

@@ -1,4 +1,4 @@
-"""The composite S2ST training loss.
+"""The training losses: the composite S2ST loss and the S2T CE.
 
 Counterpart of ``s2st_tpu/train/losses.py`` (:29-117, :183-283): L1 + MSE
 on the features before and after the postnet over valid frames, the EOS BCE
@@ -153,7 +153,7 @@ def composite_loss(net: Dict[str, Any], lcfg: LossConfig,
                    batch: Dict[str, Any]
                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """``_composite_loss`` (:183-283): (loss, {"new_stats", "logging",
-    "sample_size"}) with JAX's logging keys."""
+    "sample_size", "mean_keys"}) with JAX's logging keys."""
     tgt_feat = batch["tgt_speech"].float()
     tgt_lens = batch["target_lengths"]
     b, tt, _ = tgt_feat.shape
@@ -214,7 +214,7 @@ def composite_loss(net: Dict[str, Any], lcfg: LossConfig,
         "ntokens": ntokens, "nsentences": b, "sample_size": sample_size,
     })
     return loss, {"new_stats": net.get("new_stats"), "logging": logging,
-                  "sample_size": sample_size}
+                  "sample_size": sample_size, "mean_keys": MEAN_KEYS}
 
 
 def s2st_loss(model, lcfg: LossConfig, batch: Dict[str, Any],
@@ -228,6 +228,42 @@ def s2st_loss(model, lcfg: LossConfig, batch: Dict[str, Any],
     net = model(batch, train=train, generator=generator,
                 layer_keep=layer_keep)
     return composite_loss(net, lcfg, batch)
+
+
+def s2t_loss(model, lcfg: LossConfig, batch: Dict[str, Any],
+             train: bool = True,
+             generator: Optional[torch.Generator] = None,
+             layer_keep: Optional[Sequence[bool]] = None,
+             test_type: str = "st") -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """``s2t_loss`` (:132-182) of the S2T model: the label-smoothed CE,
+    summed over the target tokens, of the target text (``st``) or the
+    source text (``asr``) teacher-forced from its shifted tokens.
+    ``sample_size`` is the batch's count of those tokens (its rows under
+    ``sentence_avg``), by which the trainer divides the gradients; the
+    logged ``loss`` and ``nll_loss`` are per token, the means over a
+    batch."""
+    side = "src" if test_type == "asr" else "tgt"
+    tgt = batch[f"{side}_text"]
+    ntokens = batch[f"{side}_txt_ntokens"]
+    net = model(batch, batch[f"prev_{side}_text_tokens"], train=train,
+                generator=generator, layer_keep=layer_keep)
+    lp = torch.log_softmax(net["logits"].float(), dim=-1)
+    loss_sum, nll_sum = label_smoothed_nll_loss(
+        lp.reshape(-1, lp.shape[-1]), tgt.reshape(-1), lcfg.label_smoothing)
+    keep = tgt != PAD
+    denom = max(float(ntokens), 1.0)
+    dev = lp.device
+    sample_size = torch.tensor(tgt.shape[0] if lcfg.sentence_avg
+                               else int(ntokens), device=dev)
+    logging = {
+        "loss": loss_sum / denom, "nll_loss": nll_sum / denom,
+        "n_correct": ((lp.argmax(dim=-1) == tgt) & keep).sum(),
+        "total": keep.sum(), "ntokens": float(ntokens),
+        "nsentences": tgt.shape[0], "sample_size": sample_size,
+    }
+    return loss_sum, {"new_stats": net["new_stats"], "logging": logging,
+                      "sample_size": sample_size,
+                      "mean_keys": ("loss", "nll_loss")}
 
 
 # the logging values that are means over a batch (:291-294): a gradient

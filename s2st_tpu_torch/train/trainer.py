@@ -15,7 +15,10 @@ microbatches either way, as in JAX. The logging values are summed over
 the microbatches and the loss's means divided by their number; they reach
 the host in one transfer. ``lr_scale`` multiplies the schedule's rate (the
 plateau shrink, :231-232). ``valid_step`` (:537-543) is the loss of one
-batch in eval mode, without a gradient.
+batch in eval mode, without a gradient. The loss is ``s2st_loss`` unless
+``loss_fn`` names another of ``train/losses.py`` (``s2t_loss`` for the
+S2T model, whose ``new_stats`` are empty); the ``mean_keys`` it returns
+are the logging values averaged over microbatches.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Union
 
 import torch
 
-from .losses import MEAN_KEYS, LossConfig, s2st_loss
+from .losses import LossConfig, s2st_loss
 from .optim import Adam
 
 Batch = Dict[str, Any]
@@ -35,9 +38,11 @@ class Trainer:
     def __init__(self, model, lcfg: LossConfig,
                  lr_schedule: Callable[[int], float], clip_norm: float = 0.0,
                  betas=(0.9, 0.98), eps: float = 1e-8,
-                 weight_decay: float = 0.0, stats_dtype=None):
+                 weight_decay: float = 0.0, stats_dtype=None,
+                 loss_fn: Callable = s2st_loss):
         self.model = model
         self.lcfg = lcfg
+        self.loss_fn = loss_fn
         self.lr_schedule = lr_schedule
         self.clip_norm = clip_norm
         self.params = [p for p in model.parameters() if p.requires_grad]
@@ -64,14 +69,15 @@ class Trainer:
             p.grad = None
         sums: Dict[str, torch.Tensor] = {}
         sample_size = None
-        postnet = self.model.decoder.postnet
         for i, batch in enumerate(microbatches):
-            loss, extras = s2st_loss(
+            loss, extras = self.loss_fn(
                 self.model, self.lcfg, batch, train=True,
                 generator=generators[i] if generators else None,
                 layer_keep=layer_keeps[i] if layer_keeps else None)
             loss.backward()
-            postnet.load_stats(extras["new_stats"]["postnet"])
+            if "postnet" in extras["new_stats"]:
+                self.model.decoder.postnet.load_stats(
+                    extras["new_stats"]["postnet"])
             ss = extras["sample_size"]
             sample_size = ss if sample_size is None else sample_size + ss
             for k, v in extras["logging"].items():
@@ -90,7 +96,7 @@ class Trainer:
         keys = list(sums)
         host = torch.stack([sums[k] for k in keys] + [gnorm]).cpu().tolist()
         metrics = dict(zip(keys, host[:-1]))
-        for k in MEAN_KEYS:
+        for k in extras["mean_keys"]:
             if k in metrics:
                 metrics[k] /= len(microbatches)
         metrics["gnorm"] = host[-1]
@@ -112,8 +118,8 @@ class Trainer:
         running statistics, dropout off but for the prenet's, which
         ``generator`` draws (JAX passes its valid step a key). On a CUDA
         tensor every attention of the forward takes the kernel."""
-        _, extras = s2st_loss(self.model, self.lcfg, batch, train=False,
-                              generator=generator)
+        _, extras = self.loss_fn(self.model, self.lcfg, batch, train=False,
+                                 generator=generator)
         logging = extras["logging"]
         keys = sorted(logging)
         dev = extras["sample_size"].device

@@ -74,7 +74,9 @@ def test_port_imports_neither_jax_nor_s2st_tpu():
                  "preprocessing.split_file", "preprocessing.audio_manifest",
                  "cli.get_feature_manifest", "models.hifigan",
                  "generate.constrained", "models.fairseq_checkpoint",
-                 "preprocessing.constraints_tools"):
+                 "preprocessing.constraints_tools", "models.s2t_transformer",
+                 "models.config_from_args", "data.manifest",
+                 "data.data_cfg"):
         assert f"s2st_tpu_torch.{name}" in _walk_names(), name
     assert bad == "[]", bad
 

@@ -189,7 +189,8 @@ def test_three_updates_match_jax_trainer(cfg, tiny_variables):
     # as the JAX CLI builds it: warmup_init_lr = lr (cli/train.py:108)
     j_tr = JaxTrainer(cfg, jl.LossConfig(**LOSS), tx,
                       inverse_sqrt_schedule(lr, 2, lr), mesh, clip_norm=clip)
-    state = create_train_state(variables, tx)
+    # committed to the mesh as JAX's CLI does, so that one step compiles
+    state = j_tr.place_state(create_train_state(variables, tx))
     model = port_model(cfg, tiny_variables)
     p_tr = Trainer(model, pl.LossConfig(**LOSS),
                    schedule_from_args(_cli_args()), clip_norm=clip)
