@@ -260,6 +260,32 @@ library's SASS, and the attention libraries must hold some.
    also refuse two wrong answers); prints the second update's
    ms, the third's device ms and idle share (torch.profiler) and peak
    memory.
+22. The train CLI's left-outs at the recipe's width (--fp16, seeded
+   weights, --use-flash-attention --attention-dropout 0): (a) host
+   overlap on 128 utterances of phase 13's lengths (2 recipe-size
+   batches an epoch), deterministic algorithms on: 8 updates with
+   --num-workers 1 and with 4 (the collate pool, the collate thread and
+   the device prefetch on a side stream) must give the same losses and
+   grad norms bit for bit, and a run stopped at update 3 (1 batch into
+   epoch 2), saved and resumed under --num-workers 4 must take the
+   uninterrupted run's updates bit for bit (the save counts 1 consumed
+   batch); prints ms an update, the loop's wait for its batches, each
+   collate's host ms and the sixth update's device ms and idle share
+   (torch.profiler) for each; (b) each of the 9 optimizers for 3 updates
+   under fixed, step, triangular, pass_through, manual (--update2lr) or
+   reduce_lr_on_plateau: finite losses and each update's rate the
+   schedule's formula's; adafactor and lamb held card vs CPU on one fp32
+   update of phase 7's model (see optimizer_agreement); (c) --log-format
+   json, --tensorboard-logdir, --profile and --heartbeat-timeout 600 on 3
+   updates: JAX's json lines, TensorBoard events or JAX's warning where it
+   is absent, and the profiler's trace holding the attention kernels'
+   launches by symbol, equal to the port's counters; (d) every distinct
+   attention call of (a)-(c), forward and backward, held against the plain
+   version; (e) synthesize_streaming on phase 19's HiFi-GAN width against
+   the whole sequence (fp32, away from the ends) with both device ms; (f)
+   recipes/valide_during_train_torch.sh on (a)'s epoch checkpoints: the
+   average (their numpy mean) and generate_waveform on the card (12
+   launches a batch, each call held), PCM16 WAVs.
 
 Prints the card's name and power limit, one JSON line of kernel
 measurements, and, last, {"ok": true, "device": {...}}.
@@ -295,6 +321,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import logging
 import math
 import os
 import re
@@ -1192,7 +1219,7 @@ def run_train_cli(argv, save: Path, card: str, label: str,
     text tokens, an S2ST run's spectrogram frames."""
     from s2st_tpu_torch.cli import train
     from s2st_tpu_torch.kernels import attention as ka
-    save.mkdir(parents=True)
+    save.mkdir(parents=True, exist_ok=True)
     torch.cuda.reset_peak_memory_stats()
     ka.flash_attention.launches = ka.flash_attention.bwd_launches = 0
     t0 = time.perf_counter()
@@ -4543,6 +4570,549 @@ def paper_recipes_phase(card: str) -> dict:
     return runs
 
 
+# --------------------------------------------------------------------------
+# phase 22: the train CLI's left-outs (host overlap, every optimizer and
+# schedule, logging and diagnostics), streaming HiFi-GAN and
+# recipes/valide_during_train_torch.sh
+# --------------------------------------------------------------------------
+
+# 22(a)'s corpus: 128 utterances of phase 13's timing lengths, which
+# --max-tokens 60000 cuts into 2 recipe-size batches an epoch
+OVERLAP_FRAMES = RECIPE_BATCH_FRAMES[:128]
+OVERLAP_UPDATES = 8
+LR0 = 1.5e-3                      # the recipe's --lr
+# 22(b): each optimizer under one of the schedules the JAX CLI can build
+# (each schedule at least once), 3 updates, and the rate each update must
+# take, from the schedule's formula with the flags given
+# (s2st_tpu/train/optim.py:39-224, called at the 1-based update n)
+OPTIMIZER_RUNS = (
+    ("adam", "reduce_lr_on_plateau", ("--warmup-updates", "4")),
+    ("adafactor", "fixed", ("--warmup-updates", "4")),
+    ("sgd", "step", ("--warmup-updates", "2")),
+    ("adagrad", "triangular", ()),
+    ("adadelta", "pass_through", ()),
+    ("adamax", "manual", ("--update2lr", "{'2': 5e-4}")),
+    ("nag", "fixed", ("--warmup-updates", "4")),
+    ("lamb", "step", ("--warmup-updates", "2")),
+    ("rmsprop", "triangular", ()),
+)
+SCHEDULE_LR = {
+    "fixed": lambda n: LR0 * min((n + 1) / 4, 1.0),
+    "reduce_lr_on_plateau": lambda n: LR0 * min((n + 1) / 4, 1.0),
+    "step": lambda n: LR0 * min(n / 2, 1.0) * 0.5 ** math.floor(n / 50000),
+    "triangular": lambda n: LR0 + 9 * LR0 * (1 - abs((n / 5000) % 2 - 1)),
+    "pass_through": lambda n: LR0,
+    # update2lr {2: 5e-4}: from the update that follows 2 done
+    "manual": lambda n: 5e-4 if n - 1 >= 2 else LR0,
+}
+# 22(b): card vs CPU, one fp32 update of phase 7's model; see
+# optimizer_agreement
+TOL_OPT_AGREEMENT = (1e-6, 1e-5)
+# 22(e): streaming against whole-sequence synthesis away from the ends
+TOL_STREAM = 1e-5
+
+
+def leftout_argv(data: Path, save: Path, max_update: int, *extra) -> list:
+    """The recipe's stage-5 line (phase 6's flags, --fp16) with the
+    kernels' configuration (--use-flash-attention --attention-dropout 0)."""
+    return recipe_train_argv(data, save, max_update) + [
+        "--use-flash-attention", "--attention-dropout", "0", *extra]
+
+
+class TimedCollate:
+    """Each collate's host ms (in whichever thread collates it)."""
+
+    def __enter__(self):
+        from s2st_tpu_torch.data.iterators import EpochBatchIterator
+        self.cls, self.fn, self.ms = EpochBatchIterator, \
+            EpochBatchIterator.collate, []
+        rec = self
+
+        def collate(itr, indices):
+            t0 = time.perf_counter()
+            out = rec.fn(itr, indices)
+            rec.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        EpochBatchIterator.collate = collate
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.collate = self.fn
+
+
+def overlap_run(data: Path, save: Path, workers: int, card: str,
+                label: str, *extra, max_update=OVERLAP_UPDATES) -> dict:
+    """One run of 22(a): the log's losses and grad norms, ms an update
+    (the loop's wait for its batches plus the synchronised step), the wait
+    and each collate's host ms, and the device ms and idle share of the
+    sixth update under torch.profiler."""
+    from s2st_tpu_torch.train.trainer import Trainer
+    orig, prof = Trainer.train_step, {}
+
+    def step(self, *a, **k):
+        if self.step != 5:
+            return orig(self, *a, **k)
+        out, wall, busy, n, _ = _profiled(lambda: orig(self, *a, **k),
+                                          host_events=False)
+        prof.update(wall_ms=wall, device_ms=busy, activities=n)
+        return out
+
+    argv = leftout_argv(data, save, max_update, "--num-workers",
+                        str(workers), *extra)
+    Trainer.train_step = step
+    try:
+        with TimedCollate() as col:
+            run = run_train_cli(argv, save, card, label)
+    finally:
+        Trainer.train_step = orig
+    log = [json.loads(line) for line in
+           (save / "log.jsonl").read_text().splitlines()]
+    # past the first update, and not the profiled one
+    steady = [r for r in log if r["num_updates"] not in (1, 6)]
+    run.update(
+        log=[(r["num_updates"], r["loss"], r["gnorm"]) for r in log],
+        update_ms=sum(r["data_ms"] + r["step_ms"] for r in steady)
+        / len(steady),
+        wait_ms=sum(r["data_ms"] for r in steady) / len(steady),
+        collate_ms=sum(col.ms) / len(col.ms), collates=len(col.ms))
+    if prof:
+        if prof["device_ms"] <= 0:
+            raise AssertionError(f"{label}: the profiler saw no device time")
+        run["profile"] = dict(prof, idle=1 - prof["device_ms"]
+                              / prof["wall_ms"])
+    return run
+
+
+def host_overlap(work: Path, card: str) -> dict:
+    """22(a): --num-workers 1 and 4 on the recipe's batches, losses and
+    grad norms equal bit for bit (deterministic algorithms on); then a run
+    stopped at update 3, in the middle of epoch 2, saved and resumed under
+    --num-workers 4, whose updates must be the uninterrupted run's."""
+    from s2st_tpu_torch.data.iterators import batch_by_size, ordered_indices
+    data = work / "overlap"
+    write_train_corpus(data, seed=24, frames=OVERLAP_FRAMES)
+    lengths = np.asarray(OVERLAP_FRAMES)
+    sizes = [len(b) for b in batch_by_size(
+        ordered_indices(lengths, True, 1, 1), lengths, 60000, None, 8)]
+    if len(sizes) != 2:
+        raise AssertionError(f"22(a): batches {sizes}; want 2 an epoch")
+    runs = {}
+    with Deterministic():
+        for w in (1, 4):
+            runs[w] = overlap_run(data, work / f"w{w}", w, card,
+                                  f"overlap_workers{w}", "--no-save")
+        save = work / "resume"
+        first = overlap_run(data, save, 4, card, "overlap_resume_first",
+                            "--save-interval-updates", "3",
+                            "--no-epoch-checkpoints", max_update=3)
+        meta = json.loads(bytes(np.load(save / "checkpoint_2_3.npz")[
+            "__meta__"]).decode())
+        (save / "log.jsonl").rename(save / "log_first.jsonl")
+        # to the end of epoch 4 (update 8), which a run stopped by
+        # --max-update would save as the middle of an epoch
+        second = overlap_run(data, save, 4, card, "overlap_resume_second",
+                             "--save-interval", "2", "--keep-last-epochs",
+                             "2", "--max-epoch", "4", max_update=100)
+    if runs[1]["log"] != runs[4]["log"] or \
+            len(runs[1]["log"]) != OVERLAP_UPDATES:
+        raise AssertionError(f"22(a): --num-workers 1 and 4 differ: "
+                             f"{runs[1]['log']} vs {runs[4]['log']}")
+    if meta["iterator"]["iterations_in_epoch"] != 1:
+        raise AssertionError(f"22(a): the mid-epoch save counts "
+                             f"{meta['iterator']} consumed batches; want "
+                             f"1 of epoch 2")
+    if first["log"] + second["log"] != runs[4]["log"]:
+        raise AssertionError(f"22(a): the resumed run's updates "
+                             f"{first['log'] + second['log']} are not the "
+                             f"uninterrupted run's {runs[4]['log']}")
+    for w in (1, 4):
+        r = runs[w]
+        print(f"overlap --num-workers {w}: {r['update_ms']:.3f} ms an "
+              f"update (updates 2-{OVERLAP_UPDATES}; the loop waited "
+              f"{r['wait_ms']:.3f} ms of it for its batches), collate "
+              f"{r['collate_ms']:.3f} host ms a batch ({r['collates']} "
+              f"batches of {sizes}), update 6 under torch.profiler: device "
+              f"{r['profile']['device_ms']:.3f} ms of "
+              f"{r['profile']['wall_ms']:.3f} ms wall, idle share "
+              f"{r['profile']['idle']:.3f} (deterministic algorithms on) "
+              f"({card})", flush=True)
+    parts = collate_breakdown(data)
+    print(f"overlap: one batch of {parts['rows']} utterances on the host, "
+          f"best of 3: the items (features read, CMVN, SpecAugment) "
+          f"{parts['items_ms']:.3f} ms, the whole collate "
+          f"{parts['collate_ms']:.3f} ms, with pinning "
+          f"{parts['pinned_ms']:.3f} ms ({card})", flush=True)
+    print(f"overlap: --num-workers 1 and 4 gave the same {OVERLAP_UPDATES} "
+          f"losses and grad norms bit for bit; stopped at update 3 (1 "
+          f"batch into epoch 2) and resumed under --num-workers 4, the run "
+          f"took the uninterrupted run's updates bit for bit ({card})",
+          flush=True)
+    return {"runs": runs, "resume": [first, second], "batches": sizes,
+            "save_dir": save, "data": data, "collate": parts}
+
+
+def collate_breakdown(data: Path) -> dict:
+    """Host ms of 22(a)'s first batch in this thread, best of 3: its items
+    alone, the whole collate, and the collate into pinned memory."""
+    from s2st_tpu_torch.data.data_cfg import S2STDataConfig
+    from s2st_tpu_torch.data.dictionary import Dictionary
+    from s2st_tpu_torch.data.iterators import EpochBatchIterator
+    from s2st_tpu_torch.data.s2st_dataset import TrainSplit
+    dicts = [Dictionary.load(str(data / f)) for f in ("src_vocab.txt",
+                                                      "tgt_vocab.txt")]
+    split = TrainSplit(str(data), S2STDataConfig(data / "config.yaml"),
+                       "train", *dicts, n_frames_per_step=4)
+    out = {}
+    for name, pin in (("collate_ms", False), ("pinned_ms", True)):
+        itr = EpochBatchIterator(split, 60000, required_batch_size_multiple=8,
+                                 pin_memory=pin)
+        idx = itr.batches_for_epoch(1)[0]
+        times = {"items_ms": [], name: []}
+        for _ in range(3):
+            t0 = time.perf_counter()
+            [itr.fetch_item(int(i)) for i in idx]
+            t1 = time.perf_counter()
+            itr.collate(idx)
+            t2 = time.perf_counter()
+            times["items_ms"].append((t1 - t0) * 1e3)
+            times[name].append((t2 - t1) * 1e3)
+        out.update({k: min(v) for k, v in times.items()}, rows=len(idx))
+    return out
+
+
+def optimizer_agreement(name: str, card: str) -> dict:
+    """22(b): one fp32 update with dropout off of phase 7's model (2 + 2
+    layers at the recipe's widths) under ``name``, on the card (kernels)
+    and on the CPU (plain versions), from one init, no clipping.
+
+    Tolerance: each parameter after the update within 1e-6 + 1e-5 |p|
+    (TOL_OPT_AGREEMENT) where its gradient is above 1e-4 of its leaf's
+    largest magnitude and, divided by the sample size, above 100 eps, in
+    a leaf whose largest gradient is above 1e-3 of the largest of all
+    (else the leaf is fp32 noise: a conv bias before a batch norm has a
+    gradient of 0 in exact arithmetic); elsewhere within twice its leaf's
+    largest step on the CPU plus 1e-6: both optimizers' first step is
+    g / |g| there (adafactor's unfactored v = g^2 + 1e-30, Adam's
+    g / (|g| + eps) inside lamb), whose sign fp32 noise in a g near 0 can
+    flip."""
+    from s2st_tpu_torch.data.s2st_dataset import collate, to_device
+    from s2st_tpu_torch.models.s2st_transformer import S2STTransformer
+    from s2st_tpu_torch.train.losses import LossConfig
+    from s2st_tpu_torch.train.optim import fixed_schedule
+    from s2st_tpu_torch.train.trainer import Trainer
+    cfg = recipe_config().replace(
+        encoder_layers=2, decoder_layers=2, middle_layers=(0, 1), ctc=True,
+        dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
+        prenet_dropout=0.0, postnet_dropout=0.0)
+    lcfg = LossConfig(label_smoothing=0.1, ctc_weight=0.3, asr_ce_weight=0.3,
+                      st_ce_weight=0.3)
+    r = np.random.RandomState(5)
+    items = [{"index": i,
+              "src_speech": r.randn(n, 80).astype(np.float32),
+              "tgt_speech": r.randn(n // 5, 320).astype(np.float32),
+              "src_text": np.append(r.randint(4, 100, n // 10), 2),
+              "tgt_text": np.append(r.randint(4, 100, n // 20), 2)}
+             for i, n in enumerate((240, 200, 150))]
+    batch = collate(items)
+    cpu = S2STTransformer(cfg).init_weights(9)
+    dev = copy.deepcopy(cpu).to("cuda")
+    before = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    results = []
+    for model, b in ((cpu, batch), (dev, to_device(batch, "cuda"))):
+        tr = Trainer(model, lcfg, fixed_schedule(LR0), optimizer=name,
+                     optimizer_kw={})
+        grads, step = {}, tr.optimizer.step
+
+        def spy(gs, lr, step=step, model=model, grads=grads):
+            # the gradients the optimizer sees (over the sample size)
+            for (n, _), g in zip(model.named_parameters(), gs):
+                grads[n] = g.detach().cpu().clone()
+            return step(gs, lr)
+        tr.optimizer.step = spy
+        met = tr.train_step(b)
+        results.append((met, grads, {n: p.detach().cpu().clone()
+                                     for n, p in model.named_parameters()}))
+    (m_c, g_c, p_c), (m_d, _, p_d) = results
+    atol, rtol = TOL_OPT_AGREEMENT
+    worst, flips = 0.0, 0
+    g_top = max(float(g.abs().max()) for g in g_c.values())
+    for n in p_c:
+        g = g_c[n].abs()
+        step_c = (p_c[n] - before[n]).abs()
+        steady = (g > 1e-4 * g.max()) & (g > 100 * 1e-8) & \
+            (g.max() > 1e-3 * g_top)
+        dp = (p_d[n] - p_c[n]).abs()
+        bound = torch.where(steady, atol + rtol * p_c[n].abs(),
+                            2 * step_c.max() + 1e-6)
+        if steady.any():
+            worst = max(worst, float(dp[steady].max()))
+        flips += int(((dp > atol + rtol * p_c[n].abs()) & ~steady).sum())
+        if bool((dp > bound).any()):
+            raise AssertionError(f"22(b) {name}: {n} differs by "
+                                 f"{float(dp.max()):.3e} after one update")
+    rel = abs(m_d["loss"] - m_c["loss"]) / abs(m_c["loss"])
+    if rel > 1e-4:
+        raise AssertionError(f"22(b) {name}: loss {m_d['loss']} vs "
+                             f"{m_c['loss']}")
+    print(f"optimizer agreement {name}: card vs CPU (fp32, one update of "
+          f"phase 7's model): loss rel {rel:.2e}, worst param error "
+          f"{worst:.2e} where the gradient is steady (tolerance {atol} + "
+          f"{rtol} |p|), {flips} elements elsewhere past it, within twice "
+          f"their leaf's step ({card})", flush=True)
+    return {"param_max_abs_err": worst, "loss_rel": rel, "flips": flips}
+
+
+def optimizer_runs(work: Path, card: str) -> dict:
+    """22(b): each of the 9 optimizers for 3 updates through the train CLI
+    under a schedule the JAX CLI builds; each update's loss finite and its
+    rate the schedule's; adafactor and lamb held card vs CPU."""
+    data = work / "small"
+    write_train_corpus(data, seed=25)
+    out = {}
+    for opt, sched, flags in OPTIMIZER_RUNS:
+        save = work / f"opt_{opt}"
+        run = run_train_cli(leftout_argv(
+            data, save, 3, "--no-save", "--optimizer", opt,
+            "--lr-scheduler", sched, *flags), save, card, f"optimizer_{opt}")
+        log = [json.loads(line) for line in
+               (save / "log.jsonl").read_text().splitlines()]
+        want = [SCHEDULE_LR[sched](n) for n in (1, 2, 3)]
+        got = [r["lr"] for r in log]
+        if len(got) != 3 or any(abs(a - b) > 1e-12 * b
+                                for a, b in zip(got, want)):
+            raise AssertionError(f"22(b) {opt} under {sched}: rates {got}; "
+                                 f"want {want}")
+        out[opt] = dict(run, schedule=sched, lrs=got)
+    print("optimizers: " + "; ".join(
+        f"{o} ({r['schedule']}) losses "
+        f"{[round(x, 4) for x in r['losses']]} rates {r['lrs']}"
+        for o, r in out.items()) + f" ({card})", flush=True)
+    for name in ("adafactor", "lamb"):
+        out[name]["agreement"] = optimizer_agreement(name, card)
+    return out
+
+
+class CollectLogs(logging.Handler):
+    """The port's log records (its package logger), while a run lasts."""
+
+    def __enter__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+        self.pkg = logging.getLogger("s2st_tpu_torch")
+        self.pkg.addHandler(self)
+        return self
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def __exit__(self, *exc):
+        self.pkg.removeHandler(self)
+
+
+def diagnostics_run(work: Path, card: str) -> dict:
+    """22(c): --log-format json, --tensorboard-logdir, --profile and
+    --heartbeat-timeout 600 on 3 updates within the first epoch (batches
+    of 2): the json lines parse with JAX's keys; TensorBoard writes events
+    or, where it is absent, JAX's warning is logged; the profiler's trace
+    holds the attention kernels by their symbols, as many launches as the
+    port's counters report (a forward flash_fwd_* a forward call, an
+    attn_bwd_dq_* and an attn_bwd_dkdv_* a backward call)."""
+    import importlib.util
+    from s2st_tpu_torch.utils import diagnostics
+    data = work / "small"
+    save = work / "diag"
+    trace = Path(diagnostics.PROFILE_DIR) / "trace.json"
+    if trace.exists():
+        trace.unlink()
+    with CollectLogs() as logs:
+        run = run_train_cli(leftout_argv(
+            data, save, 3, "--batch-size", "2", "--no-save", "--profile",
+            "--heartbeat-timeout", "600"), save, card, "diagnostics")
+    msgs = [r.getMessage() for r in logs.records
+            if r.name == "s2st_tpu_torch.logging_utils"]
+    inner = [json.loads(m) for m in msgs if m.startswith(
+        '{"train_inner_')]
+    if len(inner) != 3 or any("train_inner_gnorm" not in x for x in inner):
+        raise AssertionError(f"22(c): json lines {msgs[:4]}")
+    has_tb = importlib.util.find_spec("tensorboard") is not None
+    events = list((save / "tb").glob("events.*"))
+    warned = "tensorboard unavailable; skipping event logs" in msgs
+    if (has_tb and not events) or (not has_tb and not warned):
+        raise AssertionError(f"22(c): tensorboard installed {has_tb}, "
+                             f"events {events}, warning {warned}")
+    names = [e["name"] for e in json.loads(trace.read_text())["traceEvents"]
+             if str(e.get("cat", "")).lower() == "kernel"]
+    counts = {sym: sum(sym in n for n in names)
+              for sym in ("flash_fwd", "attn_bwd_dq", "attn_bwd_dkdv")}
+    want = {"flash_fwd": run["fwd_launches"],
+            "attn_bwd_dq": run["bwd_launches"],
+            "attn_bwd_dkdv": run["bwd_launches"]}
+    if counts != want or not run["fwd_launches"]:
+        raise AssertionError(f"22(c): the trace holds {counts} kernel "
+                             f"launches; the counters say {want}")
+    mb = trace.stat().st_size / 1e6
+    shutil.rmtree(diagnostics.PROFILE_DIR, ignore_errors=True)
+    print(f"diagnostics: 3 json train_inner lines; tensorboard "
+          f"{'events written' if has_tb else 'absent: JAX warning logged'};"
+          f" the --profile trace ({mb:.1f} MB, {len(names)} kernel "
+          f"launches) holds {counts} attention launches, the counters' "
+          f"(heartbeat 600 s) ({card})", flush=True)
+    return dict(run, trace_counts=counts, tensorboard=has_tb)
+
+
+def streaming_hifigan(work: Path, card: str) -> dict:
+    """22(e): synthesize_streaming (64-frame chunks, the receptive field's
+    margin) on phase 19's seeded HiFi-GAN at config_v1's width against the
+    whole-sequence synthesis, on a batch of 4 log-mel sequences of 400
+    frames: within TOL_STREAM from the receptive field in from each end
+    (cuDNN may pick another algorithm for a chunk's shape); the ends
+    differ by design, since the chunks' zero mel frames are not the whole
+    sequence's zero activations."""
+    from s2st_tpu_torch.models.hifigan import (HiFiGANConfig,
+                                               HiFiGANGenerator,
+                                               load_torch_generator,
+                                               receptive_field_frames,
+                                               synthesize_streaming)
+    write_hifigan_v1(work, seed=26)
+    cfg = HiFiGANConfig.from_json(HIFIGAN_V1)
+    gen = HiFiGANGenerator(cfg)
+    gen.load_state_dict(load_torch_generator(str(work / "g_hifigan_v1.pt"),
+                                             cfg))
+    gen = gen.cuda().eval()
+    x = torch.from_numpy(np.random.RandomState(26).randn(4, 400, 80)
+                         .astype(np.float32) * 2.0 - 5.0).cuda()
+    rf, up = receptive_field_frames(cfg), int(np.prod(cfg.upsample_rates))
+    with torch.inference_mode():
+        whole = gen(x)
+        chunked = synthesize_streaming(gen, x, chunk_frames=64)
+        err = (whole - chunked).abs()
+        inner = float(err[:, rf * up:-rf * up].max())
+        edge = float(err.max())
+        ms = {"whole": device_ms(lambda: gen(x), iters=3),
+              "streaming": device_ms(
+                  lambda: synthesize_streaming(gen, x, chunk_frames=64),
+                  iters=3)}
+    if chunked.shape != whole.shape or not bool(
+            torch.isfinite(chunked).all()) or inner > TOL_STREAM:
+        raise AssertionError(f"22(e): streaming {tuple(chunked.shape)} vs "
+                             f"{tuple(whole.shape)}, max abs err {inner} "
+                             f"away from the ends")
+    print(f"streaming hifigan: {tuple(x.shape)} mel in 64-frame chunks "
+          f"with {rf} frames of margin: max abs err {inner:.3e} from "
+          f"{rf} frames in (tolerance {TOL_STREAM}), {edge:.3e} at the "
+          f"ends; device {ms['streaming']:.3f} ms streaming vs "
+          f"{ms['whole']:.3f} ms whole ({card})", flush=True)
+    return {"max_abs_err": inner, "edge_max_abs_err": edge, "ms": ms}
+
+
+def valide_during_train(work: Path, overlap: dict, card: str) -> dict:
+    """22(f): recipes/valide_during_train_torch.sh on 22(a)'s resumed run
+    (its epoch checkpoints 2 and 4): the average of the two files (their
+    numpy mean), then generate_waveform on the card on the corpus's tst
+    split through ``counted_module`` (a ``python`` on its PATH): PCM16
+    WAVs of hop x frames samples, 12 kernel launches a batch, each
+    distinct call held."""
+    from s2st_tpu_torch.train.checkpoint import load_checkpoint_file
+    save, data = overlap["save_dir"], overlap["data"]
+    shim = work / "valide_bin"
+    shim.mkdir()
+    counts = work / "valide_counts.jsonl"
+    # the average is numpy alone: only generate_waveform is counted
+    (shim / "python").write_text(
+        f'#!/bin/sh\nif [ "$2" = s2st_tpu_torch.cli.average_checkpoints ]; '
+        f'then exec "{sys.executable}" "$@"; fi\n'
+        f'exec "{sys.executable}" "{REPO / "chip_smoke.py"}" '
+        f'--counted "{counts}" "$@"\n')
+    (shim / "python").chmod(0o755)
+    env = dict(os.environ, PATH=f"{shim}:{os.environ['PATH']}",
+               PYTHONPATH=str(REPO), SAVE_DIR=str(save),
+               FEATURE_MANIFEST_ROOT=str(data), SPLIT="tst",
+               num_epoch_checkpoints="2", middle_layers="4,9")
+    env.pop("AUDIO_MANIFEST_ROOT", None)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        ["bash", str(REPO / "recipes" / "valide_during_train_torch.sh")],
+        env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"valide_during_train_torch.sh returned "
+                             f"{res.returncode}:\n{res.stdout[-3000:]}\n"
+                             f"{res.stderr[-3000:]}")
+    gen_rec, = [json.loads(line) for line in
+                counts.read_text().splitlines()]
+    avg, _ = load_checkpoint_file(str(save / "checkpoint_last_avg2.npz"))
+    pair = [load_checkpoint_file(str(save / f"checkpoint{e}.npz"))[0]
+            for e in (2, 4)]
+    for k, v in avg.items():
+        if k.startswith("params::") and not np.array_equal(
+                v, np.mean([pair[0][k].astype(np.float64),
+                            pair[1][k].astype(np.float64)],
+                           axis=0).astype(v.dtype)):
+            raise AssertionError(f"22(f): {k} is not the mean of "
+                                 f"checkpoint2 and checkpoint4")
+    del pair, avg
+    dump = save / "dump_wav_tst_valid"
+    timing = json.loads((dump / "timing.json").read_text())
+    wavs = sorted((dump / "wav").glob("*_pred.wav"))
+    if not wavs or gen_rec["launches"] != 12 * len(timing):
+        raise AssertionError(f"22(f): {len(wavs)} WAVs, "
+                             f"{gen_rec['launches']} launches for "
+                             f"{len(timing)} batches")
+    for wav in wavs:
+        with wave.open(str(wav), "rb") as w:
+            n, width = w.getnframes(), w.getsampwidth()
+            pcm = np.frombuffer(w.readframes(n), "<i2")
+        if width != 2 or n == 0 or n % 256 or not np.any(pcm):
+            raise AssertionError(f"22(f): {wav.name}: {n} samples of "
+                                 f"{width} bytes")
+    print(f"valide_during_train_torch.sh: averaged checkpoint2 and "
+          f"checkpoint4 (their numpy mean), then generate_waveform on the "
+          f"card: {len(wavs)} PCM16 WAVs, {gen_rec['launches']} kernel "
+          f"launches in {len(timing)} batch(es), each distinct call held "
+          f"(max abs err {gen_rec['path_max_abs_err']}); {wall:.1f} s "
+          f"({card})", flush=True)
+    return {"launches": gen_rec["launches"],
+            "path_max_abs_err": gen_rec["path_max_abs_err"]}
+
+
+def train_leftouts_phase(card: str) -> dict:
+    """22: the train CLI's left-outs at the recipe's width (12 + 6 layers,
+    512-d, 4 heads, --fp16, seeded weights, --attention-dropout 0 so that
+    the kernels are reached): (a) host overlap, (b) the optimizers and
+    schedules, (c) logging and diagnostics, (d) every distinct attention
+    call of (a)-(c), forward and backward, held against the plain version
+    (the backward also refusing two wrong answers), (e) streaming
+    HiFi-GAN, (f) recipes/valide_during_train_torch.sh."""
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_leftouts_"))
+    try:
+        with RecordAttention() as rf, RecordAttentionBwd() as rb:
+            overlap = host_overlap(work, card)
+            optimizers = optimizer_runs(work, card)
+            diag = diagnostics_run(work, card)
+        out = {"overlap": overlap["runs"], "optimizers": optimizers,
+               "diagnostics": diag,
+               "fwd_err": hold_path_attention(rf.calls, "train_leftouts",
+                                              card),
+               "bwd_err": hold_path_attention_bwd(rb.calls, "train_leftouts",
+                                                  card)}
+        rf.calls.clear()
+        rb.calls.clear()
+        out["streaming"] = streaming_hifigan(work, card)
+        out["valide"] = valide_during_train(work, overlap, card)
+        runs = [*overlap["runs"].values(), *overlap["resume"],
+                *optimizers.values(), diag]
+        out["fwd_launches"] = sum(r["fwd_launches"] for r in runs)
+        out["bwd_launches"] = sum(r["bwd_launches"] for r in runs)
+        if not out["fwd_launches"] or not out["bwd_launches"]:
+            raise AssertionError("22: no attention kernel launched")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"train left-outs phase: {time.perf_counter() - t0:.1f} s "
+          f"({card})", flush=True)
+    return out
+
+
 def attention_shapes(fwd: dict, bwd: dict) -> dict:
     """The attention kernels' graph-replay times at each main shape of
     phases 1 and 5 beside SDPA's, the plain version's and the bound."""
@@ -4663,6 +5233,7 @@ def main(argv=None) -> int:
     prep = data_prep_phase(card)
     search = search_phase(card)
     paper = paper_recipes_phase(card)
+    leftouts = train_leftouts_phase(card)
 
     a = trained["a"]
     shapes = attention_shapes({**fwd, **hubert_kernel,
@@ -4695,7 +5266,9 @@ def main(argv=None) -> int:
             "search_stage7_pt": search["s2t"]["stage7_pt_launches"],
             "train_save_sync": search["save"]["sync"]["fwd_launches"],
             "train_save_async": search["save"]["async"]["fwd_launches"],
-            **{f"paper_{k}": v["fwd_launches"] for k, v in paper.items()}},
+            **{f"paper_{k}": v["fwd_launches"] for k, v in paper.items()},
+            "train_leftouts": leftouts["fwd_launches"],
+            "valide_during_train_serve": leftouts["valide"]["launches"]},
         "max_abs_err": serving["max_abs_err"],
         "path_max_abs_err": {
             "generate_for_s2st": s2t["path_max_abs_err"],
@@ -4706,7 +5279,10 @@ def main(argv=None) -> int:
             "data_prep_serve": prep["path_max_abs_err"],
             "search": search["s2t"]["path_max_abs_err"],
             "train_save_async": search["save"]["path_max_abs_err"],
-            **{f"paper_{k}": v["fwd_err"] for k, v in paper.items()}},
+            **{f"paper_{k}": v["fwd_err"] for k, v in paper.items()},
+            "train_leftouts": leftouts["fwd_err"],
+            "valide_during_train_serve": leftouts["valide"][
+                "path_max_abs_err"]},
         "ms": serving["kernel_graph_ms"],
         "plain_ms": serving["plain_graph_ms"],
         "bound_ms": serving["bound_ms"],
@@ -4728,11 +5304,13 @@ def main(argv=None) -> int:
             "gate_fast_bf16": gate["bwd_launches"],
             "train_save_sync": search["save"]["sync"]["bwd_launches"],
             "train_save_async": search["save"]["async"]["bwd_launches"],
-            **{f"paper_{k}": v["bwd_launches"] for k, v in paper.items()}},
+            **{f"paper_{k}": v["bwd_launches"] for k, v in paper.items()},
+            "train_leftouts": leftouts["bwd_launches"]},
         "launches_per_update": a["bwd_launches"] / a["updates"],
         "max_abs_err": bwd["max_abs_err"],
-        "path_max_abs_err": {f"paper_{k}": v["bwd_err"]
-                             for k, v in paper.items()},
+        "path_max_abs_err": {**{f"paper_{k}": v["bwd_err"]
+                                for k, v in paper.items()},
+                             "train_leftouts": leftouts["bwd_err"]},
         "ms": bwd["bwd_graph_ms"],
         "plain_ms": bwd["plain_bwd_graph_ms"],
         "bound_ms": bwd["bound_ms"],

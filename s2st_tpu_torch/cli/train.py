@@ -2,15 +2,25 @@
 
 Counterpart of ``s2st_tpu/cli/train.py::main`` (:28-600) for ``--task
 s2s_translation`` with ``--arch s2st_transformer`` or an S2T arch:
-dictionaries and data config from ``<data>``, a seeded random model, Adam
-with the inverse-sqrt schedule as the JAX CLI builds it, the JAX CLI's
-epoch batches (``data/iterators.py``) grouped by ``--update-freq`` (a list
-over epochs, :440), and its checkpoints: resume from
-``<save-dir>/checkpoint_last.npz`` or ``--restore-file`` (:234-295, with
+dictionaries and data config from ``<data>``, a seeded random model, the
+optimizer and schedule as the JAX CLI builds them (``--optimizer`` any of
+JAX's registry, with the Adam flags reaching ``adam`` only;
+``--lr-scheduler`` any of its names, with only ``--warmup-updates`` and,
+for ``inverse_sqrt``, ``--warmup-init-lr`` passed, so that
+``polynomial_decay``, ``cosine`` and ``tri_stage`` raise ``TypeError`` as
+JAX's do; ``manual`` drives ``lr_scale`` over ``pass_through`` from
+``--epoch2lr``/``--update2lr``, :107-133), the JAX CLI's epoch batches
+(``data/iterators.py``) collated by ``--num-workers`` threads in a
+background thread and put on the device ahead of the update
+(``DevicePrefetcher(GroupedIterator(BufferedIterator(...)))``, grouped by
+``--update-freq``, a list over epochs, :440-452), and its checkpoints:
+resume from ``<save-dir>/checkpoint_last.npz`` or ``--restore-file``
+(:234-295, with
 ``--reset-optimizer`` and ``--reset-dataloader``), ``checkpoint{epoch}``
 every ``--save-interval`` epochs, ``checkpoint_{epoch}_{updates}`` every
 ``--save-interval-updates`` updates with the iterator's position counted
-in consumed batches (:522-582), ``checkpoint_last`` each time, the
+in the batches the loop consumed (:443, :479, :522-582; the iterator's
+own count runs ahead of them), ``checkpoint_last`` each time, the
 retention flags, and ``checkpoint_last_ema.npz`` under ``--store-ema``
 (:317-339, :409-421). Runs on CUDA unless ``--device`` names another
 device. ``--fp16`` computes in bf16 over fp32 parameters.
@@ -24,9 +34,22 @@ Dropout and LayerDrop draw from streams of the port's own, seeded for each
 update from (seed, epoch, updates so far) and for each microbatch from its
 index, so that a resumed run draws what the uninterrupted run drew (as
 JAX's ``fold_in``, :464-465, does for its own stream). Every
-``--log-interval`` updates the update's metrics (the loss terms, ``gnorm``,
-``lr``, ``step_ms`` on the host clock with the device synchronised) go to
-stdout and, with ``--log-file``, to that file as JSON lines.
+``--log-interval`` updates of an epoch ``logging_utils.ProgressLogger``
+logs JAX's ``train_inner`` line (``--log-format simple|json|tqdm``, with
+``--tensorboard-logdir``, ``--wandb-project``/``--wandb-run-name`` and
+``--azureml-logging`` sinks; the values rounded to 4 places, ``ups`` and
+``wps``, :491-510), each epoch ends with its ``train`` line (:541-548),
+and every ``--log-interval`` updates of the run, with ``--log-file``, the
+update's metrics (the loss terms, ``gnorm``, ``lr``, ``step_ms`` on the
+host clock with the device synchronised, ``data_ms`` the loop's wait for
+its batches) go to that file as JSON lines. A non-finite gradient norm
+logs JAX's warning with the non-finite parameters (by their JAX paths)
+and batch entries (``utils/diagnostics.py``, :500-505). ``--profile``
+traces the first epoch with ``torch.profiler`` (:428-431, :537-539),
+``--heartbeat-timeout`` interrupts a run whose update does not finish in
+time (:341, :480), ``--find-unused-parameters`` does nothing, as in JAX,
+and ``--prng-impl`` names JAX's generator and is ignored with a logged
+line (the port's streams are ``torch.Generator``s).
 
 Validation (``validate``, :601-675) runs on ``--valid-subset`` at the end
 of every ``--validate-interval`` epochs and every
@@ -43,8 +66,7 @@ prints JAX's ``valid | ...`` line and, with ``--log-file``, a JSON line
 checkpoint's meta and come back on resume. ``--eval-bleu`` and its
 options are accepted and change nothing, as in JAX, whose validation
 scores BLEU only for tasks with ``build_valid_bleu`` (:616-618; not
-``s2s_translation``); the log-format, tensorboard and worker flags are
-accepted and ignored with a logged line. ``--stop-min-lr`` ends the run at
+``s2s_translation``). ``--stop-min-lr`` ends the run at
 the end of the first epoch after which the rate of the next update,
 ``schedule(num_updates + 1) * lr_scale``, is below it (:583-590).
 
@@ -97,8 +119,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..data.iterators import EpochBatchIterator, GroupedIterator
+from ..data.iterators import (BufferedIterator, DevicePrefetcher,
+                              EpochBatchIterator, GroupedIterator,
+                              device_put)
 from ..data.s2st_dataset import TrainSplit, to_device
+from ..logging_utils import ProgressLogger
 from ..models.config_from_args import (add_model_args, add_speaker_args,
                                        apply_arch, is_s2t, num_speakers,
                                        speaker_to_id)
@@ -106,22 +131,24 @@ from ..models.hubert import load_torch_hubert
 from ..models.s2st_transformer import encoder_layer_keep
 from ..nn.core import disable_tf32, resolve_device
 from ..train.checkpoint import (CheckpointManager, StateSnapshot,
-                                load_ema, load_pretrained_component,
-                                restore_state)
+                                _param_entries, load_ema,
+                                load_pretrained_component, restore_state)
 from ..train.ema import EMAConfig, ema_step, init_ema
 from ..train.losses import LossConfig
 from ..tasks.s2s_translation import (build_eval_inference_fn,
                                      build_model_and_loss, data_config,
                                      load_dictionaries)
-from ..train.optim import PLATEAU, schedule_from_args
+from ..train.optim import (OPTIMIZER_REGISTRY, PLATEAU, manual_lr_from_args,
+                           optimizer_kwargs, schedule_from_args)
 from ..train.trainer import Trainer
+from ..utils.diagnostics import (PROFILE_DIR, HeartbeatWatchdog, Profiler,
+                                 report_nonfinite)
 from .generate_waveform import _PhaseClock
 
 logger = logging.getLogger("s2st_tpu_torch.train")
 
 # accepted for the recipe's command line, with no effect in this port
-IGNORED = ("num_workers", "report_accuracy", "log_format",
-           "tensorboard_logdir")
+IGNORED = ("report_accuracy",)
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -149,10 +176,29 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-interval", type=int, default=100)
     p.add_argument("--log-file", default=None,
                    help="append each logged update's metrics as a JSON line")
+    p.add_argument("--log-format", default="simple",
+                   choices=["simple", "json", "tqdm"])
+    p.add_argument("--tensorboard-logdir", default=None)
+    p.add_argument("--wandb-project", default=None,
+                   help="Weights & Biases project (library-gated sink)")
+    p.add_argument("--wandb-run-name", default=None)
+    p.add_argument("--azureml-logging", action="store_true",
+                   help="log metrics to the AzureML run context")
+    p.add_argument("--num-workers", type=int, default=1,
+                   help="collate threads (> 1 collates batches in a pool)")
+    p.add_argument("--heartbeat-timeout", type=float, default=-1.0,
+                   help="SIGINT the job if no update completes in N seconds")
+    p.add_argument("--profile", action="store_true",
+                   help="write a torch.profiler trace of the first epoch")
+    p.add_argument("--prng-impl", default="rbg",
+                   choices=["rbg", "threefry2x32", "unsafe_rbg"],
+                   help="JAX's generator; ignored, the port draws from "
+                   "torch.Generator streams")
     p.add_argument("--device", default=None,
                    help="torch device; CUDA when not given")
     # optimisation (options.py:499-521)
-    p.add_argument("--optimizer", default="adam", choices=["adam"])
+    p.add_argument("--optimizer", default="adam",
+                   choices=sorted(OPTIMIZER_REGISTRY))
     p.add_argument("--adam-betas", default="(0.9, 0.98)")
     p.add_argument("--adam-eps", type=float, default=1e-8)
     p.add_argument("--adam-bf16-stats", action="store_true",
@@ -160,12 +206,19 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight-decay", type=float, default=0.0)
     p.add_argument("--lr", default="0.001")
     p.add_argument("--lr-scheduler", default="inverse_sqrt")
+    p.add_argument("--epoch2lr", default="{}",
+                   help='manual scheduler: epoch->lr dict, keys "5", "1,2" '
+                        'or "3-10"')
+    p.add_argument("--update2lr", default="{}",
+                   help="manual scheduler: update->lr dict, same key syntax")
     p.add_argument("--warmup-updates", type=int, default=4000)
     p.add_argument("--warmup-init-lr", type=float, default=-1.0)
     p.add_argument("--lr-shrink", type=float, default=0.1,
                    help="reduce_lr_on_plateau shrink factor")
     p.add_argument("--clip-norm", type=float, default=0.0)
     p.add_argument("--update-freq", default="1")
+    p.add_argument("--find-unused-parameters", action="store_true",
+                   help="no effect, as in JAX")
     p.add_argument("--encoder-layerdrop", type=float, default=0.0)
     # loss (options.py:480-493)
     p.add_argument("--bce-pos-weight", type=float, default=5.0)
@@ -237,6 +290,9 @@ def check_args(args: argparse.Namespace) -> None:
     for name in IGNORED:
         if getattr(args, name) is not None:
             logger.info(f"--{name.replace('_', '-')} is accepted and ignored")
+    if args.prng_impl != "rbg":
+        logger.info(f"--prng-impl {args.prng_impl} is accepted and ignored: "
+                    "the port draws from torch.Generator streams")
 
 
 def loss_config(args: argparse.Namespace) -> LossConfig:
@@ -277,13 +333,6 @@ def update_streams(args, cfg, epoch: int, num_updates: int, n: int,
     keeps = [encoder_layer_keep(cfg, torch.Generator().manual_seed(
         stream_seed(1, args.seed, epoch, num_updates, i))) for i in range(n)]
     return gens, keeps
-
-
-def valid_line(stats: dict) -> str:
-    """JAX's ``valid | k v | ...`` line (logging_utils.py:237-247, simple
-    format) of the values rounded to 4 decimals."""
-    return "valid | " + " | ".join(f"{k} {round(float(v), 4):.4g}"
-                                   for k, v in stats.items())
 
 
 def validate(args, trainer: Trainer, valid_itr: EpochBatchIterator,
@@ -369,13 +418,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     logger.info(f"model params: {n_params:,}; {len(split)} utterances in "
                 f"{args.train_subset}; compute {cfg.dtype} on {device}")
     trainer = Trainer(model, loss_config(args), schedule_from_args(args),
-                      clip_norm=args.clip_norm,
-                      betas=tuple(float(b) for b in
-                                  str(args.adam_betas).strip("()[] ")
-                                  .split(",")),
-                      eps=args.adam_eps, weight_decay=args.weight_decay,
-                      stats_dtype=torch.bfloat16 if args.adam_bf16_stats
-                      else None, loss_fn=loss_fn)
+                      clip_norm=args.clip_norm, loss_fn=loss_fn,
+                      optimizer=args.optimizer,
+                      optimizer_kw=optimizer_kwargs(args))
+    manual_lr = manual_lr_from_args(args)
+    base_lr = float(str(args.lr).split(",")[0])
 
     mgr = None if args.no_save else CheckpointManager(
         args.save_dir, args.best_checkpoint_metric,
@@ -411,7 +458,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         required_batch_size_multiple=args.required_batch_size_multiple,
         max_positions=(args.max_source_positions
                        if args.skip_invalid_size_inputs_valid_test else None),
-        num_batch_buckets=args.num_batch_buckets)
+        num_batch_buckets=args.num_batch_buckets,
+        num_workers=args.num_workers, pin_memory=device.type == "cuda")
     if not epoch_itr.frozen_batches():
         raise ValueError(f"no batch of {args.train_subset} fits "
                          f"--max-tokens {args.max_tokens}")
@@ -432,7 +480,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             max_positions=(args.max_source_positions
                            if args.skip_invalid_size_inputs_valid_test
                            else None),
-            num_batch_buckets=args.num_batch_buckets, shuffle=False)
+            num_batch_buckets=args.num_batch_buckets, shuffle=False,
+            num_workers=args.num_workers)
         if args.eval_inference and args.arch.startswith("s2st"):
             eval_fn = build_eval_inference_fn(
                 model, data_cfg, args.spec_bwd_max_iter,
@@ -484,7 +533,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     def run_validation(epoch: int) -> Optional[float]:
         stats, ms = validate(args, trainer, valid_itr, eval_fn, device,
                              epoch, num_updates)
-        logger.info(valid_line(stats))
+        progress.print({k: round(float(v), 4) for k, v in stats.items()},
+                       tag="valid", step=trainer.step)
         if args.log_file:
             with open(args.log_file, "a") as f:
                 f.write(json.dumps({"valid": stats,
@@ -496,6 +546,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         return val
 
     echo = args_echo(args)
+    progress = ProgressLogger(log_format=args.log_format,
+                              log_interval=args.log_interval,
+                              tensorboard_logdir=args.tensorboard_logdir,
+                              wandb_project=args.wandb_project,
+                              wandb_run_name=args.wandb_run_name,
+                              azureml_logging=args.azureml_logging)
+    # the parameters by their JAX paths, for the non-finite report
+    named_params = {key.split("::", 1)[1].replace("::", "/"): p
+                    for p, (_, key, _) in zip(trainer.params,
+                                              _param_entries(model))}
 
     def save(epoch: int, itr_sd: dict, end_of_epoch: bool,
              updates: Optional[int] = None,
@@ -513,82 +573,120 @@ def main(argv: Optional[List[str]] = None) -> int:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    put = device_put(device)
+    watchdog = HeartbeatWatchdog(args.heartbeat_timeout).start()
     max_update = args.max_update or math.inf
     max_epoch = args.max_epoch or math.inf
     # the update count of the last validation: the end of an epoch does
     # not validate again at the update a mid-epoch validation ran at
     last_validated = -1
-    epoch, stop = start_epoch, False
-    while not stop and epoch <= max_epoch:
-        uf = update_freq[min(epoch - 1, len(update_freq) - 1)]
-        batches_done = epoch_itr.iterations_in_epoch
-        broke_mid_epoch = False
-        for group in GroupedIterator(epoch_itr.next_epoch_itr(), uf):
-            microbatches = [to_device(b, device) for b in group]
-            gens, keeps = update_streams(args, cfg, epoch, num_updates,
-                                         len(group), device)
-            sync()
-            t0 = time.perf_counter()
-            metrics = trainer.train_step(microbatches, gens, keeps,
-                                         lr_scale=st["lr_scale"])
-            sync()
-            step_ms = (time.perf_counter() - t0) * 1e3
-            num_updates += 1
-            batches_done += len(group)
-            if ema is not None:
-                ema_step(ema_cfg, ema, trainer.params, trainer.step)
-            if not math.isfinite(metrics["gnorm"]):
-                logger.warning(f"update {num_updates}: non-finite gradient "
-                               f"norm; update skipped")
-            if num_updates % args.log_interval == 0 or \
-                    num_updates >= max_update:
-                metrics.update(num_updates=num_updates, epoch=epoch,
-                               step_ms=step_ms)
-                line = json.dumps(metrics)
-                print("train_inner " + line, flush=True)
-                if args.log_file:
+    try:
+        epoch, stop = start_epoch, False
+        while not stop and epoch <= max_epoch:
+            prof = Profiler().start() \
+                if args.profile and epoch == start_epoch else None
+            uf = update_freq[min(epoch - 1, len(update_freq) - 1)]
+            # batches consumed this epoch, taken before next_epoch_itr: the
+            # collate thread runs ahead of the loop
+            batches_done = epoch_itr.iterations_in_epoch
+            broke_mid_epoch = False
+            itr = DevicePrefetcher(GroupedIterator(BufferedIterator(
+                epoch_itr.next_epoch_itr()), uf), put)
+            inner, metrics = {}, {}
+            tick, since_log = time.perf_counter(), 0
+            t_data = time.perf_counter()
+            for i, (group, microbatches) in enumerate(
+                    progress.wrap(itr, prefix=f"epoch {epoch:03d}")):
+                data_ms = (time.perf_counter() - t_data) * 1e3
+                gens, keeps = update_streams(args, cfg, epoch, num_updates,
+                                             len(group), device)
+                if manual_lr is not None:
+                    st["lr_scale"] = manual_lr(epoch, num_updates) \
+                        / max(base_lr, 1e-30)
+                sync()
+                t0 = time.perf_counter()
+                metrics = trainer.train_step(microbatches, gens, keeps,
+                                             lr_scale=st["lr_scale"])
+                sync()
+                step_ms = (time.perf_counter() - t0) * 1e3
+                num_updates += 1
+                since_log += 1
+                batches_done += len(group)
+                watchdog.beat()
+                if ema is not None:
+                    ema_step(ema_cfg, ema, trainer.params, trainer.step)
+                if not math.isfinite(metrics["gnorm"]):
+                    logger.warning(
+                        "non-finite gradient norm; update skipped.\n"
+                        + report_nonfinite(params=named_params,
+                                           batch=group[0]))
+                if (i + 1) % args.log_interval == 0:
+                    now = time.perf_counter()
+                    dt = max(now - tick, 1e-9)
+                    inner = dict(metrics, ups=since_log / dt,
+                                 wps=metrics.get("sample_size", 0.0)
+                                 * since_log / dt)
+                    tick, since_log = now, 0
+                    progress.log({**{k: round(float(v), 4)
+                                     for k, v in inner.items()},
+                                  "num_updates": num_updates},
+                                 tag="train_inner", step=num_updates)
+                if args.log_file and (num_updates % args.log_interval == 0
+                                      or num_updates >= max_update):
+                    line = dict(metrics, num_updates=num_updates, epoch=epoch,
+                                step_ms=step_ms, data_ms=data_ms)
                     with open(args.log_file, "a") as f:
-                        f.write(line + "\n")
-            mid_val = None
-            if valid_itr is not None and args.validate_interval_updates > 0 \
-                    and num_updates % args.validate_interval_updates == 0 \
-                    and num_updates >= args.validate_after_updates:
-                mid_val = run_validation(epoch)
+                        f.write(json.dumps(line) + "\n")
+                mid_val = None
+                if valid_itr is not None and \
+                        args.validate_interval_updates > 0 and \
+                        num_updates % args.validate_interval_updates == 0 \
+                        and num_updates >= args.validate_after_updates:
+                    mid_val = run_validation(epoch)
+                    last_validated = num_updates
+                if mgr is not None and args.save_interval_updates > 0 and \
+                        num_updates % args.save_interval_updates == 0:
+                    save(epoch, {"epoch": epoch, "iterations_in_epoch":
+                                 batches_done, "shuffle": True}, False,
+                         num_updates, mid_val)
+                if num_updates >= max_update or st["stop"]:
+                    stop = broke_mid_epoch = True
+                    break
+                t_data = time.perf_counter()
+            if prof is not None:
+                prof.stop()
+                logger.info(f"profiler trace at {PROFILE_DIR}")
+            progress.print({**{k: round(float(v), 4)
+                               for k, v in (inner or metrics).items()},
+                            "num_updates": num_updates, "epoch": epoch},
+                           tag="train", step=num_updates)
+            val_metric = None
+            if valid_itr is not None and epoch % args.validate_interval == 0 \
+                    and num_updates >= args.validate_after_updates \
+                    and num_updates != last_validated:
+                val_metric = run_validation(epoch)
                 last_validated = num_updates
-            if mgr is not None and args.save_interval_updates > 0 and \
-                    num_updates % args.save_interval_updates == 0:
-                # the iterator's position counts consumed batches
-                save(epoch, {"epoch": epoch, "iterations_in_epoch":
-                             batches_done, "shuffle": True}, False,
-                     num_updates, mid_val)
-            if num_updates >= max_update or st["stop"]:
-                stop = broke_mid_epoch = True
-                break
-        logger.info(f"end of epoch {epoch} at update {num_updates}")
-        val_metric = None
-        if valid_itr is not None and epoch % args.validate_interval == 0 \
-                and num_updates >= args.validate_after_updates \
-                and num_updates != last_validated:
-            val_metric = run_validation(epoch)
-            last_validated = num_updates
-        if st["stop"]:
-            stop = True
-        if mgr is not None:
-            if broke_mid_epoch:
-                save(epoch, {"epoch": epoch, "iterations_in_epoch":
-                             batches_done, "shuffle": True}, False,
-                     num_updates if args.save_interval_updates > 0 else None,
-                     val_metric)
-            elif epoch % args.save_interval == 0:
-                save(epoch, epoch_itr.state_dict(), True,
-                     val_metric=val_metric)
-        if args.stop_min_lr > 0:
-            cur_lr = trainer.lr_schedule(num_updates + 1) * st["lr_scale"]
-            if cur_lr < args.stop_min_lr:
-                logger.info(f"stopping: lr {cur_lr:.3e} < --stop-min-lr "
-                            f"{args.stop_min_lr:.3e}")
+            if st["stop"]:
                 stop = True
-        epoch += 1
+            if mgr is not None:
+                if broke_mid_epoch:
+                    save(epoch, {"epoch": epoch, "iterations_in_epoch":
+                                 batches_done, "shuffle": True}, False,
+                         num_updates if args.save_interval_updates > 0
+                         else None,
+                         val_metric)
+                elif epoch % args.save_interval == 0:
+                    save(epoch, epoch_itr.state_dict(), True,
+                         val_metric=val_metric)
+            if args.stop_min_lr > 0:
+                cur_lr = trainer.lr_schedule(num_updates + 1) * st["lr_scale"]
+                if cur_lr < args.stop_min_lr:
+                    logger.info(f"stopping: lr {cur_lr:.3e} < --stop-min-lr "
+                                f"{args.stop_min_lr:.3e}")
+                    stop = True
+            epoch += 1
+    finally:
+        watchdog.stop()
     if mgr is not None:
         mgr.wait()      # every submitted save is on disk
     logger.info(f"done training at update {num_updates} (step "

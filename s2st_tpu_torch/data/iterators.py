@@ -15,10 +15,30 @@ The port's own copy of what stage 5 uses of ``s2st_tpu/data/iterators.py``:
   static shapes of ``snap_len`` or ``--num-batch-buckets`` quantiles
   (:258-307; a waveform source's time pad counts its samples, :296-300),
   and ``state_dict`` / ``next_epoch_itr(offset)`` for a resume
-  in the middle of an epoch;
+  in the middle of an epoch; with ``num_workers`` > 1 the batches are
+  collated in a pool of that many threads, ``2 * num_workers`` batches
+  ahead, and delivered in order, ``iterations_in_epoch`` counting the
+  delivered ones (:227-245); with ``pin_memory`` the collating thread
+  copies each batch's tensors into pinned host memory (for a copy to the
+  card that does not block);
 - a temperature-resampled dataset (``resampled``, ``set_epoch``) draws
   each epoch's rows before its batches are formed (:207-221);
-- ``GroupedIterator`` (:396-413) for ``--update-freq``.
+- ``GroupedIterator`` (:396-413) for ``--update-freq``;
+- ``BufferedIterator`` (:462-486): the epoch's batches formed in a
+  background thread, ``buffer_size`` ahead, an error raised where the
+  consumer takes the next batch;
+- ``DevicePrefetcher`` (:416-459): ``depth`` groups put on the device
+  ahead of the consumer. ``device_put`` gives the put function: on a CUDA
+  device ``CudaPut`` copies a batch's pinned tensors with
+  ``non_blocking=True`` on a stream of its own and records an event; when
+  the prefetcher hands the group out, the consumer's stream waits for that
+  event and each tensor is ``record_stream``-ed on it, so the caching
+  allocator reuses its memory only after the work queued there. On the CPU
+  the put function is a plain move.
+
+The loop reads ``iterations_in_epoch`` only before ``next_epoch_itr``
+(the thread and the pool run ahead of it) and counts the batches it
+consumed itself, as JAX's does (``cli/train.py:443, 479``).
 
 The dataset gives ``src_n_frames`` (the lengths batches are formed from),
 ``item(index, rng)`` and ``collate(items, pad_batch, pad_src_t, pad_tgt_t,
@@ -28,9 +48,13 @@ pad_src_txt, pad_tgt_txt)`` (``data/s2st_dataset.py::TrainSplit``).
 from __future__ import annotations
 
 import logging
-from typing import Any, Dict, Iterator, List, Optional
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
+import torch
 
 logger = logging.getLogger(__name__)
 
@@ -103,11 +127,15 @@ class EpochBatchIterator:
                  max_sentences: Optional[int] = None, seed: int = 1,
                  required_batch_size_multiple: int = 1,
                  max_positions: Optional[int] = None,
-                 num_batch_buckets: int = 0, shuffle: bool = True):
+                 num_batch_buckets: int = 0, shuffle: bool = True,
+                 num_workers: int = 0, pin_memory: bool = False):
         """max_positions: drop samples with more source frames
         (``--skip-invalid-size-inputs-valid-test`` with
         ``--max-source-positions``). num_batch_buckets: pad the source time
-        to N length-quantile buckets instead of the ``snap_len`` grid."""
+        to N length-quantile buckets instead of the ``snap_len`` grid.
+        num_workers: collate threads (``--num-workers``; one or none
+        collates in the caller's thread). pin_memory: each batch's tensors
+        copied into pinned host memory by the thread that collates it."""
         self.dataset = dataset
         self.max_tokens = max_tokens
         self.max_sentences = max_sentences
@@ -115,6 +143,8 @@ class EpochBatchIterator:
         self.required_batch_size_multiple = required_batch_size_multiple
         self.max_positions = max_positions
         self.shuffle = shuffle
+        self.num_workers = num_workers
+        self.pin_memory = pin_memory
         self.epoch = 1
         self.iterations_in_epoch = 0
         lengths = np.asarray(dataset.src_n_frames)
@@ -162,6 +192,24 @@ class EpochBatchIterator:
         start = offset or self.iterations_in_epoch
         self.iterations_in_epoch = start
 
+        if self.num_workers > 1:
+            def pooled():
+                depth = 2 * self.num_workers
+                nb = len(batches)
+                with ThreadPoolExecutor(self.num_workers) as ex:
+                    futs = {j: ex.submit(self.collate, batches[j])
+                            for j in range(start, min(start + depth, nb))}
+                    for i in range(start, nb):
+                        batch = futs.pop(i).result()
+                        if i + depth < nb:
+                            futs[i + depth] = ex.submit(
+                                self.collate, batches[i + depth])
+                        self.iterations_in_epoch = i + 1
+                        yield batch
+                self.iterations_in_epoch = 0
+                self.epoch += 1
+            return pooled()
+
         def gen():
             for i in range(start, len(batches)):
                 self.iterations_in_epoch = i + 1
@@ -184,13 +232,17 @@ class EpochBatchIterator:
 
     def collate(self, indices: np.ndarray) -> Dict[str, Any]:
         items = [self.fetch_item(int(i)) for i in indices]
-        return self.dataset.collate(
+        batch = self.dataset.collate(
             items, pad_batch=snap_len(len(items), 8),
             pad_src_t=self._snap_time(max(len(it["src_speech"])
                                           for it in items)),
             pad_tgt_t=snap_len(max(len(it["tgt_speech"]) for it in items)),
             pad_src_txt=snap_len(max(len(it["src_text"]) for it in items), 8),
             pad_tgt_txt=snap_len(max(len(it["tgt_text"]) for it in items), 8))
+        if self.pin_memory:
+            batch = {k: v.pin_memory() if isinstance(v, torch.Tensor) else v
+                     for k, v in batch.items()}
+        return batch
 
     def state_dict(self) -> Dict[str, Any]:
         return {"epoch": self.epoch,
@@ -218,3 +270,115 @@ class GroupedIterator:
                 chunk = []
         if chunk:
             yield chunk
+
+
+class BufferedIterator:
+    """The items of ``iterable`` taken in a daemon thread, ``buffer_size``
+    ahead of the consumer; the thread's error is raised at the consumer's
+    next item."""
+
+    _END = object()
+
+    def __init__(self, iterable, buffer_size: int = 2):
+        self._queue: "queue.Queue" = queue.Queue(maxsize=max(buffer_size, 1))
+        self._exc: Optional[BaseException] = None
+
+        def worker():
+            try:
+                for item in iterable:
+                    self._queue.put(item)
+            except BaseException as e:  # raised on the consumer's side
+                self._exc = e
+            finally:
+                self._queue.put(self._END)
+
+        self._thread = threading.Thread(target=worker, daemon=True,
+                                        name="batch-buffer")
+        self._thread.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._queue.get()
+        if item is self._END:
+            if self._exc is not None:
+                raise self._exc
+            raise StopIteration
+        return item
+
+
+class DevicePrefetcher:
+    """``depth`` groups of batches put on the device ahead of the consumer:
+    yields (host group, device group). ``put_fn`` puts one batch; where it
+    has a ``ready`` method, that is called on each of a group's device
+    batches when the group is handed out."""
+
+    def __init__(self, groups, put_fn: Callable, depth: int = 2):
+        self._it = iter(groups)
+        self._put = put_fn
+        self._ready = getattr(put_fn, "ready", None)
+        self._depth = max(depth, 1)
+        self._buf: list = []
+        self._done = False
+
+    def _fill(self):
+        while not self._done and len(self._buf) < self._depth:
+            try:
+                group = next(self._it)
+            except StopIteration:
+                self._done = True
+                return
+            self._buf.append((group, [self._put(b) for b in group]))
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self._fill()
+        if not self._buf:
+            raise StopIteration
+        host_group, dev_group = self._buf.pop(0)
+        if self._ready is not None:
+            dev_group = [self._ready(b) for b in dev_group]
+        self._fill()   # the next copies start before the consumer's step
+        return host_group, dev_group
+
+
+class CudaPut:
+    """Puts a batch on a CUDA device: its (pinned) host tensors copied with
+    ``non_blocking=True`` on a stream of this object's own, an event
+    recorded after them. ``ready`` makes the current stream wait for the
+    event and marks each tensor as used by that stream."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+
+    def __call__(self, batch: Dict[str, Any]):
+        with torch.cuda.stream(self.stream):
+            out = {k: v.to(self.device, non_blocking=True)
+                   if isinstance(v, torch.Tensor) else v
+                   for k, v in batch.items()}
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        # the host batch rides along until the copies are waited for
+        return out, event, batch
+
+    def ready(self, pending) -> Dict[str, Any]:
+        out, event, _ = pending
+        current = torch.cuda.current_stream(self.device)
+        current.wait_event(event)
+        for v in out.values():
+            if isinstance(v, torch.Tensor):
+                v.record_stream(current)
+        return out
+
+
+def device_put(device: torch.device) -> Callable:
+    """The put function of ``DevicePrefetcher`` for ``device``: a
+    ``CudaPut`` on a CUDA device, a plain move on any other."""
+    if device.type == "cuda":
+        return CudaPut(device)
+    return lambda batch: {k: v.to(device) if isinstance(v, torch.Tensor)
+                          else v for k, v in batch.items()}

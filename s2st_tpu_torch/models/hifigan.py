@@ -17,13 +17,16 @@ checkpoint (``{"generator": state_dict}`` or a bare state dict) and folds
 first dim) in float32 numpy, as JAX's ``_fold_weight_norm`` does.
 ``state_dict_from_jax`` carries JAX's HiFi-GAN parameters (numpy) across:
 it inverts JAX's ``_t_conv`` (K, Cin, Cout) and ``_t_convT`` (K, Cin, Cout)
-time-flipped.
+time-flipped. ``synthesize_streaming`` is JAX's chunked synthesis
+(:224-269): the mel padded with ``receptive_field_frames`` zero frames on
+both sides, each chunk synthesized with that margin and its interior
+kept.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -173,3 +176,41 @@ def state_dict_from_jax(params: Dict[str, Any], cfg: HiFiGANConfig
                     put(f"resblocks.{i * n + j}.{c}.{d}", conv(p), p["b"])
     put("conv_post", conv(params["conv_post"]), params["conv_post"]["b"])
     return sd
+
+
+def receptive_field_frames(cfg: HiFiGANConfig) -> int:
+    """An upper bound on the generator's receptive field in input mel
+    frames: conv_pre and each rate's resblocks mapped back through the
+    cumulative upsampling, plus conv_post and a margin."""
+    rf = 3  # conv_pre k=7 -> +-3
+    up = 1
+    for u, k in zip(cfg.upsample_rates, cfg.upsample_kernel_sizes):
+        up *= u
+        stage_rf = k  # transpose conv spread
+        for rk, rd in zip(cfg.resblock_kernel_sizes,
+                          cfg.resblock_dilation_sizes):
+            stage_rf += sum((rk - 1) * d + (rk - 1) for d in rd)
+        rf += -(-stage_rf // up)  # ceil back to input frames
+    return rf + 4  # conv_post + margin
+
+
+def synthesize_streaming(generator: HiFiGANGenerator, x: torch.Tensor,
+                         chunk_frames: int = 64,
+                         overlap: Optional[int] = None) -> torch.Tensor:
+    """(B, T, n_mels) log-mel -> (B, T * prod(upsample_rates)) fp32, one
+    chunk of ``chunk_frames`` after another, each synthesized with
+    ``overlap`` (the receptive field by default) frames of context on both
+    sides (zeros past the ends) and its ``chunk_frames * hop`` interior
+    samples kept."""
+    cfg = generator.cfg
+    b, t, _ = x.shape
+    ov = overlap if overlap is not None else receptive_field_frames(cfg)
+    up = int(np.prod(cfg.upsample_rates))
+    n_chunks = -(-t // chunk_frames)
+    xp = F.pad(x, (0, 0, ov, n_chunks * chunk_frames - t + ov))
+    chunks = []
+    for ci in range(n_chunks):
+        start = ci * chunk_frames
+        wav = generator(xp[:, start:start + chunk_frames + 2 * ov])
+        chunks.append(wav[:, ov * up:ov * up + chunk_frames * up])
+    return torch.cat(chunks, dim=1)[:, :t * up]

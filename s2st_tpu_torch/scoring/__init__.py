@@ -75,15 +75,14 @@ class Tokenizer13a:
 
 
 class WerScorer:
-    """``--scoring wer`` with ``--wer-tokenizer none|13a``,
-    ``--wer-lowercase`` and ``--wer-remove-punct``: token edit distance
-    over reference tokens, in percent."""
+    """``--scoring wer`` with ``--wer-tokenizer``, ``--wer-lowercase`` and
+    ``--wer-remove-punct``: token edit distance over reference tokens, in
+    percent. ``13a`` runs the port's ``Tokenizer13a``; any other name
+    (``none``, ``intl``, ``char``, ...) splits on white space, as JAX's
+    scorer does (``s2st_tpu/scoring/__init__.py:54-66``)."""
 
     def __init__(self, lowercase: bool = False, remove_punct: bool = False,
                  tokenizer: str = "none"):
-        if tokenizer not in ("none", "13a"):
-            raise NotImplementedError(f"--wer-tokenizer {tokenizer} is not "
-                                      "ported; none and 13a are")
         self.lowercase = lowercase
         self.remove_punct = remove_punct
         self.distance = 0

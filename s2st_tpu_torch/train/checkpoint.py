@@ -4,16 +4,19 @@ The port's own copy of ``s2st_tpu/train/checkpoint.py``:
 
 - one ``.npz`` a checkpoint, its keys the ``::``-joined tree paths of the
   parameters (``params::``), the postnet's running statistics
-  (``stats::``) and Adam's state (``opt::0::.count``, ``opt::0::.mu::<the
-  parameter's path>``, ``opt::0::.nu::...``; bf16 moments as 2-byte void,
-  as numpy writes ml_dtypes' bfloat16), with a ``__meta__`` member of JSON
-  bytes (``_flatten_state``, :102-122); ``models/jax_bridge.py`` maps the
-  names and layouts;
+  (``stats::``) and the optimizer's state under the names ``flatten_tree``
+  gives optax's (Adam's ``opt::0::.count``, ``opt::0::.mu::<the
+  parameter's path>``, ``opt::0::.nu::...``, bf16 moments as 2-byte void,
+  as numpy writes ml_dtypes' bfloat16; adafactor's ``opt::0::.v_row::...``
+  in JAX's shapes; ``opt::.trace::...`` of ``nag``; see
+  ``train/optim.py``), with a ``__meta__`` member of JSON bytes
+  (``_flatten_state``, :102-122); ``models/jax_bridge.py`` maps the names
+  and layouts;
 - ``save_checkpoint_files`` (:125-152): one write under a temporary name
   and ``os.replace``, then a hard link (or a copy) for each other name;
 - ``load_checkpoint_file`` / ``peek_meta`` (:164-180) and
   ``restore_state`` (:182-224): the parameters always, the statistics
-  where the file has them, Adam's state and the step unless
+  where the file has them, the optimizer's state and the step unless
   ``reset_optimizer``;
 - ``CheckpointManager`` (:368-496): ``checkpoint{epoch}``,
   ``checkpoint_{epoch}_{updates}``, ``checkpoint_last``, the best files
@@ -25,14 +28,14 @@ The port's own copy of ``s2st_tpu/train/checkpoint.py``:
   is always the newest state; a worker's error is raised at the next save
   or ``wait()``, which the trainer calls before it reads the save dir and
   before it exits;
-- ``StateSnapshot``: what a save reads (the model's variables, Adam's
-  moments and count, the EMA shadow). For an asynchronous save it holds
-  copies on the device, made on the training stream after the update and
-  fenced by an event (``_snapshot_state``, :345-361): the next update
-  changes the live tensors in place (``torch._foreach_*``), never the
-  copies. The worker copies them to the host on a stream of its own, which
-  waits for that event only, so the copy does not queue behind the next
-  update; the copies are freed once that copy is done;
+- ``StateSnapshot``: what a save reads (the model's variables, the
+  optimizer's state and count, the EMA shadow). For an asynchronous save
+  it holds copies on the device, made on the training stream after the
+  update and fenced by an event (``_snapshot_state``, :345-361): the next
+  update changes the live tensors in place (``torch._foreach_*``), never
+  the copies. The worker copies them to the host on a stream of its own,
+  which waits for that event only, so the copy does not queue behind the
+  next update; the copies are freed once that copy is done;
 - ``load_pretrained_component`` (:272-298): the warm start of one
   component from a ``.npz`` or a fairseq ``.pt``, JAX's errors included;
 - ``average_checkpoints`` (:498-522): the parameters' mean accumulated in
@@ -141,14 +144,25 @@ def _device_copies(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return out
 
 
-def opt_key(moment: str, param_key: str) -> str:
-    """``params::a::b`` -> ``opt::0::.mu::a::b``."""
-    return OPT + moment + SEP + param_key.split(SEP, 1)[1]
+def opt_key(moment: str, param_key: str, prefix: str = OPT) -> str:
+    """``params::a::b`` -> ``opt::0::.mu::a::b`` (``prefix`` the
+    optimizer's, ``opt::0::.`` for Adam)."""
+    return prefix + moment + SEP + param_key.split(SEP, 1)[1]
+
+
+def opt_entries(opt, entries) -> List[Tuple[str, torch.Tensor, str]]:
+    """(checkpoint key, tensor, layout kind) of each state tensor of the
+    optimizer, ``entries`` the trained parameters' (name, key, kind)."""
+    same = set(opt.JAX_LAYOUT_FIELDS)
+    return [(opt_key(field, key, opt.PREFIX), t,
+             "same" if field in same else kind)
+            for field, tensors in opt.state()
+            for t, (_, key, kind) in zip(tensors, entries)]
 
 
 class StateSnapshot:
     """The tensors a save reads: the model's variables (JAX key, tensor,
-    layout kind), Adam's moments and count, and, with ``ema``, the EMA
+    layout kind), the optimizer's state and count, and, with ``ema``, the EMA
     shadow. With ``copy`` every tensor is a copy on its device that later
     updates cannot touch, and on a CUDA device an event marks where the
     copies end on the training stream."""
@@ -160,11 +174,10 @@ class StateSnapshot:
         layout, entries = _layouts(model)
         self.variables = [(key, sd[name], kind)
                           for name, key, kind in layout]
-        self.moments = [(opt_key(m, key), t, kind)
-                        for i, (_, key, kind) in enumerate(entries)
-                        for m, t in (("mu", opt.mu[i]), ("nu", opt.nu[i]))]
+        self.moments = opt_entries(opt, entries)
         self.ema = None if ema is None else [
             (key, t, kind) for t, (_, key, kind) in zip(ema, entries)]
+        self.count_key = opt.PREFIX + "count" if opt.has_count else None
         self.count = int(opt.count)
         self.event = None
         if copy:
@@ -182,11 +195,12 @@ class StateSnapshot:
                 self.event.record(torch.cuda.current_stream(dev))
 
     def flat(self) -> Dict[str, np.ndarray]:
-        """The parameters, statistics and Adam state as flat host arrays in
-        the JAX layout."""
+        """The parameters, statistics and optimizer state as flat host
+        arrays in the JAX layout."""
         flat = flatten_tree(unflatten_tree(
             {key: _to_jax(t, kind) for key, t, kind in self.variables}))
-        flat[OPT_COUNT] = np.asarray(self.count, np.int32)
+        if self.count_key is not None:
+            flat[self.count_key] = np.asarray(self.count, np.int32)
         for key, t, kind in self.moments:
             flat[key] = _host(t, kind)
         return flat
@@ -203,8 +217,8 @@ class StateSnapshot:
 
 
 def state_flat(trainer) -> Dict[str, np.ndarray]:
-    """The trainer's parameters, statistics and Adam state as flat host
-    arrays in the JAX layout."""
+    """The trainer's parameters, statistics and optimizer state as flat
+    host arrays in the JAX layout."""
     return StateSnapshot(trainer).flat()
 
 
@@ -402,9 +416,11 @@ def load_pretrained_component(model, path: str, component: str
 def restore_state(trainer, path: str, reset_optimizer: bool = False
                   ) -> Dict:
     """Load a checkpoint into the trainer's model and optimizer; returns
-    its meta. Every parameter must be in the file; statistics and moments
-    it lacks keep their values. ``reset_optimizer`` keeps the optimizer's
-    state and the step as they are."""
+    its meta. Every parameter must be in the file; statistics and
+    optimizer state it lacks keep their values (JAX's ``strict=False``),
+    and a state tensor of another shape raises ValueError.
+    ``reset_optimizer`` keeps the optimizer's state and the step as they
+    are."""
     flat, meta = load_checkpoint_file(path)
     model = trainer.model
     current = model.state_dict()
@@ -417,13 +433,17 @@ def restore_state(trainer, path: str, reset_optimizer: bool = False
     model.load_state_dict(sd, strict=False)
     if not reset_optimizer:
         opt = trainer.optimizer
-        for i, (_, key, kind) in enumerate(_param_entries(model)):
-            for moment, dst in (("mu", opt.mu[i]), ("nu", opt.nu[i])):
-                arr = flat.get(opt_key(moment, key))
-                if arr is not None:
-                    dst.copy_(_tensor(arr, kind))
-        if OPT_COUNT in flat:
-            opt.count = int(flat[OPT_COUNT])
+        for key, dst, kind in opt_entries(opt, _param_entries(model)):
+            arr = flat.get(key)
+            if arr is not None:
+                src = _tensor(arr, kind)
+                if tuple(src.shape) != tuple(dst.shape):
+                    raise ValueError(f"shape mismatch for {key}: ckpt "
+                                     f"{tuple(arr.shape)} vs optimizer "
+                                     f"{tuple(dst.shape)}")
+                dst.copy_(src)
+        if opt.has_count and opt.PREFIX + "count" in flat:
+            opt.count = int(flat[opt.PREFIX + "count"])
         trainer.step = int(meta.get("step", 0))
     return meta
 

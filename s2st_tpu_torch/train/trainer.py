@@ -9,8 +9,10 @@ running statistics pass from one microbatch to the next. Then one apply
 ``1 / max(sample_size, 1)`` over the summed sample size (as JAX does,
 although the composite loss is already a mean); their global norm; the
 clip factor ``min(1, clip / (gnorm + 1e-6))``; ``lr = schedule(step + 1)``;
-Adam. A non-finite norm changes nothing: not the parameters, not Adam's
-moments or count, not the step. The postnet's statistics come from the
+the optimizer's step (``train/optim.py``: Adam by default, or any of JAX's
+registry by name, with ``p -= lr * u``). A non-finite norm changes
+nothing: not the parameters, not the optimizer's state or count, not the
+step (JAX's ``jnp.where``). The postnet's statistics come from the
 microbatches either way, as in JAX. The logging values are summed over
 the microbatches and the loss's means divided by their number; they reach
 the host in one transfer. ``lr_scale`` multiplies the schedule's rate (the
@@ -28,8 +30,9 @@ from typing import Any, Callable, Dict, Optional, Sequence, Union
 
 import torch
 
+from .checkpoint import _param_entries
 from .losses import LossConfig, s2st_loss
-from .optim import Adam
+from .optim import build_optimizer
 
 Batch = Dict[str, Any]
 
@@ -39,15 +42,25 @@ class Trainer:
                  lr_schedule: Callable[[int], float], clip_norm: float = 0.0,
                  betas=(0.9, 0.98), eps: float = 1e-8,
                  weight_decay: float = 0.0, stats_dtype=None,
-                 loss_fn: Callable = s2st_loss):
+                 loss_fn: Callable = s2st_loss, optimizer: str = "adam",
+                 optimizer_kw: Optional[Dict[str, Any]] = None):
+        """optimizer: a name of ``train/optim.py::OPTIMIZER_REGISTRY``,
+        built with ``optimizer_kw``; Adam without them takes ``betas``,
+        ``eps``, ``weight_decay`` and ``stats_dtype``."""
         self.model = model
         self.lcfg = lcfg
         self.loss_fn = loss_fn
         self.lr_schedule = lr_schedule
         self.clip_norm = clip_norm
         self.params = [p for p in model.parameters() if p.requires_grad]
-        self.optimizer = Adam(self.params, betas, eps, weight_decay,
-                              stats_dtype)
+        if optimizer == "adam" and optimizer_kw is None:
+            optimizer_kw = dict(betas=betas, eps=eps,
+                                weight_decay=weight_decay,
+                                stats_dtype=stats_dtype)
+        # each parameter's layout in JAX (adafactor's statistics follow it)
+        kinds = [kind for _, _, kind in _param_entries(model)]
+        self.optimizer = build_optimizer(optimizer, self.params, kinds,
+                                         **(optimizer_kw or {}))
         self.step = 0   # updates taken (skipped ones not counted)
 
     def train_step(self, microbatches: Union[Batch, Sequence[Batch]],

@@ -76,7 +76,9 @@ def test_port_imports_neither_jax_nor_s2st_tpu():
                  "generate.constrained", "models.fairseq_checkpoint",
                  "preprocessing.constraints_tools", "models.s2t_transformer",
                  "models.config_from_args", "data.manifest",
-                 "data.data_cfg"):
+                 "data.data_cfg", "logging_utils", "utils.diagnostics",
+                 "preprocessing.filter_manifest",
+                 "preprocessing.doc_tools"):
         assert f"s2st_tpu_torch.{name}" in _walk_names(), name
     assert bad == "[]", bad
 
@@ -152,9 +154,10 @@ def test_text_generate_cli_raises_without_cuda(tmp_path):
 
 
 def test_train_cli_refuses_later_slices_flags(tmp_path):
-    """Asynchronous saves, --stop-min-lr and the --eval-bleu flags are
-    ported: accepted with validation on or off, as validation and its
-    flags are."""
+    """Asynchronous saves, --stop-min-lr, the --eval-bleu flags and the
+    optimizer, schedule, worker, logging and diagnostic flags are ported:
+    accepted with validation on or off, as validation and its flags are;
+    --user-dir is refused."""
     from s2st_tpu_torch.cli import train
     off = "--disable-validation"
     for flags in (["--eval-inference"], [],
@@ -164,13 +167,27 @@ def test_train_cli_refuses_later_slices_flags(tmp_path):
                   ["--write-checkpoints-asynchronously"],
                   [off, "--save-async", "--stop-min-lr", "1e-9"],
                   ["--eval-bleu", "--eval-bleu-remove-bpe",
-                   "--eval-bleu-print-samples"]):
+                   "--eval-bleu-print-samples"],
+                  ["--optimizer", "lamb", "--lr-scheduler", "manual",
+                   "--update2lr", "{'2': 1e-4}", "--epoch2lr", "{'1-3': 1}",
+                   "--num-workers", "4", "--log-format", "json",
+                   "--tensorboard-logdir", "tb", "--wandb-project", "p",
+                   "--wandb-run-name", "r", "--azureml-logging",
+                   "--profile", "--heartbeat-timeout", "600",
+                   "--find-unused-parameters", "--prng-impl",
+                   "threefry2x32"]):
         args = train.get_parser().parse_args(
             [str(tmp_path), "--device", "cpu", *flags])
         train.check_args(args)
-    assert args.eval_bleu and args.eval_bleu_remove_bpe == "@@ "
+    assert args.num_workers == 4 and args.heartbeat_timeout == 600
+    # --user-dir registers archs in JAX's registry: not in the port
+    with pytest.raises(SystemExit):
+        train.get_parser().parse_args([str(tmp_path), "--user-dir", "x"])
     assert train.get_parser().parse_args(
         [str(tmp_path), "--save-async"]).write_checkpoints_asynchronously
+    args = train.get_parser().parse_args(
+        [str(tmp_path), "--eval-bleu", "--eval-bleu-remove-bpe"])
+    assert args.eval_bleu and args.eval_bleu_remove_bpe == "@@ "
 
 
 @pytest.mark.parametrize("where", ["repo", "bare"])

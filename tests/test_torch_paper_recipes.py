@@ -54,6 +54,7 @@ from s2st_tpu.models import s2st_transformer as jm
 from s2st_tpu.models import s2t_transformer as js2t
 from s2st_tpu_torch.cli import train
 from s2st_tpu_torch.models.jax_bridge import jax_variables
+from tests._torch_port import one_thread  # noqa: F401
 from tests.test_torch_hubert import _losses
 from tests.test_torch_train import TINY_FLAGS
 

@@ -111,3 +111,28 @@ def test_wer_refuses_several_references_and_counts_must_match(tmp_path):
     for main in (jax_main, port.main):
         with pytest.raises(AssertionError, match="line-count"):
             main(argv)
+
+
+@pytest.mark.parametrize("tokenizer", ["intl", "char", "13a", "none"])
+def test_wer_tokenizers_match_jax_through_build_scorer(tokenizer):
+    """``--scoring wer --wer-tokenizer <name>`` as ``generate_for_s2st``
+    and text ``generate`` build it: the WER line equals JAX's exactly
+    (JAX splits on white space for every name but ``13a``)."""
+    import argparse
+    from s2st_tpu.scoring import build_scorer as jax_build
+    from s2st_tpu_torch.scoring import build_scorer
+    pairs = [("Hello, world! It's 3.5 km.", "hello world its 3.5 km"),
+             ("The cat-sat (on) the mat.", "the cat sat on mat"),
+             ("Ünïcödé wörds, ok?", "unicode words ok"),
+             ("", "extra words")]
+    for lower, punct in ((False, False), (True, True)):
+        args = argparse.Namespace(scoring="wer", wer_tokenizer=tokenizer,
+                                  wer_lowercase=lower,
+                                  wer_remove_punct=punct)
+        port, ref = build_scorer(args), jax_build(args)
+        for r, h in pairs:
+            port.add_string(r, h)
+            ref.add_string(r, h)
+        assert port.result_string() == ref.result_string()
+        assert (port.distance, port.ref_length) == \
+            (ref.distance, ref.ref_length)

@@ -48,7 +48,8 @@ from s2st_tpu_torch.models.jax_bridge import _to_jax, flatten_tree, jax_layout
 from s2st_tpu_torch.train import losses as pl
 from s2st_tpu_torch.train.optim import schedule_from_args
 from s2st_tpu_torch.train.trainer import Trainer
-from tests._torch_port import numpy_tree, port_model
+from tests._torch_port import (numpy_tree, one_thread,  # noqa: F401
+                               port_model)
 from tests.conftest import make_batch
 
 NO_DROPOUT = dict(dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,

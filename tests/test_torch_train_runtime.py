@@ -67,7 +67,7 @@ from s2st_tpu_torch.train import ema as pema
 from s2st_tpu_torch.train import losses as pl
 from s2st_tpu_torch.train.optim import schedule_from_args
 from s2st_tpu_torch.train.trainer import Trainer
-from tests._torch_port import port_model
+from tests._torch_port import one_thread, port_model  # noqa: F401
 from tests.test_torch_train import (BN_MEAN, LOSS, NO_DROPOUT, TINY_FLAGS,
                                     ZERO_GRAD, _cli_args, port_batch,
                                     train_batch)
@@ -132,7 +132,9 @@ def test_two_updates_of_two_microbatches_match_jax(cfg, tiny_variables, wd,
     mesh = make_mesh(dp=1, fsdp=1, tp=1, devices=jax.devices()[:1])
     j_tr = JaxTrainer(cfg, jl.LossConfig(**LOSS), tx,
                       inverse_sqrt_schedule(LR, 2, LR), mesh, clip_norm=0.125)
-    state = create_train_state(variables, tx)
+    # committed to the mesh once, so the second update reuses the first's
+    # compiles (Trainer.place_state's docstring)
+    state = j_tr.place_state(create_train_state(variables, tx))
     model = port_model(cfg, tiny_variables)
     p_tr = Trainer(model, pl.LossConfig(**LOSS),
                    schedule_from_args(_cli_args()), clip_norm=0.125,

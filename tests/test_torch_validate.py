@@ -55,6 +55,7 @@ from s2st_tpu_torch.ops import mcd as pmcd
 from s2st_tpu_torch.tasks import s2s_translation as p_task
 from s2st_tpu_torch.train import checkpoint as pckpt
 from tests._torch_port import port_model, t
+from tests._torch_port import one_thread  # noqa: F401
 from tests.conftest import make_batch
 from tests.test_torch_train import (LOSS, NO_DROPOUT, TINY_FLAGS,
                                     port_batch)
