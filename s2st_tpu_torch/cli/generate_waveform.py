@@ -17,6 +17,14 @@ features. Runs on CUDA unless ``--device`` names another device.
         --results-path out --spec-bwd-max-iter 64 --fp16 \\
         --dump-waveforms --dump-features --dump-target --dump-plots
 
+A ``t2s_transformer`` checkpoint (its echo's arch; JAX's :105-107,
+:155-168, :196-197) serves from text: each batch's source text, in the
+source dictionary's ids and PAD-padded to JAX's ``snap_len(longest, 8)``
+columns, goes through the T2S text encoder, then the same decode, postnet,
+vocoder and dumps (``--teacher-forcing`` does not apply, as in JAX). A
+fairseq ``.pt`` is read as an S2ST checkpoint, as JAX's
+``load_variables_any`` reads it, so a T2S ``.pt`` raises ``KeyError``.
+
 With ``--use-hubert True`` (stage 7's line plus that flag, for a model
 trained with the HuBERT frontend) the sources are the raw waveforms of the
 split's ``src_orig`` (else ``src_audio``) column, padded as JAX's iterator
@@ -53,17 +61,19 @@ from ..generate.speech_generator import (GenerationConfig, decode_loop,
                                          postprocess,
                                          teacher_forcing_features)
 from ..generate.vocoder import get_vocoder
+from ..models import t2s_transformer as t2s
 from ..models.config_from_args import (add_model_args,
                                        add_model_overrides_arg,
                                        add_speaker_args, build_model_config,
-                                       model_args_from_checkpoint,
+                                       is_t2s, model_args_from_checkpoint,
                                        num_speakers)
 from ..models.fairseq_checkpoint import (is_torch_checkpoint, s2st_config,
                                          s2st_from_fairseq, s2st_state_dict)
 from ..models.jax_bridge import read_jax_checkpoint
-from ..models.s2st_transformer import cast_for_inference, from_jax_variables
+from ..models.s2st_transformer import (PAD, cast_for_inference,
+                                       from_jax_variables)
 from ..nn.core import disable_tf32, resolve_device
-from ..tasks.s2s_translation import data_config
+from ..tasks.s2s_translation import data_config, load_dictionaries
 
 logger = logging.getLogger("s2st_tpu_torch.generate_waveform")
 
@@ -72,7 +82,7 @@ def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("data")
     p.add_argument("--task", default="s2s_translation",
-                   choices=["s2s_translation"])
+                   choices=["s2s_translation", "s2s_translation_mtl"])
     p.add_argument("--config-yaml", default="config.yaml")
     p.add_argument("--gen-subset", default="test")
     p.add_argument("--path", required=True,
@@ -192,7 +202,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     # the speaker count of --speaker-to-id, as JAX's task builds the model;
     # serving passes no speaker to the decode, as JAX's infer does
     speakers = num_speakers(args) if args.speaker_to_id else None
+    src_dict = None
     if is_torch_checkpoint(path):
+        if is_t2s(model_args_from_checkpoint(args, {})):
+            raise KeyError(f"{path}: a fairseq .pt is read as an S2ST "
+                           f"checkpoint, as JAX's load_variables_any reads "
+                           f"it; it holds no T2S text encoder")
         sd = s2st_state_dict(path)
         cfg = s2st_config(sd, model_args_from_checkpoint(args, {}),
                           data_cfg.input_feat_per_channel, speakers)
@@ -203,7 +218,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         margs = model_args_from_checkpoint(args, meta)
         cfg = build_model_config(margs, variables,
                                  data_cfg.input_feat_per_channel, speakers)
-        model = from_jax_variables(cfg, variables)
+        if is_t2s(margs):
+            model = t2s.from_jax_variables(cfg, variables)
+            src_dict = load_dictionaries(args.data, data_cfg)[0]
+            cfg = cfg.base      # the spectrogram decoder's config
+        else:
+            model = from_jax_variables(cfg, variables)
         logger.info(f"loaded {path} (step {meta.get('step', '?')})")
     model = cast_for_inference(model.to(device).eval(), cfg.dtype)
     logger.info(f"serving on {device}, compute {cfg.dtype}")
@@ -231,21 +251,24 @@ def main(argv: Optional[List[str]] = None) -> int:
             args.max_tokens, args.batch_size,
             args.required_batch_size_multiple)):
         batch = split.collate(indices, with_target=args.teacher_forcing
-                              or args.dump_target)
+                              or args.dump_target, src_dict=src_dict)
         gen = torch.Generator(device).manual_seed(args.seed * 100003 + bi)
         clock.start()
         tensors = {k: v.to(device) for k, v in batch.items()
                    if isinstance(v, torch.Tensor)}
         rec = {"batch": bi, "rows": len(indices),
                "src_frames": int(batch["src_speech"].shape[1])}
-        if args.teacher_forcing:
+        if args.teacher_forcing and src_dict is None:
             out = teacher_forcing_features(model, tensors, gcmvn_mean,
                                            gcmvn_std, gen)
             rec["forward_ms"] = clock.lap()
         else:
             n = len(indices)
-            enc = model.encode(*with_pad_rows(tensors["src_speech"],
-                                              tensors["src_speech_lens"]))
+            if src_dict is not None:
+                enc = model.encode(with_pad_text_rows(tensors["src_text"]))
+            else:
+                enc = model.encode(*with_pad_rows(
+                    tensors["src_speech"], tensors["src_speech_lens"]))
             rec["encode_ms"] = clock.lap()
             feats, eos_prob, attn, out_lens, steps = decode_loop(
                 model, gen_cfg, enc, generator=gen)
@@ -308,6 +331,15 @@ def with_pad_rows(src: torch.Tensor, lens: torch.Tensor):
         return src, lens
     return (torch.cat([src, src.new_zeros((pad,) + src.shape[1:])]),
             torch.cat([lens, lens.new_zeros(pad)]))
+
+
+def with_pad_text_rows(tokens: torch.Tensor) -> torch.Tensor:
+    """``with_pad_rows`` of a text batch: JAX's snap_len(n, 8) rows, the
+    added ones all PAD (data/s2st_dataset.py:273)."""
+    pad = snap_len(tokens.shape[0], 8) - tokens.shape[0]
+    if pad == 0:
+        return tokens
+    return torch.cat([tokens, tokens.new_full((pad, tokens.shape[1]), PAD)])
 
 
 def cli_main():

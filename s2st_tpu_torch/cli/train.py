@@ -1,7 +1,8 @@
 """Training: stage 5 of the recipe and the paper's recipes through the port.
 
 Counterpart of ``s2st_tpu/cli/train.py::main`` (:28-600) for ``--task
-s2s_translation`` with ``--arch s2st_transformer`` or an S2T arch:
+s2s_translation`` (or ``s2s_translation_mtl``, the same task) with an arch
+the port builds (``config_from_args.arch_family``):
 dictionaries and data config from ``<data>``, a seeded random model, the
 optimizer and schedule as the JAX CLI builds them (``--optimizer`` any of
 JAX's registry, with the Adam flags reaching ``adam`` only;
@@ -83,11 +84,19 @@ is 0), as JAX's task and dataset do (tasks/s2s_translation.py:42-43,
 :100-103, data/s2st_dataset.py:208-210).
 
 The arch picks the model and its loss, as in JAX (``--criterion`` is
-accepted): ``s2st_transformer`` with ``s2st_loss``, or an
-``s2t_transformer`` arch (``_hubert``, the s/xs/sp/m/mp/l/lp ladder; its
-defaults under the flags given) with ``s2t_loss`` over the target text
-(``--test-type st``) or the source text (``asr``); an S2T run validates by
-its loss, ``--eval-inference`` being for ``s2st*`` archs (:302).
+accepted): ``s2st_transformer`` with ``s2st_loss``;
+``s2st_transformer_mtl`` (decoder tap 3 by default,
+``--middle-layers-decoder``) with the target CTC of ``--ctc-weight-tgt``
+in it; ``t2s_transformer`` (the text encoder's
+``--encoder-conv-layers/-conv-kernel-size/-dropout/-transformer-layers``)
+with ``t2s_loss`` over the batches' source text, its BatchNorms' statistics
+written back after each microbatch; or an ``s2t_transformer`` arch
+(``_hubert``, the s/xs/sp/m/mp/l/lp ladder), ``xm_transformer`` (over raw
+waveforms) or ``convtransformer[_espnet]``, each with its defaults under
+the flags given, with ``s2t_loss`` over the target text (``--test-type
+st``) or the source text (``asr``); a run of a text-output model or of
+T2S validates by its loss, ``--eval-inference`` being for ``s2st*`` archs
+(:302).
 ``--load-pretrained-encoder-from`` and ``--load-pretrained-decoder-from``
 (a ``.npz`` or a fairseq ``.pt``) then warm-start those components'
 parameters, after the frontend's load and before a resume, which wins
@@ -99,7 +108,9 @@ temperature (``data/s2st_dataset.py``).
 ``--use-hubert True`` trains over raw waveforms through the frozen HuBERT
 frontend (``--hubert-hidden/-layers/-ffn/-heads``), and
 ``--load-pretrained-hubert-from`` a fairseq ``.pt`` replaces its random
-init before the optimizer is built (:169-180). The frontend's parameters
+init before the optimizer is built (:169-180); for ``xm_transformer`` it
+is loaded into the trunk (JAX's CLI puts it under ``params::hubert``,
+which that model never reads: ROADMAP §3). The frontend's parameters
 stay in Adam with zero gradients, as in JAX: their moments stay 0 and
 they do not move unless ``--weight-decay`` decays them; they and their
 moments are in every checkpoint.
@@ -125,7 +136,7 @@ from ..data.iterators import (BufferedIterator, DevicePrefetcher,
 from ..data.s2st_dataset import TrainSplit, to_device
 from ..logging_utils import ProgressLogger
 from ..models.config_from_args import (add_model_args, add_speaker_args,
-                                       apply_arch, is_s2t, num_speakers,
+                                       apply_arch, num_speakers,
                                        speaker_to_id)
 from ..models.hubert import load_torch_hubert
 from ..models.s2st_transformer import encoder_layer_keep
@@ -155,11 +166,13 @@ def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("data")
     p.add_argument("--task", default="s2s_translation",
-                   choices=["s2s_translation"])
+                   choices=["s2s_translation", "s2s_translation_mtl"])
     p.add_argument("--criterion", default="s2st_loss",
-                   choices=["s2st_loss", "s2t_loss"],
+                   choices=["s2st_loss", "s2st_loss_mtl", "s2t_loss",
+                            "t2s_loss"],
                    help="the arch binds its loss, as in JAX: s2st_loss for "
-                   "s2st_transformer, s2t_loss for the s2t_transformer archs")
+                   "the s2st archs, t2s_loss for t2s_transformer, s2t_loss "
+                   "for the text-output archs")
     p.add_argument("--config-yaml", default="config.yaml")
     p.add_argument("--train-subset", default="train")
     p.add_argument("--valid-subset", default="valid")
@@ -301,6 +314,7 @@ def loss_config(args: argparse.Namespace) -> LossConfig:
         use_guided_attention_loss=args.use_guided_attention_loss,
         guided_attention_loss_sigma=args.guided_attention_loss_sigma,
         label_smoothing=args.label_smoothing, ctc_weight=args.ctc_weight,
+        ctc_weight_tgt=args.ctc_weight_tgt,
         asr_ce_weight=args.asr_ce_weight, st_ce_weight=args.st_ce_weight,
         l1_loss_weight=args.l1_loss_weight,
         mse_loss_weight=args.mse_loss_weight,
@@ -395,16 +409,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     model_cfg, model, loss_fn = build_model_and_loss(
         args, len(dicts[0]), len(dicts[1]), data_cfg.input_feat_per_channel,
         num_speakers=num_speakers(args))
-    cfg = model_cfg.base if is_s2t(args) else model_cfg
+    # the S2ST-shaped config of the dropout streams and the log line (XM
+    # has none: its config stands in)
+    cfg = getattr(model_cfg, "base", model_cfg)
     speakers = speaker_to_id(args)
     split = TrainSplit(args.data, data_cfg, args.train_subset, *dicts,
                        n_frames_per_step=args.n_frames_per_step,
                        speaker_to_id=speakers, seed=args.seed)
-    if cfg.use_hubert and args.load_pretrained_hubert_from:
+    frontend = getattr(model.encoder, "hubert", None)
+    if frontend is None:    # the xm_transformer's trunk
+        frontend = getattr(model.encoder, "w2v_model", None)
+    if frontend is not None and args.load_pretrained_hubert_from:
         sd, _ = load_torch_hubert(args.load_pretrained_hubert_from)
-        model.encoder.hubert.carry_pretraining(
-            {k: tuple(v.shape) for k, v in sd.items()})
-        model.encoder.hubert.load_state_dict(sd, strict=True)
+        frontend.carry_pretraining({k: tuple(v.shape) for k, v in sd.items()})
+        frontend.load_state_dict(sd, strict=True)
         logger.info(f"loaded pretrained hubert from "
                     f"{args.load_pretrained_hubert_from}")
     # component warm starts, after the frontend's load (:182-190)

@@ -203,13 +203,15 @@ class GenerationSplit(Manifest):
             ordered_indices(lengths, False, 0, 0), lengths, max_tokens,
             batch_size, required_batch_size_multiple)]
 
-    def collate(self, indices: List[int], with_target: bool = False
-                ) -> Dict[str, object]:
+    def collate(self, indices: List[int], with_target: bool = False,
+                src_dict=None) -> Dict[str, object]:
         """Pad a batch; rows longest first. src_speech (B, T, F) fp32, or
         (B, L) waveforms padded to ``snap_len`` of the longest,
         src_speech_lens (B,); with_target adds tgt_speech,
         prev_output_tokens (zero first frame, shifted targets) and
-        target_lengths, in packed frames."""
+        target_lengths, in packed frames; ``src_dict`` adds src_text, each
+        row's source text in that dictionary's ids with EOS, PAD-padded to
+        JAX's ``snap_len(longest, 8)`` columns (data/iterators.py:304)."""
         src = [self.source(i) for i in indices]
         order = np.argsort([-x.shape[0] for x in src], kind="stable")
         indices = [indices[i] for i in order]
@@ -238,4 +240,12 @@ class GenerationSplit(Manifest):
             batch["tgt_speech"] = torch.from_numpy(full)
             batch["prev_output_tokens"] = torch.from_numpy(prev)
             batch["target_lengths"] = torch.tensor([x.shape[0] for x in tgt])
+        if src_dict is not None:
+            ids = [src_dict.encode_line(self.samples[i].get("src_text", ""))
+                   for i in indices]
+            text = np.full((b, snap_len(max(len(x) for x in ids), 8)),
+                           src_dict.pad_index, np.int64)
+            for i, x in enumerate(ids):
+                text[i, :len(x)] = x
+            batch["src_text"] = torch.from_numpy(text)
         return batch

@@ -46,10 +46,12 @@ def decode_loop(model: S2STTransformer, gen_cfg: GenerationConfig,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            torch.Tensor, int]:
-    """The AR loop (JAX ``_decode_loop``, speech_generator.py:53).
-    Returns (feats (B, T, out_dim) fp32, eos_prob (B, T), attn (B, T, Ts),
-    out_lens (B,), steps run); frames at and after max(out_lens) are 0."""
-    cfg = model.cfg
+    """The AR loop (JAX ``_decode_loop``, speech_generator.py:53) of the
+    model's spectrogram decoder (the S2ST or the T2S model's) over any
+    encoder output. Returns (feats (B, T, out_dim) fp32, eos_prob (B, T),
+    attn (B, T, Ts), out_lens (B,), steps run); frames at and after
+    max(out_lens) are 0."""
+    cfg = model.decoder.cfg
     dec = model.decoder
     enc_out = enc["encoder_out"]
     b, ts = enc_out.shape[:2]
@@ -130,7 +132,7 @@ def postprocess(model: S2STTransformer, feats: torch.Tensor,
                 gcmvn_mean=None, gcmvn_std=None) -> Dict[str, torch.Tensor]:
     """Postnet residual over the whole sequence, unpack the frames,
     GCMVN-denormalise (speech_generator.py:195-218)."""
-    cfg = model.cfg
+    cfg = model.decoder.cfg
     feats = feats + model.decoder.postnet(feats.to(cfg.dtype)).float()
     b = feats.shape[0]
     r = cfg.n_frames_per_step

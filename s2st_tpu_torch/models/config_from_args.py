@@ -6,8 +6,14 @@ and defaults (:222-303, :484-488, the HuBERT frontend's :70-75),
 which lets the checkpoint's own flag echo (``__meta__["args"]``) override
 the command line for every architectural key and ``--model-overrides``
 override both, and ``build_model_config``
-(:2445-2509), and the S2T archs with their defaults (``S2T_ARCHS``,
-``apply_arch``) and config (``s2t_config``). ``model_config`` takes the
+(:2445-2509), and the archs the port builds with their defaults
+(``apply_arch``, the arch functions of options.py:700-1004) and configs:
+``s2st_transformer`` and ``s2st_transformer_mtl`` (``model_config``), the
+S2T archs (``S2T_ARCHS``, ``s2t_config``), ``t2s_transformer``
+(``t2s_config``), ``xm_transformer`` (``xm_config``) and
+``convtransformer[_espnet]`` (``convtransformer_config``); ``arch_family``
+names the model an arch builds, as JAX's ``build_model_and_loss``
+dispatches (tasks/s2s_translation.py:113-294). ``model_config`` takes the
 vocabulary sizes from the caller
 (the training CLI's dictionaries); ``build_model_config`` takes them, and
 the speaker count, from a checkpoint's array shapes, so that generation
@@ -70,6 +76,8 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--conv-kernel-sizes", default="5,5")
     p.add_argument("--conv-channels", type=int, default=1024)
     p.add_argument("--middle-layers", default="6")
+    p.add_argument("--middle-layers-decoder", default="",
+                   help="MTL: comma-separated decoder tap layers")
     p.add_argument("--prenet-layers", type=int, default=2)
     p.add_argument("--prenet-dim", type=int, default=256)
     p.add_argument("--prenet-dropout", type=float, default=0.5)
@@ -86,6 +94,11 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--st-decoder-layers", type=int, default=6)
     p.add_argument("--st-decoder-embed-dim", type=int, default=256)
     p.add_argument("--speaker-embed-dim", type=int, default=64)
+    # the T2S text encoder's knobs (options.py:265-269)
+    p.add_argument("--encoder-conv-layers", type=int, default=3)
+    p.add_argument("--encoder-conv-kernel-size", type=int, default=5)
+    p.add_argument("--encoder-dropout", type=float, default=0.5)
+    p.add_argument("--encoder-transformer-layers", type=int, default=6)
     p.add_argument("--activation-fn", default="relu")
     p.add_argument("--no-scale-embedding", action="store_true")
     p.add_argument("--ctc-weight", type=float, default=0.0)
@@ -113,22 +126,65 @@ S2T_ARCHS = {f"s2t_transformer{hub}{suffix}": (bool(hub), size)
              for suffix, size in _S2T_SIZES.items()}
 
 
+# the other archs' defaults (options.py:705-711, :938-953, :981-1004)
+_CONVTRANSFORMER = dict(
+    encoder_layers=6, encoder_embed_dim=512, encoder_ffn_embed_dim=2048,
+    encoder_attention_heads=8, decoder_layers=6, decoder_embed_dim=512,
+    decoder_ffn_embed_dim=2048, decoder_attention_heads=8, dropout=0.1,
+    attention_dropout=0.0, activation_dropout=0.0)
+# arch -> (the model it builds, its defaults). JAX's build_model_and_loss
+# matches ``t2s_transformer`` by prefix, so ``tts_transformer``, registered
+# beside it, builds the S2ST model (ROADMAP §3)
+ARCHS = {
+    "s2st_transformer": ("s2st", {}),
+    # the decoder tap at 3 unless --middle-layers-decoder names others
+    "s2st_transformer_mtl": ("s2st", {"middle_layers_decoder": "3"}),
+    "tts_transformer": ("s2st", {}),
+    "t2s_transformer": ("t2s", {}),
+    "xm_transformer": ("xm", dict(use_hubert=True, decoder_layers=12,
+                                  decoder_embed_dim=1024,
+                                  decoder_ffn_embed_dim=4096,
+                                  decoder_attention_heads=16,
+                                  activation_fn="gelu")),
+    "convtransformer": ("convtransformer", _CONVTRANSFORMER),
+    "convtransformer_espnet": ("convtransformer", {
+        **_CONVTRANSFORMER, "encoder_layers": 12,
+        "encoder_attention_heads": 4, "decoder_attention_heads": 4}),
+}
+
+
+def arch_family(args: argparse.Namespace) -> str:
+    """The model an arch builds: "s2st", "s2t", "t2s", "xm" or
+    "convtransformer"; an arch the port does not build raises."""
+    arch = getattr(args, "arch", "s2st_transformer")
+    if arch in S2T_ARCHS:
+        return "s2t"
+    if arch in ARCHS:
+        return ARCHS[arch][0]
+    raise NotImplementedError(f"arch {arch} is not ported")
+
+
 def apply_arch(args: argparse.Namespace, argv: List[str]
                ) -> argparse.Namespace:
-    """An S2T arch's defaults over the parsed flags, each flag given in
+    """An arch's defaults over the parsed flags, each flag given in
     ``argv`` kept (``_two_pass``, options.py:2293-2320)."""
-    if args.arch not in S2T_ARCHS:
-        return args
-    hubert, size = S2T_ARCHS[args.arch]
-    defaults = {"use_hubert": True} if hubert else {}
-    if size:
-        dim, heads, ffn, drop, enc, dec = size
-        defaults.update(encoder_embed_dim=dim, decoder_embed_dim=dim,
-                        encoder_ffn_embed_dim=ffn, decoder_ffn_embed_dim=ffn,
-                        encoder_attention_heads=heads,
-                        decoder_attention_heads=heads, dropout=drop)
-        defaults.update({k: v for k, v in (("encoder_layers", enc),
-                                           ("decoder_layers", dec)) if v})
+    if args.arch in S2T_ARCHS:
+        hubert, size = S2T_ARCHS[args.arch]
+        defaults = {"use_hubert": True} if hubert else {}
+        if size:
+            dim, heads, ffn, drop, enc, dec = size
+            defaults.update(encoder_embed_dim=dim, decoder_embed_dim=dim,
+                            encoder_ffn_embed_dim=ffn,
+                            decoder_ffn_embed_dim=ffn,
+                            encoder_attention_heads=heads,
+                            decoder_attention_heads=heads, dropout=drop)
+            defaults.update({k: v for k, v in (("encoder_layers", enc),
+                                               ("decoder_layers", dec))
+                             if v})
+    else:
+        defaults = dict(ARCHS.get(args.arch, ("", {}))[1])
+        if getattr(args, "middle_layers_decoder", ""):
+            defaults.pop("middle_layers_decoder", None)
     explicit = {a[2:].split("=")[0].replace("-", "_")
                 for a in argv if a.startswith("--")}
     for key, value in defaults.items():
@@ -137,8 +193,9 @@ def apply_arch(args: argparse.Namespace, argv: List[str]
     return args
 
 
-def is_s2t(args: argparse.Namespace) -> bool:
-    return getattr(args, "arch", "s2st_transformer") in S2T_ARCHS
+def is_t2s(args: argparse.Namespace) -> bool:
+    """The arch builds the T2S model (JAX's generate_waveform, :105)."""
+    return ARCHS.get(getattr(args, "arch", ""), ("",))[0] == "t2s"
 
 
 def add_model_overrides_arg(p: argparse.ArgumentParser) -> None:
@@ -195,10 +252,11 @@ def num_speakers(args: argparse.Namespace) -> int:
 
 def build_model_config(args: argparse.Namespace, variables: Dict[str, Any],
                        input_feat_per_channel: int,
-                       speakers: Optional[int] = None) -> S2STConfig:
+                       speakers: Optional[int] = None):
     """The config of a checkpoint's model: vocabularies from its array
     shapes, the rest from ``args``; the speaker count is ``speakers``
-    where given, else the checkpoint's."""
+    where given, else the checkpoint's. A T2S checkpoint (its echo's arch)
+    gives a ``T2SConfig``, others an ``S2STConfig``."""
     params = variables["params"]
 
     def rows(*path, axis=0, default=0):
@@ -210,13 +268,89 @@ def build_model_config(args: argparse.Namespace, variables: Dict[str, Any],
         return int(node.shape[axis])
 
     src_vocab = rows("aux_asr_decoder", "embed", "w") \
+        or rows("encoder", "embed_tokens", "w") \
         or rows("decoder", "ctc_proj", "w", axis=1, default=100)
     tgt_vocab = rows("aux_st_decoder", "embed", "w") \
         or rows("decoder", "ctc_proj_tgt", "w", axis=1, default=100)
     if speakers is None:
         speakers = rows("encoder", "embed_speaker", "w")
-    return model_config(args, src_vocab, tgt_vocab, input_feat_per_channel,
-                        num_speakers=speakers)
+    build = t2s_config if is_t2s(args) else model_config
+    return build(args, src_vocab, tgt_vocab, input_feat_per_channel,
+                 num_speakers=speakers)
+
+
+def _base_config(args: argparse.Namespace, *sizes, **kw) -> S2STConfig:
+    """``model_config`` of the flags as the S2ST arch reads them: the base
+    config of the other families (JAX's ``task.build_model_config``)."""
+    return model_config(argparse.Namespace(**{**vars(args),
+                                              "arch": "s2st_transformer"}),
+                        *sizes, **kw)
+
+
+def _text_vocab(args, src_vocab_size: int, tgt_vocab_size: int) -> int:
+    """A text decoder's vocabulary: the source dictionary's for
+    ``--test-type asr``, the target's for ``st``."""
+    return src_vocab_size if getattr(args, "test_type", "st") == "asr" \
+        else tgt_vocab_size
+
+
+def t2s_config(args: argparse.Namespace, src_vocab_size: int,
+               tgt_vocab_size: int, input_feat_per_channel: int,
+               num_speakers: int = 0):
+    """The T2S model's config (tasks/s2s_translation.py:123-131)."""
+    from .t2s_transformer import T2SConfig
+    return T2SConfig(
+        base=_base_config(args, src_vocab_size, tgt_vocab_size,
+                          input_feat_per_channel, num_speakers),
+        encoder_conv_layers=args.encoder_conv_layers,
+        encoder_conv_kernel_size=args.encoder_conv_kernel_size,
+        encoder_dropout=args.encoder_dropout,
+        encoder_transformer_layers=args.encoder_transformer_layers)
+
+
+def xm_config(args: argparse.Namespace, src_vocab_size: int,
+              tgt_vocab_size: int, input_feat_per_channel: int,
+              num_speakers: int = 0):
+    """The xm_transformer's config (tasks/s2s_translation.py:204-234): the
+    trunk of the four HuBERT width flags in the compute dtype, the
+    adaptor's defaults (JAX has no flags for them), the decoder of the
+    flags with at most 1024 positions."""
+    from .hubert import HubertConfig
+    from .xm_transformer import XMConfig
+    dtype = _dtype(args)
+    return XMConfig(
+        trunk=HubertConfig(encoder_embed_dim=args.hubert_hidden,
+                           encoder_layers=args.hubert_layers,
+                           encoder_ffn_embed_dim=args.hubert_ffn,
+                           encoder_attention_heads=args.hubert_heads,
+                           dtype=dtype),
+        vocab_size=_text_vocab(args, src_vocab_size, tgt_vocab_size),
+        decoder_layers=args.decoder_layers,
+        decoder_embed_dim=args.decoder_embed_dim,
+        decoder_ffn_embed_dim=args.decoder_ffn_embed_dim,
+        decoder_attention_heads=args.decoder_attention_heads,
+        adaptor_n_layers=getattr(args, "adaptor_n_layers", 3),
+        adaptor_kernel_size=getattr(args, "adaptor_kernel_size", 3),
+        adaptor_stride=getattr(args, "adaptor_stride", 2),
+        adaptor_layernorm=getattr(args, "adaptor_layernorm", False),
+        dropout=args.dropout, attention_dropout=args.attention_dropout,
+        activation_dropout=args.activation_dropout,
+        max_target_positions=min(args.max_target_positions, 1024),
+        dtype=dtype)
+
+
+def convtransformer_config(args: argparse.Namespace, src_vocab_size: int,
+                           tgt_vocab_size: int, input_feat_per_channel: int,
+                           num_speakers: int = 0):
+    """The ConvTransformer's config (tasks/s2s_translation.py:264-277)."""
+    from .convtransformer import ConvTransformerConfig
+    return ConvTransformerConfig(
+        base=_base_config(args, src_vocab_size, tgt_vocab_size,
+                          input_feat_per_channel, num_speakers),
+        conv_out_channels=getattr(args, "conv_out_channels", 256),
+        decoder_layers=args.decoder_layers,
+        decoder_embed_dim=args.decoder_embed_dim,
+        vocab_size=_text_vocab(args, src_vocab_size, tgt_vocab_size))
 
 
 def s2t_config(args: argparse.Namespace, src_vocab_size: int,
@@ -226,20 +360,20 @@ def s2t_config(args: argparse.Namespace, src_vocab_size: int,
     config of the flags, the decoder's depth and width, and the source
     vocabulary for ``--test-type asr``, the target's for ``st``."""
     from .s2t_transformer import S2TConfig
-    base = model_config(argparse.Namespace(**{**vars(args),
-                                              "arch": "s2st_transformer"}),
-                        src_vocab_size, tgt_vocab_size,
+    base = _base_config(args, src_vocab_size, tgt_vocab_size,
                         input_feat_per_channel, num_speakers)
     return S2TConfig(base=base, decoder_layers=args.decoder_layers,
                      decoder_embed_dim=args.decoder_embed_dim,
-                     vocab_size=src_vocab_size if args.test_type == "asr"
-                     else tgt_vocab_size)
+                     vocab_size=_text_vocab(args, src_vocab_size,
+                                            tgt_vocab_size))
 
 
 def model_config(args: argparse.Namespace, src_vocab_size: int,
                  tgt_vocab_size: int, input_feat_per_channel: int,
                  num_speakers: int = 0) -> S2STConfig:
-    if getattr(args, "arch", "s2st_transformer") != "s2st_transformer":
+    """The S2ST model's config of the flags (``build_model_config``,
+    options.py:2445-2509); an arch that builds another model raises."""
+    if arch_family(args) != "s2st":
         raise NotImplementedError(f"arch {args.arch} is not ported")
     return S2STConfig(
         src_vocab_size=src_vocab_size,
@@ -271,6 +405,8 @@ def model_config(args: argparse.Namespace, src_vocab_size: int,
         aux_asr=args.asr_ce_weight > 0.0,
         aux_st=args.st_ce_weight > 0.0,
         ctc_tgt=getattr(args, "ctc_weight_tgt", 0.0) > 0.0,
+        middle_layers_decoder=_ints(getattr(args, "middle_layers_decoder",
+                                            "")),
         asr_decoder_layers=args.asr_decoder_layers,
         asr_decoder_embed_dim=args.asr_decoder_embed_dim,
         st_decoder_layers=args.st_decoder_layers,
@@ -291,5 +427,10 @@ def model_config(args: argparse.Namespace, src_vocab_size: int,
         hubert_layers=getattr(args, "hubert_layers", 12),
         hubert_ffn=getattr(args, "hubert_ffn", 3072),
         hubert_heads=getattr(args, "hubert_heads", 12),
-        dtype=torch.bfloat16 if (args.fp16 or args.bf16) else torch.float32,
+        dtype=_dtype(args),
     )
+
+
+def _dtype(args: argparse.Namespace) -> torch.dtype:
+    """The compute dtype: bf16 under ``--fp16`` or ``--bf16``."""
+    return torch.bfloat16 if (args.fp16 or args.bf16) else torch.float32

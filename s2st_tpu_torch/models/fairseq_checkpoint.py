@@ -7,7 +7,10 @@ config of such records into dicts and lists.
 
 The S2ST model's modules carry fairseq's ``state_dict`` names, the names
 ``s2st_tpu/models/torch_import.py::to_fairseq_state_dict`` (:599) writes,
-so a fairseq S2ST checkpoint loads into the model without a map. As JAX's
+so a fairseq S2ST checkpoint loads into the model without a map, the MTL
+variant's ``decoder.ctc_proj_tgt`` (:151-152) with it; so do the T2S
+model's (``t2s_from_fairseq``, JAX's ``t2s_from_fairseq_state_dict``,
+:242-277), whose BatchNorm counts are 0 where the file has none. As JAX's
 ``load_fairseq_checkpoint`` and ``from_fairseq_state_dict`` (:174-218) do,
 ``s2st_state_dict`` takes ``state["model"]`` (or the dict itself) as fp32
 and drops ``hubert.*``; ``s2st_from_fairseq`` loads the rest into the
@@ -125,7 +128,8 @@ def s2st_config(sd: Dict[str, torch.Tensor], args: argparse.Namespace,
                         num_speakers=speakers).replace(
         aux_asr="aux_asr_decoder.embed_tokens.weight" in sd,
         aux_st="aux_st_decoder.embed_tokens.weight" in sd,
-        ctc="decoder.ctc_proj.weight" in sd)
+        ctc="decoder.ctc_proj.weight" in sd,
+        ctc_tgt="decoder.ctc_proj_tgt.weight" in sd)
 
 
 def s2st_from_fairseq(cfg, sd: Dict[str, torch.Tensor]):
@@ -137,6 +141,24 @@ def s2st_from_fairseq(cfg, sd: Dict[str, torch.Tensor]):
         model.encoder.hubert.carry_pretraining(
             {k[len(pre):]: tuple(v.shape) for k, v in sd.items()
              if k.startswith(pre)})
+    return _load(model, sd)
+
+
+def t2s_from_fairseq(cfg, sd: Dict[str, torch.Tensor]):
+    """A T2S model of ``cfg`` (a ``T2SConfig``) holding the fork's
+    ``t2s_transformer`` entries ``sd``; a BatchNorm without
+    ``num_batches_tracked`` counts 0."""
+    from .t2s_transformer import T2STransformer
+    model = T2STransformer(cfg)
+    counts = {k: torch.zeros((), dtype=torch.long)
+              for k in model.state_dict()
+              if k.endswith("num_batches_tracked") and k not in sd}
+    return _load(model, {**sd, **counts})
+
+
+def _load(model, sd: Dict[str, torch.Tensor]):
+    """``model`` with the entries of ``sd`` loaded strictly; a missing
+    entry raises, one the model has no place for is logged."""
     own = model.state_dict()
     missing = [k for k in own if k not in sd]
     if missing:
@@ -152,4 +174,5 @@ def s2st_from_fairseq(cfg, sd: Dict[str, torch.Tensor]):
 
 
 __all__ = ["read_torch_checkpoint", "plain", "is_torch_checkpoint",
-           "s2st_state_dict", "s2st_config", "s2st_from_fairseq"]
+           "s2st_state_dict", "s2st_config", "s2st_from_fairseq",
+           "t2s_from_fairseq"]

@@ -39,7 +39,17 @@ subtree:
   mask_emb / final_proj / label_embs_concat         hubert::mask_emb / final_proj / label_embs
 
 with (T) a transposed (out, in) weight and layer and group norms'
-weight/bias as scale/bias.
+weight/bias as scale/bias. The xm_transformer's trunk
+(``encoder.w2v_model``) maps the same way to JAX's ``params::w2v``, its
+adaptor (``encoder.adaptor.layers.i`` / ``layernorms.i``) to
+``params::adaptor::conv<i>`` / ``ln<i>``; the T2S text encoder's
+``encoder.prenet.i.0`` / ``.1`` (conv, BatchNorm) to ``encoder::conv<i>`` /
+``bn<i>``, whose running statistics live under ``stats::encoder``,
+``encoder.embed_tokens`` to ``encoder::embed_tokens`` (the model's
+``jax_rules``) and ``encoder.spk_emb_proj`` to ``encoder::spk_proj``; the
+ConvTransformer's ``encoder.conv.0`` / ``.2`` (Conv2d, (out, in, KH, KW)
+<-> (KH, KW, in, out)) to ``encoder::conv1`` / ``conv2``; and a
+``layernorm_embedding`` to ``embed_ln``.
 
 - ``state_dict_from_jax`` / ``load_jax_variables``: JAX tree (numpy) ->
   port ``state_dict``, loaded with ``strict=True``.
@@ -60,19 +70,44 @@ from torch import nn
 
 SEP = "::"
 
-# torch module name -> JAX module path, first match wins
+
+
+def _frontend_rules(module: str, tree: str) -> list:
+    """A HuBERT trunk's rules: fairseq ``HubertModel`` names under the
+    torch module ``module`` -> JAX's subtree ``tree``."""
+    m = re.escape(module)
+    return [
+        (rf"^{m}\.feature_extractor\.conv_layers\.0\.2$",
+         rf"{tree}::extractor::gn0"),
+        (rf"^{m}\.feature_extractor\.conv_layers\.(\d+)\.0$",
+         rf"{tree}::extractor::conv\1"),
+        (rf"^{m}\.layer_norm$", rf"{tree}::feat_ln"),
+        (rf"^{m}\.post_extract_proj$", rf"{tree}::post_proj"),
+        (rf"^{m}\.encoder\.pos_conv\.0$", rf"{tree}::pos_conv"),
+        (rf"^{m}\.encoder\.layer_norm$", rf"{tree}::enc_ln"),
+        (rf"^{m}\.encoder\.layers\.(\d+)(\.|$)", rf"{tree}::layer\1\2"),
+        (rf"^{m}(\.|$)", rf"{tree}\1"),
+    ]
+
+
+# torch module name -> JAX module path, first match wins (a model's own
+# ``jax_rules`` come before these)
 _MODULE_RULES = [
-    # the HuBERT frontend (fairseq HubertModel names under encoder.hubert)
-    (r"^encoder\.hubert\.feature_extractor\.conv_layers\.0\.2$",
-     r"hubert::extractor::gn0"),
-    (r"^encoder\.hubert\.feature_extractor\.conv_layers\.(\d+)\.0$",
-     r"hubert::extractor::conv\1"),
-    (r"^encoder\.hubert\.layer_norm$", r"hubert::feat_ln"),
-    (r"^encoder\.hubert\.post_extract_proj$", r"hubert::post_proj"),
-    (r"^encoder\.hubert\.encoder\.pos_conv\.0$", r"hubert::pos_conv"),
-    (r"^encoder\.hubert\.encoder\.layer_norm$", r"hubert::enc_ln"),
-    (r"^encoder\.hubert\.encoder\.layers\.(\d+)(\.|$)", r"hubert::layer\1\2"),
-    (r"^encoder\.hubert(\.|$)", r"hubert\1"),
+    # the HuBERT frontend of the S2ST and S2T models (encoder.hubert) and
+    # the xm_transformer's trunk (encoder.w2v_model; JAX's params::w2v)
+    *_frontend_rules("encoder.hubert", "hubert"),
+    *_frontend_rules("encoder.w2v_model", "w2v"),
+    # the xm_transformer's Conv1dAdaptor (JAX's params::adaptor)
+    (r"^encoder\.adaptor\.layers\.(\d+)$", r"adaptor::conv\1"),
+    (r"^encoder\.adaptor\.layernorms\.(\d+)$", r"adaptor::ln\1"),
+    # the T2S text encoder's conv prenet (conv, BatchNorm) blocks
+    (r"^encoder\.prenet\.(\d+)\.0$", r"encoder::conv\1"),
+    (r"^encoder\.prenet\.(\d+)\.1$", r"encoder::bn\1"),
+    (r"^encoder\.spk_emb_proj$", r"encoder::spk_proj"),
+    # the ConvTransformer's two Conv2d (encoder.conv = conv, ReLU, conv,
+    # ReLU)
+    (r"^encoder\.conv\.0$", r"encoder::conv1"),
+    (r"^encoder\.conv\.2$", r"encoder::conv2"),
     # LightConv (fairseq LightConvEncoderLayer / LightConvDecoderLayer)
     (r"^(encoder|decoder)\.layers\.(\d+)\.layer_norms\.0$", r"\1::layer\2::conv_ln"),
     (r"^(encoder|decoder)\.layers\.(\d+)\.layer_norms\.1$", r"\1::layer\2::final_ln"),
@@ -88,6 +123,7 @@ _MODULE_RULES = [
     (r"^decoder\.postnet\.convolutions\.(\d+)\.0$", r"decoder::postnet::conv\1"),
     (r"^decoder\.postnet\.convolutions\.(\d+)\.1$", r"decoder::postnet::bn\1"),
     (r"^(\w+)\.layer_norm$", r"\1::final_ln"),
+    (r"^(\w+)\.layernorm_embedding$", r"\1::embed_ln"),
     (r"^(\w+)\.embed_tokens$", r"\1::embed"),
     (r"^(\w+)\.output_projection$", r"\1::out_proj"),
 ]
@@ -103,9 +139,9 @@ _BN_STATS = {"running_mean": "mean", "running_var": "var",
              "num_batches_tracked": "count"}
 
 
-def _jax_module_path(name: str) -> str:
+def _jax_module_path(name: str, rules=()) -> str:
     name = ".".join(_LAYER_PARTS.get(p, p) for p in name.split("."))
-    for pat, rep in _MODULE_RULES:
+    for pat, rep in [*rules, *_MODULE_RULES]:
         if re.search(pat, name):
             name = re.sub(pat, rep, name)
             break
@@ -115,17 +151,20 @@ def _jax_module_path(name: str) -> str:
 def jax_layout(model: nn.Module) -> List[Tuple[str, str, str]]:
     """(state_dict name, JAX flat key, kind) for every entry of the
     model's ``state_dict``. kind: "linear" (weight transposed), "conv"
-    ((out, in, K) <-> (K, in, out)), "heads_k" ((H, 1, K) <-> (H, K)),
-    "count" (int32 in JAX) or "same". A module may name its own entries'
-    leaves in a ``jax_names`` table {entry: (leaf path, kind)}."""
+    ((out, in, K) <-> (K, in, out)), "conv2d" ((out, in, KH, KW) <->
+    (KH, KW, in, out)), "heads_k" ((H, 1, K) <-> (H, K)), "count" (int32
+    in JAX) or "same". A module may name its own entries' leaves in a
+    ``jax_names`` table {entry: (leaf path, kind)}, and a model its own
+    module rules, tried before the shared ones, in ``jax_rules``."""
     table = []
+    rules = getattr(model, "jax_rules", ())
     for mod_name, mod in model.named_modules():
         entries = list(mod.named_parameters(recurse=False)) + [
             (n, b) for n, b in mod.named_buffers(recurse=False)
             if n not in mod._non_persistent_buffers_set]
         if not entries:
             continue
-        path = _jax_module_path(mod_name)
+        path = _jax_module_path(mod_name, rules)
         for pname, _ in entries:
             full = f"{mod_name}.{pname}" if mod_name else pname
             kind = "same"
@@ -137,9 +176,10 @@ def jax_layout(model: nn.Module) -> List[Tuple[str, str, str]]:
             if isinstance(mod, nn.Linear):
                 leaf = {"weight": "w", "bias": "b"}[pname]
                 kind = "linear" if pname == "weight" else "same"
-            elif isinstance(mod, nn.Conv1d):
+            elif isinstance(mod, (nn.Conv1d, nn.Conv2d)):
                 leaf = {"weight": "w", "bias": "b"}[pname]
-                kind = "conv" if pname == "weight" else "same"
+                kind = "same" if pname != "weight" else \
+                    "conv" if isinstance(mod, nn.Conv1d) else "conv2d"
             elif isinstance(mod, nn.Embedding):
                 leaf = "w"
             elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm,
@@ -147,10 +187,11 @@ def jax_layout(model: nn.Module) -> List[Tuple[str, str, str]]:
                     pname in ("weight", "bias"):
                 leaf = {"weight": "scale", "bias": "bias"}[pname]
             elif isinstance(mod, nn.BatchNorm1d):
-                # running stats live in the JAX "stats" tree
-                # (decoder::postnet::bnI -> stats::postnet::bnI)
-                bn = path.split(SEP)[-1]
-                table.append((full, SEP.join(["stats", "postnet", bn,
+                # running stats live in the JAX "stats" tree under the
+                # module that holds the norm (decoder::postnet::bnI ->
+                # stats::postnet::bnI, encoder::bnI -> stats::encoder::bnI)
+                group, bn = path.split(SEP)[-2:]
+                table.append((full, SEP.join(["stats", group, bn,
                                               _BN_STATS[pname]]),
                               "count" if pname == "num_batches_tracked"
                               else "same"))
@@ -167,6 +208,8 @@ def _to_torch(arr: np.ndarray, kind: str) -> torch.Tensor:
         arr = arr.T
     elif kind == "conv":
         arr = np.transpose(arr, (2, 1, 0))
+    elif kind == "conv2d":
+        arr = np.transpose(arr, (3, 2, 0, 1))
     elif kind == "heads_k":
         arr = arr[:, None, :]
     return torch.from_numpy(np.array(arr, order="C"))
@@ -179,6 +222,8 @@ def _to_jax(t: torch.Tensor, kind: str) -> np.ndarray:
         arr = arr.T
     elif kind == "conv":
         arr = np.transpose(arr, (2, 1, 0))
+    elif kind == "conv2d":
+        arr = np.transpose(arr, (2, 3, 1, 0))
     elif kind == "heads_k":
         arr = arr[:, 0, :]
     elif kind == "count":

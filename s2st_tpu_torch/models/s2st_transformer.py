@@ -70,6 +70,7 @@ class S2STConfig:
     aux_asr: bool = False
     aux_st: bool = False
     ctc_tgt: bool = False
+    middle_layers_decoder: Tuple[int, ...] = ()
     asr_decoder_layers: int = 6
     asr_decoder_embed_dim: int = 256
     st_decoder_layers: int = 6
@@ -276,7 +277,9 @@ class SpectrogramDecoder(nn.Module):
         too (JAX's rng and ``deterministic = not train``); ``train`` puts
         the postnet on batch statistics. Returns
         feat_out, post_feat_out (B, Tt, out_dim), eos_out (B, Tt, 1), attn
-        (B, Tt, Ts), the last layer's head-averaged cross-attention, and,
+        (B, Tt, Ts), the last layer's head-averaged cross-attention,
+        out_middle_layers_decoder, the outputs of the layers
+        ``middle_layers_decoder`` names (the MTL taps, :538, :557), and,
         with ``train``, new_stats {"postnet": the postnet's running
         stats}."""
         cfg = self.cfg
@@ -303,14 +306,18 @@ class SpectrogramDecoder(nn.Module):
         enc = encoder_out["encoder_out"]
         enc_pad = encoder_out["encoder_padding_mask"]
         attn = None
+        taps: List[torch.Tensor] = []
         last = len(self.transformer_layers) - 1
         for i, layer in enumerate(self.transformer_layers):
             x, w = layer(x, enc, enc_pad, self_pad, need_attn=(i == last),
                          generator=drop)
             if w is not None:
                 attn = w.mean(dim=1)
+            if i in cfg.middle_layers_decoder:
+                taps.append(x)
         feat_out, eos_out = self.heads(x)
-        out = {"feat_out": feat_out, "eos_out": eos_out, "attn": attn}
+        out = {"feat_out": feat_out, "eos_out": eos_out, "attn": attn,
+               "out_middle_layers_decoder": taps}
         if train:
             post, stats = self.postnet.train_forward(
                 feat_out, cfg.postnet_dropout, drop)
@@ -400,14 +407,13 @@ class S2STTransformer(nn.Module):
         """Teacher-forced forward over a collated batch (:632-687): the
         spectrogram decoder's outputs, the encoder's padding mask and
         lengths, ``new_stats`` (with ``train``), and ``ctc_logits``,
-        ``asr_logits`` and ``st_logits`` where the config has those heads
-        and the batch their inputs. A generator turns on the prenet's
-        dropout, and with ``train`` every other dropout site and the
-        encoder's LayerDrop, whose decisions the caller gives in
+        ``ctc_tgt_logits`` (the MTL target CTC over the first decoder tap,
+        :668-671), ``asr_logits`` and ``st_logits`` where the config has
+        those heads and the batch their inputs. A generator turns on the
+        prenet's dropout, and with ``train`` every other dropout site and
+        the encoder's LayerDrop, whose decisions the caller gives in
         ``layer_keep`` (``encoder_layer_keep``)."""
         cfg = self.cfg
-        if cfg.ctc_tgt:
-            raise NotImplementedError("the MTL target-side CTC is not ported")
         speaker = batch.get("speaker")
         drop = generator if train else None
         if drop is None:
@@ -418,6 +424,7 @@ class S2STTransformer(nn.Module):
                            batch["target_lengths"], enc, speaker, generator,
                            train)
         out = dict(dec)
+        dec_taps = out.pop("out_middle_layers_decoder")
         out["encoder_padding_mask"] = enc["encoder_padding_mask"]
         out["encoder_out_lengths"] = enc["out_lengths"]
         taps = enc["out_middle_layers"]
@@ -425,6 +432,10 @@ class S2STTransformer(nn.Module):
         if cfg.ctc and taps:     # ctc_logits (:622) over tap 0
             proj = self.decoder.ctc_proj
             out["ctc_logits"] = linear(taps[0], proj.weight, proj.bias)
+        if cfg.ctc_tgt and dec_taps:
+            proj = self.decoder.ctc_proj_tgt
+            out["ctc_tgt_logits"] = linear(dec_taps[0], proj.weight,
+                                           proj.bias)
         if cfg.aux_asr and "prev_src_text_tokens" in batch:
             out["asr_logits"] = self.aux_asr_decoder(
                 batch["prev_src_text_tokens"], taps[0], pad, drop)
@@ -433,6 +444,11 @@ class S2STTransformer(nn.Module):
                 batch["prev_tgt_text_tokens"], taps[1 if len(taps) > 1 else 0],
                 pad, drop)
         return out
+
+    def load_stats(self, new_stats: Dict[str, Any]) -> None:
+        """Write a training forward's running statistics into the
+        buffers."""
+        self.decoder.postnet.load_stats(new_stats["postnet"])
 
     def init_weights(self, seed: int) -> "S2STTransformer":
         """Seeded random init with the JAX package's distributions
@@ -445,7 +461,8 @@ class S2STTransformer(nn.Module):
 
 
 @torch.no_grad()
-def seeded_init(model: nn.Module, g: torch.Generator, encoder: S2STEncoder,
+def seeded_init(model: nn.Module, g: torch.Generator,
+                encoder: Optional[S2STEncoder] = None,
                 postnet: Optional[Postnet] = None) -> None:
     """Draw ``model``'s weights from ``g`` with the JAX package's
     distributions: torch-default uniform linears, xavier attention
@@ -482,7 +499,8 @@ def seeded_init(model: nn.Module, g: torch.Generator, encoder: S2STEncoder,
         elif isinstance(mod, AuxTextDecoder):
             w = mod.output_projection.weight
             w.copy_(torch.randn(w.shape, generator=g) * w.shape[1] ** -0.5)
-    convs = [(c, math.sqrt(2.0)) for c in encoder.subsample.conv_layers]
+    convs = [(c, math.sqrt(2.0)) for c in encoder.subsample.conv_layers] \
+        if encoder is not None else []
     if postnet is not None:
         post = postnet.convolutions
         convs += [(blk[0], 5.0 / 3.0 if i < len(post) - 1 else 1.0)
@@ -491,7 +509,7 @@ def seeded_init(model: nn.Module, g: torch.Generator, encoder: S2STEncoder,
         cout, cin, k = conv.weight.shape
         xavier(conv.weight, cin * k, cout * k, gain)
         uniform(conv.bias, 1.0 / math.sqrt(cin * k))
-    if encoder.hubert is not None:
+    if encoder is not None and encoder.hubert is not None:
         encoder.hubert.init_weights(g)
 
 
@@ -512,7 +530,7 @@ def encoder_layer_keep(cfg: S2STConfig, generator: torch.Generator
     """LayerDrop's decisions for one microbatch: layer i is kept when a
     uniform draw is at least ``encoder_layerdrop`` (never at 1.0, always at
     0.0); None when LayerDrop is off."""
-    if cfg.encoder_layerdrop <= 0.0:
+    if getattr(cfg, "encoder_layerdrop", 0.0) <= 0.0:
         return None
     draws = torch.rand(cfg.encoder_layers, generator=generator,
                        device=generator.device)
@@ -525,8 +543,8 @@ def cast_for_inference(model: S2STTransformer, dtype) -> S2STTransformer:
     decode loop pre-casts, generate/speech_generator.py:66-77). The HuBERT
     frontend keeps its fp32 weights: JAX computes it in fp32 past its
     GroupNorm (``models/hubert.py``)."""
-    frontend = set(model.encoder.hubert.modules()) \
-        if model.encoder.hubert is not None else set()
+    hubert = getattr(model.encoder, "hubert", None)
+    frontend = set(hubert.modules()) if hubert is not None else set()
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Embedding)) \
                 and mod not in frontend:

@@ -26,10 +26,13 @@ import torch
 
 from ..data.data_cfg import S2STDataConfig
 from ..data.dictionary import Dictionary
-from ..models.config_from_args import is_s2t, model_config, s2t_config
+from ..models import config_from_args as ca
+from ..models.convtransformer import ConvTransformer
 from ..models.s2st_transformer import S2STTransformer
 from ..models.s2t_transformer import S2TTransformer
-from ..train.losses import s2st_loss, s2t_loss
+from ..models.t2s_transformer import T2STransformer
+from ..models.xm_transformer import XMTransformer
+from ..train.losses import s2st_loss, s2t_loss, t2s_loss
 from ..generate.speech_generator import GenerationConfig, generate_features
 from ..ops.dsp import griffin_lim, logmel_to_linear, make_pinv_mel_basis
 from ..ops.mcd import batch_mcd
@@ -58,18 +61,26 @@ def build_model_and_loss(args, src_vocab_size: int, tgt_vocab_size: int,
                          input_feat_per_channel: int, num_speakers: int = 0
                          ) -> Tuple[Any, torch.nn.Module, Callable]:
     """arch -> (config, model with seeded weights, loss function)
-    (``build_model_and_loss``, :113-290): an S2T arch builds the S2T model
-    and binds ``s2t_loss`` for ``--test-type``, ``s2st_transformer`` the
-    S2ST model and ``s2st_loss``; ``--criterion`` does not choose, as in
-    JAX. Any other arch raises."""
-    if is_s2t(args):
-        cfg = s2t_config(args, src_vocab_size, tgt_vocab_size,
-                         input_feat_per_channel, num_speakers)
-        return cfg, S2TTransformer(cfg).init_weights(args.seed), \
-            functools.partial(s2t_loss, test_type=args.test_type)
-    cfg = model_config(args, src_vocab_size, tgt_vocab_size,
-                       input_feat_per_channel, num_speakers)
-    return cfg, S2STTransformer(cfg).init_weights(args.seed), s2st_loss
+    (``build_model_and_loss``, :113-290, dispatched as JAX dispatches,
+    ``config_from_args.arch_family``): ``t2s_transformer`` builds the T2S
+    model with ``t2s_loss``; an S2T arch, ``xm_transformer`` and
+    ``convtransformer[_espnet]`` their models with ``s2t_loss`` bound to
+    ``--test-type``; ``s2st_transformer`` and ``s2st_transformer_mtl`` the
+    S2ST model (the MTL taps and target CTC from the flags) with
+    ``s2st_loss``. ``--criterion`` does not choose, as in JAX. Any other
+    arch raises."""
+    text_loss = functools.partial(s2t_loss, test_type=args.test_type)
+    config_fn, model_cls, loss = {
+        "s2st": (ca.model_config, S2STTransformer, s2st_loss),
+        "t2s": (ca.t2s_config, T2STransformer, t2s_loss),
+        "s2t": (ca.s2t_config, S2TTransformer, text_loss),
+        "xm": (ca.xm_config, XMTransformer, text_loss),
+        "convtransformer": (ca.convtransformer_config, ConvTransformer,
+                            text_loss),
+    }[ca.arch_family(args)]
+    cfg = config_fn(args, src_vocab_size, tgt_vocab_size,
+                    input_feat_per_channel, num_speakers)
+    return cfg, model_cls(cfg).init_weights(args.seed), loss
 
 
 def gcmvn_stats(data_cfg: S2STDataConfig

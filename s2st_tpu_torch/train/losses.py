@@ -1,10 +1,13 @@
-"""The training losses: the composite S2ST loss and the S2T CE.
+"""The training losses: the composite S2ST loss, the T2S loss and the S2T
+CE.
 
-Counterpart of ``s2st_tpu/train/losses.py`` (:29-117, :183-283): L1 + MSE
+Counterpart of ``s2st_tpu/train/losses.py`` (:29-182, :183-283): L1 + MSE
 on the features before and after the postnet over valid frames, the EOS BCE
 with a positive-class weight, the guided-attention loss, CTC over encoder
-tap 0 and the label-smoothed CE of the aux ASR/ST decoders, each normalised
-as JAX does. Every term is an fp32 scalar; the loss is a mean, and
+tap 0, the MTL target CTC over the first decoder tap and the
+label-smoothed CE of the aux ASR/ST decoders, each normalised as JAX does;
+``t2s_loss`` is the spectrogram terms on the T2S model's forward. Every
+term is an fp32 scalar; the loss is a mean, and
 ``sample_size`` is the number of target frames (the trainer still divides
 the gradients by it, as JAX's does).
 
@@ -36,6 +39,7 @@ class LossConfig:
     guided_attention_loss_sigma: float = 0.4
     label_smoothing: float = 0.1
     ctc_weight: float = 0.0
+    ctc_weight_tgt: float = 0.0
     asr_ce_weight: float = 0.0
     st_ce_weight: float = 0.0
     l1_loss_weight: float = 1.0
@@ -188,6 +192,15 @@ def composite_loss(net: Dict[str, Any], lcfg: LossConfig,
         per_ex = per_ex / batch["src_text_len"].float().clamp(min=1.0)
         ctc = per_ex.mean() * lcfg.ctc_weight
 
+    ctc_tgt = zero
+    if lcfg.ctc_weight_tgt > 0.0 and "ctc_tgt_logits" in net:
+        # the MTL target CTC over the first decoder tap (:226-240): its
+        # logits' lengths are the target frame lengths
+        per_ex = ctc_loss(net["ctc_tgt_logits"], tgt_lens, batch["tgt_text"],
+                          batch["tgt_text_len"])
+        per_ex = per_ex / batch["tgt_text_len"].float().clamp(min=1.0)
+        ctc_tgt = per_ex.mean() * lcfg.ctc_weight_tgt
+
     logging: Dict[str, Any] = {}
     aux_asr = aux_st = zero
     if lcfg.asr_ce_weight > 0.0 and "asr_logits" in net:
@@ -203,13 +216,13 @@ def composite_loss(net: Dict[str, Any], lcfg: LossConfig,
     mse = mse * lcfg.mse_loss_weight
     eos = eos * lcfg.eos_loss_weight
     attn_loss = attn_loss * lcfg.attn_loss_weight
-    loss = l1 + mse + eos + attn_loss + ctc + aux_asr + aux_st
+    loss = l1 + mse + eos + attn_loss + ctc + ctc_tgt + aux_asr + aux_st
     ntokens = tgt_lens.sum()
     sample_size = torch.full_like(ntokens, b) if lcfg.sentence_avg \
         else ntokens
     logging.update({
         "loss": loss, "l1_loss": l1, "mse_loss": mse, "eos_loss": eos,
-        "attn_loss": attn_loss, "ctc_loss": ctc, "ctc_loss_tgt": zero,
+        "attn_loss": attn_loss, "ctc_loss": ctc, "ctc_loss_tgt": ctc_tgt,
         "aux_asr_loss": aux_asr, "aux_st_loss": aux_st,
         "ntokens": ntokens, "nsentences": b, "sample_size": sample_size,
     })
@@ -225,6 +238,19 @@ def s2st_loss(model, lcfg: LossConfig, batch: Dict[str, Any],
     """``s2st_loss`` (:101-114): the model's forward, then the composite
     loss. Dropout runs when a generator is given; ``layer_keep`` is the
     encoder's LayerDrop decision for each layer."""
+    net = model(batch, train=train, generator=generator,
+                layer_keep=layer_keep)
+    return composite_loss(net, lcfg, batch)
+
+
+def t2s_loss(model, lcfg: LossConfig, batch: Dict[str, Any],
+             train: bool = True,
+             generator: Optional[torch.Generator] = None,
+             layer_keep: Optional[Sequence[bool]] = None
+             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """``t2s_loss`` (:120-131): the T2S model's forward over ``src_text``,
+    then the composite loss, whose CTC and aux terms find no logits; the
+    new statistics are the text encoder's and the postnet's."""
     net = model(batch, train=train, generator=generator,
                 layer_keep=layer_keep)
     return composite_loss(net, lcfg, batch)

@@ -3,8 +3,10 @@
 Counterpart of ``s2st_tpu/train/trainer.py``: the fused step (:254-279)
 and, for ``--update-freq`` > 1, the microbatch path of ``train_step``
 (:499-535). Each microbatch's forward and backward run at the update's
-parameters; the gradients sum over the microbatches, and the postnet's
-running statistics pass from one microbatch to the next. Then one apply
+parameters; the gradients sum over the microbatches, and the running
+statistics of the model's BatchNorms (the postnet's, and the T2S text
+encoder's) pass from one microbatch to the next (the model's
+``load_stats``). Then one apply
 (``apply_grads``, :216-240): the summed gradients multiplied by
 ``1 / max(sample_size, 1)`` over the summed sample size (as JAX does,
 although the composite loss is already a mean); their global norm; the
@@ -12,15 +14,16 @@ clip factor ``min(1, clip / (gnorm + 1e-6))``; ``lr = schedule(step + 1)``;
 the optimizer's step (``train/optim.py``: Adam by default, or any of JAX's
 registry by name, with ``p -= lr * u``). A non-finite norm changes
 nothing: not the parameters, not the optimizer's state or count, not the
-step (JAX's ``jnp.where``). The postnet's statistics come from the
-microbatches either way, as in JAX. The logging values are summed over
+step (JAX's ``jnp.where``). The statistics come from the microbatches
+either way, as in JAX. The logging values are summed over
 the microbatches and the loss's means divided by their number; they reach
 the host in one transfer. ``lr_scale`` multiplies the schedule's rate (the
 plateau shrink, :231-232). ``valid_step`` (:537-543) is the loss of one
 batch in eval mode, without a gradient. The loss is ``s2st_loss`` unless
-``loss_fn`` names another of ``train/losses.py`` (``s2t_loss`` for the
-S2T model, whose ``new_stats`` are empty); the ``mean_keys`` it returns
-are the logging values averaged over microbatches.
+``loss_fn`` names another of ``train/losses.py`` (``t2s_loss`` for the T2S
+model, ``s2t_loss`` for the text-output models, whose ``new_stats`` are
+empty); the ``mean_keys`` it returns are the logging values averaged over
+microbatches.
 """
 
 from __future__ import annotations
@@ -88,9 +91,8 @@ class Trainer:
                 generator=generators[i] if generators else None,
                 layer_keep=layer_keeps[i] if layer_keeps else None)
             loss.backward()
-            if "postnet" in extras["new_stats"]:
-                self.model.decoder.postnet.load_stats(
-                    extras["new_stats"]["postnet"])
+            if extras["new_stats"]:
+                self.model.load_stats(extras["new_stats"])
             ss = extras["sample_size"]
             sample_size = ss if sample_size is None else sample_size + ss
             for k, v in extras["logging"].items():

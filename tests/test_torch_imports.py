@@ -78,7 +78,9 @@ def test_port_imports_neither_jax_nor_s2st_tpu():
                  "models.config_from_args", "data.manifest",
                  "data.data_cfg", "logging_utils", "utils.diagnostics",
                  "preprocessing.filter_manifest",
-                 "preprocessing.doc_tools"):
+                 "preprocessing.doc_tools", "models.t2s_transformer",
+                 "models.xm_transformer", "models.convtransformer",
+                 "models.transformer_text"):
         assert f"s2st_tpu_torch.{name}" in _walk_names(), name
     assert bad == "[]", bad
 
