@@ -74,7 +74,7 @@ library's SASS, and the attention libraries must hold some.
    replay, and torch.profiler's sum beside it) beside the plain versions',
    PyTorch's depthwise conv1d (lightconv's yardstick only) and the card's
    bound, and their sums over one batch's launches at the path's K.
-10. Serve text: write a binarized de-en test split (128 pairs, sources of
+10. Serve text: write a binarized de-en test split (64 pairs, sources of
    8-64 tokens, dictionaries of 8848 and 6632 types) and seeded random
    checkpoints of lightconv_iwslt_de_en at full width (7 + 6 layers,
    512-d, kernels 3..31, 4 heads, FFN 1024), then run the port's text
@@ -82,7 +82,7 @@ library's SASS, and the attention libraries must hold some.
    --max-len-b 10 --remove-bpe): (a) lightweight and (b) dynamic convs,
    where the used kernel launches exactly 7 times a batch and the other
    never; (c) and (d) the same with --score-reference, 13 a batch. Each
-   run prints 128 H- lines and a finite BLEU line.
+   run prints 64 H- lines and a finite BLEU line.
 11. Hold the card against the CPU on a small LightConv in fp32, both conv
    types: teacher-forced logits and the beam's hypotheses.
 12. Run one batch of 10(a) (encode, beam loop) under torch.profiler and
@@ -91,7 +91,7 @@ library's SASS, and the attention libraries must hold some.
 13. Train through the runtime (run after 8, with 6(a)'s flags plus
    --update-freq 2, --store-ema and --keep-last-epochs 2): time an update
    at --update-freq 1 and 2 in the recipe's batches (a corpus of 256
-   utterances that --max-tokens 60000 cuts into 4 batches of 56-72; three
+   utterances that --max-tokens 60000 cuts into 4 batches of 56-72; two
    epochs each, no saves) and profile one update of such a batch as in
    8; then, on 6(a)'s corpus in batches of 2 utterances, with
    deterministic algorithms on, (A) 3 epochs uninterrupted and (B) the
@@ -111,14 +111,14 @@ library's SASS, and the attention libraries must hold some.
    27 times an update; ms an update, then one update under torch.profiler:
    device ms, idle share, and the backward kernel's device ms and
    launches.
-14. Stages 10-11: write a corpus of 64 utterances (400-1000 80-d fbank
+14. Stages 10-11: write a corpus of 32 utterances (400-1000 80-d fbank
    frames, 20-40 phones, 8-20 words) and a seeded random checkpoint of
    the recipe's model at full width, then run the port's
    generate_for_s2st in bf16 with the recipe's lines (--max-tokens 50000
    --beam 5): (a) --scoring wer --wer-lowercase --wer-remove-punct, (b)
    --scoring sacrebleu, (c) --score-reference. The attention kernel
    launches exactly 12 times a batch in (a) and (b) (the encoder) and 14
-   in (c) (the aux ST decoder's two at D = 16); each run prints 64 finite
+   in (c) (the aux ST decoder's two at D = 16); each run prints 32 finite
    H- lines and its score line, sentences/s, encode ms and beam ms a step.
    The first kernel call of each distinct shape in the three runs (the
    encoder at each batch size, the D = 16 causal and cross calls of (c))
@@ -193,9 +193,9 @@ library's SASS, and the attention libraries must hold some.
    line), and the first kernel call of each distinct shape of its
    training and validation (bf16, D=16) is held against the plain
    version.
-19. Stages 1-7 from raw audio at recipe width: 64 seeded WAV pairs
-   (sources 2-12 s, targets 1.5-10 s, 16 kHz, two speakers; 48 train, 8
-   dev, 8 tst; target texts in Chinese characters, since the recipe's
+19. Stages 1-7 from raw audio at recipe width: 32 seeded WAV pairs
+   (sources 2-12 s, targets 1.5-10 s, 16 kHz, two speakers; 24 train, 4
+   dev, 4 tst; target texts in Chinese characters, since the recipe's
    stage 2 drops a target row with Latin letters) through
    recipes/run_baseline_torch.sh --stage 1 --stop-stage 2 and then
    --stage 3 (the chars g2p fallback: no phonemizer is installed; the
@@ -304,6 +304,22 @@ library's SASS, and the attention libraries must hold some.
    the trunk bit-unchanged with zero Adam moments; (d) convtransformer and
    convtransformer_espnet --test-type st. Prints each run's losses, ms an
    update, the third update's device ms and idle share, and peak memory.
+24. The task's last arch families at full width, --fp16, seeded weights,
+   3 updates each through the train CLI in this process, as 23: first the
+   packed biLSTM layer at Berard's first layer on phase 6's batch (B=8,
+   250 steps, 512 in, 256 a direction) on the card in fp32 and bf16
+   against the CPU's fp32 (atol 1e-4 and 5e-2) with its device ms; (a)
+   s2t_berard at JAX's defaults --test-type st on phase 6's corpus (no
+   attention kernel); (b) tacotron_2 at its defaults with guided attention
+   over phase 6's phone lines and target mels (no attention kernel), then
+   generate_features of its checkpoint (fp32, 40 steps) against its own
+   teacher-forced first step (atol 1e-5); (c) fastspeech2 at its defaults
+   on the same lines with seeded duration, pitch and energy columns: 8
+   forward and 8 backward attention launches an update (D=128), each
+   distinct call held; then generate_waveform from its checkpoint on the
+   tst split's text (--duration-factor 1.0 --min-duration 1): 8 launches
+   a batch, each call held, finite 80-d features of at least a frame a
+   token, PCM16 WAVs of their length.
 
 Prints the card's name and power limit, one JSON line of kernel
 measurements, and, last, {"ok": true, "device": {...}}.
@@ -918,13 +934,21 @@ def _profiled(fn, host_events: bool = True):
         out = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(_dev_us(e) for e in kern) / 1e3
-    launches = sum(e.count for e in kern)
-    top = sorted(kern, key=_dev_us, reverse=True)
-    return out, wall, busy, launches, [(e.key, _dev_us(e) / 1e3,
-                                        e.count) for e in top]
+    # the trace's device records summed by name, read from kineto's
+    # results: key_averages() first builds the profiler's Python event
+    # tree, which took most of the wall of the updates of 100,000 and more
+    # launches (phase 24's Tacotron2)
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and \
+                not e.is_user_annotation():
+            us, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    top = sorted(((name, us / 1e3, n) for name, (us, n) in by_name.items()),
+                 key=lambda rec: rec[1], reverse=True)
+    busy = sum(ms for _, ms, _ in top)
+    launches = sum(n for _, _, n in top)
+    return out, wall, busy, launches, top
 
 
 def profile_phase(card: str) -> None:
@@ -1616,8 +1640,8 @@ class Deterministic:
 
 def recipe_batch_timing(root: Path, card: str) -> dict:
     """Phase 13's timing: ms per update at --update-freq 1 and 2 in the
-    recipe's batches (RECIPE_BATCH_FRAMES), 3 epochs each without saves;
-    the mean over epochs 2 and 3, where each batch shape has run once.
+    recipe's batches (RECIPE_BATCH_FRAMES), 2 epochs each without saves;
+    the mean over epoch 2, where each batch shape has run once.
     Then one update of the first batch under torch.profiler (phase 8's
     readings at the recipe's batch)."""
     from s2st_tpu_torch.data.iterators import batch_by_size, ordered_indices
@@ -1632,20 +1656,20 @@ def recipe_batch_timing(root: Path, card: str) -> dict:
         save.mkdir()
         torch.cuda.reset_peak_memory_stats()
         run_counted(runtime_argv(data, save, "--update-freq", str(uf),
-                                 "--max-epoch", "3", "--no-save",
+                                 "--max-epoch", "2", "--no-save",
                                  small=False))
         log = [json.loads(line) for line in
                (save / "log.jsonl").read_text().splitlines()]
-        want = 3 * len(sizes) // uf
+        want = 2 * len(sizes) // uf
         if len(log) != want or not all(np.isfinite(r["loss"]) for r in log):
             raise AssertionError(f"update-freq {uf}: {len(log)} updates in "
-                                 f"3 epochs; want {want}, finite losses")
+                                 f"2 epochs; want {want}, finite losses")
         steady = [r["step_ms"] for r in log if r["epoch"] > 1]
         out[uf] = {"ms": sum(steady) / len(steady), "min_ms": min(steady),
                    "max_ms": max(steady), "first_ms": log[0]["step_ms"],
                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     print(f"train runtime: ms/update in the recipe's batches ({sizes} "
-          f"utterances, --max-tokens 60000), mean of epochs 2-3: "
+          f"utterances, --max-tokens 60000), mean of epoch 2: "
           + ", ".join(f"--update-freq {uf}: {out[uf]['ms']:.3f} (min "
                       f"{out[uf]['min_ms']:.3f}, max {out[uf]['max_ms']:.3f}"
                       f", first {out[uf]['first_ms']:.1f}; peak memory "
@@ -2062,14 +2086,14 @@ def conv_kernel_phase(card: str) -> dict:
 
 
 TEXT_SRC_TYPES, TEXT_TGT_TYPES = 8848, 6632   # IWSLT'14 de-en BPE dicts
-TEXT_PAIRS, TEXT_BATCH = 128, 64
+TEXT_PAIRS, TEXT_BATCH = 64, 64
 TEXT_GEN_FLAGS = ["--batch-size", str(TEXT_BATCH), "--beam", "5",
                   "--max-len-a", "1.2", "--max-len-b", "10", "--remove-bpe",
                   "--fp16"]
 
 
 def write_text_corpus(root: Path, seed: int) -> None:
-    """A binarized de-en test split written with the port's builder: 128
+    """A binarized de-en test split written with the port's builder: 64
     sentence pairs, source lengths of 8-64 tokens (EOS included), targets
     0.8-1.2 times as long, over dictionaries of 8848 and 6632 types (a
     quarter of them BPE pieces ending in "@@")."""
@@ -2307,11 +2331,10 @@ def text_profile_phase(card: str, runs: dict) -> None:
 # phases 14-15: aux-decoder text serving (stages 10-11) and validation
 # --------------------------------------------------------------------------
 
-# Phase 14's corpus: 64 utterances of 400-1000 source frames, which
-# --max-tokens 50000 (and --required-batch-size-multiple 8) cuts into
-# batches of about 48 and 16
+# Phase 14's corpus: 32 utterances of 400-1000 source frames, one batch
+# under --max-tokens 50000 (the first 16 are phase 20's)
 S2T_FRAMES = tuple(int(n) for n in
-                   np.random.RandomState(12).randint(400, 1001, 64))
+                   np.random.RandomState(12).randint(400, 1001, 32))
 # Phase 15's dev split: 16 utterances, one batch under --max-tokens 60000
 VALID_FRAMES = tuple(int(n) for n in
                      np.random.RandomState(13).randint(400, 1001, 16))
@@ -2371,7 +2394,7 @@ def run_s2t_cli(argv, card: str, label: str,
 
 def s2t_phase(card: str) -> dict:
     """Phase 14: stages 10 and 11 at the recipe's width in bf16 through
-    the port's generate_for_s2st, on 64 utterances, from a seeded random
+    the port's generate_for_s2st, on 32 utterances, from a seeded random
     checkpoint: (a) --scoring wer --wer-lowercase --wer-remove-punct, (b)
     --scoring sacrebleu, (c) --score-reference. The attention kernel must
     launch exactly 12 times a batch in (a) and (b) (the encoder; the beam's
@@ -2599,8 +2622,10 @@ def validate_phase(card: str) -> dict:
                 if a != "--disable-validation"]
         i = argv.index("--validate-after-updates")
         del argv[i:i + 2]
+        # 300-step validation decodes (a cut of the script's depth; the
+        # recipe's 2400 positions decode 600)
         argv += ["--use-flash-attention", "--attention-dropout", "0",
-                 "--max-epoch", "2"]
+                 "--max-epoch", "2", "--max-target-positions", "1200"]
         from s2st_tpu_torch.cli import train
         ka.flash_attention.launches = ka.flash_attention.bwd_launches = 0
         t0 = time.perf_counter()
@@ -2865,7 +2890,8 @@ def hubert_phase(card: str) -> dict:
         i = argv.index("--validate-after-updates")
         del argv[i:i + 2]
         argv += [*HUBERT_FLAGS, "--load-pretrained-hubert-from", str(pt),
-                 "--save-interval", "3", "--validate-interval", "3"]
+                 "--save-interval", "3", "--validate-interval", "3",
+                 "--max-target-positions", "1200"]   # a 300-step decode
         with RecordAttention() as rec_attn:
             trained = run_train_cli(argv, save, card, "hubert: the recipe's "
                                     "flags + --use-hubert True")
@@ -3447,7 +3473,7 @@ def gate_phase(card: str) -> dict:
 # s at 16 kHz, two speakers; the recipe's stage 2 keeps a target row only
 # without Latin letters (its g2p phonemizes the target side as Chinese),
 # so the target texts are Chinese characters and digits
-PREP_SPLITS = (("train", 48), ("dev", 8), ("tst", 8))
+PREP_SPLITS = (("train", 24), ("dev", 4), ("tst", 4))
 PREP_SRC_WORDS = ("hola", "como", "estas", "bien", "gracias", "mundo", "agua",
                   "casa", "verde", "vamos", "hoy", "si", "no", "tal", "vez")
 PREP_TGT_CHARS = "我们你好世界今天天气很好花了元百分之的人电话是见面年月日"
@@ -3466,7 +3492,7 @@ HIFIGAN_V1 = {               # jik876/hifi-gan config_v1.json
 
 
 def write_prep_inputs(root: Path, seed: int) -> dict:
-    """64 seeded WAV pairs (PCM16, 16 kHz: noise over a few tones, a silent
+    """32 seeded WAV pairs (PCM16, 16 kHz: noise over a few tones, a silent
     stretch in every fourth) and stage 1's metadata TSV a split. Returns
     the metadata specs, the WAV directory and the seconds of audio."""
     from s2st_tpu_torch.data.audio_utils import write_wav
@@ -4172,7 +4198,7 @@ def convergence_runs() -> int:
 # recipe's widths under --fp16 with the kernel configuration
 PAPER_UPDATES = 3
 # the archs whose targets are text tokens (s2t_loss)
-TEXT_FAMILIES = ("s2t", "xm", "convtransformer")
+TEXT_FAMILIES = ("s2t", "xm", "convtransformer", "berard")
 PAPER_FLAGS = ("--use-flash-attention", "--attention-dropout", "0",
                "--device", "cuda", "--log-interval", "1",
                "--disable-validation", "--no-epoch-checkpoints",
@@ -4217,6 +4243,10 @@ def paper_launches(args) -> tuple:
     attention, whose weights the loss reads."""
     from s2st_tpu_torch.models.config_from_args import arch_family
     family = arch_family(args)
+    if family in ("berard", "tacotron2"):   # MLP and location attention
+        return 0, 0
+    if family == "fastspeech2":             # self-attention only
+        return (args.encoder_layers + args.decoder_layers,) * 2
     hub = args.hubert_layers if args.use_hubert else 0
     enc = {"t2s": args.encoder_transformer_layers,
            "xm": 0}.get(family, args.encoder_layers)
@@ -5371,6 +5401,222 @@ def archs_phase(card: str) -> dict:
     return {"train": train_runs, "serve": serve_runs}
 
 
+# --------------------------------------------------------------------------
+# phase 24: the task's last arch families: Berard, Tacotron2, FastSpeech2
+# --------------------------------------------------------------------------
+
+TC2_GEN_STEPS = 40
+TOL_LSTM_BF16 = 5e-2     # tanh-bounded outputs, bf16 state over 250 steps
+
+
+def add_variance_columns(data: Path, seed: int) -> None:
+    """FastSpeech2's columns in phase 6's TSVs: each phone's duration (the
+    row's target frames cut at seeded points, so that they sum to them;
+    the EOS token gets none), a seeded pitch in [0, 400) and energy in
+    [0, 4) a phone."""
+    r = np.random.RandomState(seed)
+    for name in ("train.tsv", "tst.tsv"):
+        lines = (data / name).read_text().splitlines()
+        head = lines[0].split("\t")
+        out = ["\t".join(head + ["duration", "pitch", "energy"])]
+        for line in lines[1:]:
+            row = dict(zip(head, line.split("\t")))
+            n = len(row["src_text"].split())
+            frames = int(row["tgt_n_frames"])
+            cuts = np.sort(r.randint(0, frames + 1, n - 1))
+            dur = np.diff(np.concatenate([[0], cuts, [frames]]))
+            out.append("\t".join([line, " ".join(str(int(d)) for d in dur),
+                                  " ".join(f"{x:.2f}" for x in
+                                           r.uniform(0, 400, n)),
+                                  " ".join(f"{x:.3f}" for x in
+                                           r.uniform(0, 4, n))]))
+        (data / name).write_text("\n".join(out) + "\n")
+
+
+def lstm_card_check(card: str) -> dict:
+    """The port's packed biLSTM layer at Berard's first layer on phase 6's
+    batch (B=8, the conv pyramid's 250 down to 100 steps, 512 inputs, 256
+    a direction) on the card in fp32 (cuDNN, TF32 off; atol 1e-4 over 250
+    recurrent steps) and bf16 (its output in bf16; atol TOL_LSTM_BF16)
+    against the CPU's fp32; each one's device ms (CUDA events)."""
+    from s2st_tpu_torch.models.berard import BerardConfig, conv_lengths
+    from s2st_tpu_torch.models.lstm import lstm_layer
+    g = torch.Generator().manual_seed(243)
+    lens = conv_lengths(BerardConfig(), torch.tensor(TRAIN_FRAMES))
+    x = torch.randn(len(TRAIN_FRAMES), int(lens.max()), 512, generator=g)
+
+    def weights():
+        return [torch.rand(shape, generator=g) * 0.2 - 0.1
+                for shape in ((1024, 512), (1024, 256), (1024,), (1024,))]
+    fwd, rev = weights(), weights()
+    with torch.no_grad():
+        ref, _ = lstm_layer(x, lens, fwd, rev)
+        out = {"T": int(lens.max()), "card": card}
+        for dtype, tol in ((torch.float32, 1e-4),
+                           (torch.bfloat16, TOL_LSTM_BF16)):
+            xd, ld = x.cuda().to(dtype), lens.cuda()
+            fd, rd = [w.cuda() for w in fwd], [w.cuda() for w in rev]
+            got, _ = lstm_layer(xd, ld, fd, rd)
+            name = str(dtype).split(".")[-1]
+            err = float((got.float().cpu() - ref).abs().max())
+            if got.dtype != dtype or not err <= tol:
+                raise AssertionError(f"lstm_layer {name} on the card: "
+                                     f"dtype {got.dtype}, max abs err "
+                                     f"{err} (atol {tol})")
+            out[name] = {"max_abs_err": err, "ms": time_ms(
+                lambda: lstm_layer(xd, ld, fd, rd), iters=10, warmup=2)}
+    print("lstm_check " + json.dumps(out), flush=True)
+    return out
+
+
+def tacotron2_generate_check(data: Path, ckpt: Path, card: str) -> dict:
+    """generate_features of the trained Tacotron2 (fp32, TF32 off) on
+    phase 6's 8 phone lines for TC2_GEN_STEPS steps against its own
+    teacher-forced first step (both see a zero frame, zero states and the
+    initial context; eval, no prenet dropout): EOS probability and
+    attention within 1e-5; finite features of (8, steps, 80); ms a
+    step."""
+    from s2st_tpu_torch.data.s2st_dataset import TrainSplit, to_device
+    from s2st_tpu_torch.models import tacotron2 as tc2
+    from s2st_tpu_torch.models.config_from_args import build_model_config
+    from s2st_tpu_torch.models.jax_bridge import read_jax_checkpoint
+    from s2st_tpu_torch.tasks.s2s_translation import (data_config,
+                                                      load_dictionaries)
+    variables, meta = read_jax_checkpoint(str(ckpt))
+    args = argparse.Namespace(**{**meta["args"], "fp16": False,
+                                 "bf16": False})
+    data_cfg = data_config(args)
+    cfg = build_model_config(args, variables, 80)
+    model = tc2.from_jax_variables(cfg, variables).cuda().eval()
+    split = TrainSplit(str(data), data_cfg, "train",
+                       *load_dictionaries(str(data), data_cfg))
+    batch = to_device(split.collate([split.item(i) for i in
+                                     range(len(split))]), "cuda")
+    with torch.no_grad():
+        tf = model(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = model.generate_features(batch["src_text"],
+                                      batch["src_text_len"],
+                                      max_iter=TC2_GEN_STEPS)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TC2_GEN_STEPS
+    errs = {"eos_prob": float((gen["eos_prob"][:, 0] - torch.sigmoid(
+                tf["eos_out"][:, 0, 0].float())).abs().max()),
+            "attn": float((gen["attn"][:, :, 0] - tf["attn"][:, :, 0])
+                          .abs().max())}
+    shape = tuple(gen["feature"].shape)
+    if shape != (len(split), TC2_GEN_STEPS, 80) or \
+            not torch.isfinite(gen["feature"]).all() or \
+            not all(e <= 1e-5 for e in errs.values()):
+        raise AssertionError(f"tacotron2 generate_features: {shape}, "
+                             f"first step against teacher forcing {errs}")
+    out = {"max_abs_err": errs, "ms_per_step": ms,
+           "out_lens": gen["out_lens"].tolist()}
+    print(f"tacotron2 generate_features: {TC2_GEN_STEPS} steps of 8 rows, "
+          f"{ms:.3f} ms a step (host clock), first step against teacher "
+          f"forcing {errs}, out_lens {out['out_lens']} ({card})",
+          flush=True)
+    return out
+
+
+def serve_fs2_text(data: Path, ckpt: Path, out: Path) -> None:
+    """generate_waveform from a FastSpeech2 checkpoint on the tst split's
+    text, --duration-factor 1.0 --min-duration 1, bf16, a 32-iteration
+    Griffin-Lim: finite 80-d features of at least a frame a token and 16
+    kHz PCM16 WAVs of 256 x (frames - 1) samples."""
+    from s2st_tpu_torch.cli import generate_waveform
+    argv = [str(data), "--config-yaml", "config.yaml", "--gen-subset", "tst",
+            "--path", str(ckpt), "--results-path", str(out),
+            "--duration-factor", "1.0", "--min-duration", "1",
+            "--spec-bwd-max-iter", "32", "--fp16", "--dump-waveforms",
+            "--dump-features", "--device", "cuda"]
+    if generate_waveform.main(argv) != 0:
+        raise AssertionError("generate_waveform from the FastSpeech2 "
+                             "checkpoint failed")
+    lines = (data / "tst.tsv").read_text().splitlines()
+    head = lines[0].split("\t")
+    for line in lines[1:]:
+        row = dict(zip(head, line.split("\t")))
+        tokens = len(row["src_text"].split()) + 1
+        feat = np.load(out / "feat" / f"{row['id']}_pred.npy")
+        n = feat.shape[0]
+        if feat.ndim != 2 or feat.shape[1] != 80 or n < tokens or \
+                not np.isfinite(feat).all():
+            raise AssertionError(f"FS2 served {row['id']}: features "
+                                 f"{feat.shape} for {tokens} tokens")
+        with wave.open(str(out / "wav" / f"{row['id']}_pred.wav"), "rb") as w:
+            if (w.getsampwidth(), w.getnchannels(), w.getframerate(),
+                    w.getnframes()) != (2, 1, 16000, 256 * (n - 1)):
+                raise AssertionError(f"FS2 served {row['id']}: not 16 kHz "
+                                     f"mono PCM16 of {256 * (n - 1)} "
+                                     f"samples")
+        timing = json.loads((out / "timing.json").read_text())
+        print(f"fastspeech2 served {row['id']}: {tokens} tokens, {n} frames;"
+              f" batches {timing}", flush=True)
+
+
+def tts_archs_phase(card: str) -> dict:
+    """24: the task's last arch families at full width, --fp16, seeded
+    weights, 3 updates each through the train CLI in this process
+    (``run_paper_line``; --use-flash-attention --attention-dropout 0):
+    first the packed LSTM layer on the card (``lstm_card_check``); (a)
+    s2t_berard at JAX's defaults (input MLP 256, 128; two (16, 3, 2)
+    convs; 3 biLSTM layers of 256; 2 x 512 decoder; attention 128, the
+    parser's value) --test-type st on phase 6's corpus: no attention
+    kernel; (b) tacotron_2 at its defaults (512-d, 3 convs of kernel 5, a
+    biLSTM, 2 x 1024 zoneout LSTMs, attention 128 with 32 location filters
+    of 15, 80-d frames, 1 a step) with guided attention over phase 6's
+    phone lines and target mels: no attention kernel; then
+    ``tacotron2_generate_check``; (c) fastspeech2 at its defaults (4 + 4
+    FFT layers, 256-d, 2 heads, FFN 1024, kernel 9) on the same lines with
+    seeded duration, pitch and energy columns: 8 forward and 8 backward
+    attention launches an update at D=128, each distinct call held; then
+    generate_waveform from its checkpoint on the tst split's text (8
+    launches a batch, each call held). Prints each run's losses, the
+    second update's ms, the third's device ms and idle share, peak memory
+    and the launches."""
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tts_"))
+    train_runs, serve_runs = {}, {}
+    try:
+        lstm = lstm_card_check(card)
+        data = work / "fbank"
+        write_train_corpus(data, seed=241)
+        add_variance_columns(data, seed=242)
+        base = [str(data), *ARCH_FLAGS, "--task", "s2s_translation"]
+        train_runs["berard"] = run_paper_line(
+            base + ["--save-dir", str(work / "berard"), "--criterion",
+                    "s2t_loss", "--arch", "s2t_berard", "--test-type", "st"],
+            card, "berard")
+        shutil.rmtree(work / "berard")
+        train_runs["tacotron2"] = run_paper_line(
+            base + ["--save-dir", str(work / "tacotron2"), "--criterion",
+                    "tacotron2", "--arch", "tacotron_2",
+                    "--use-guided-attention-loss"], card, "tacotron2")
+        generate = tacotron2_generate_check(
+            data, work / "tacotron2" / "checkpoint_last.npz", card)
+        shutil.rmtree(work / "tacotron2")
+        train_runs["fastspeech2"] = run_paper_line(
+            base + ["--save-dir", str(work / "fs2"), "--criterion",
+                    "fastspeech2", "--arch", "fastspeech2"],
+            card, "fastspeech2")
+        serve_runs["fastspeech2"] = served_counted(
+            "fastspeech2_serve", card, lambda: serve_fs2_text(
+                data, work / "fs2" / "checkpoint_last.npz",
+                work / "fs2_served"))
+        if serve_runs["fastspeech2"]["launches"] != 8:
+            raise AssertionError(f"FastSpeech2 serving launched the kernel "
+                                 f"{serve_runs['fastspeech2']['launches']} "
+                                 f"times; want 8 (one batch, 4 + 4 layers)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"tts archs phase: {time.perf_counter() - t0:.1f} s ({card})",
+          flush=True)
+    return {"train": train_runs, "serve": serve_runs, "lstm": lstm,
+            "generate": generate}
+
+
 def attention_shapes(fwd: dict, bwd: dict) -> dict:
     """The attention kernels' graph-replay times at each main shape of
     phases 1 and 5 beside SDPA's, the plain version's and the bound."""
@@ -5513,6 +5759,10 @@ def main(argv=None) -> int:
     lap("train_leftouts_phase")
     archs = archs_phase(card)
     lap("archs_phase")
+    tts = tts_archs_phase(card)
+    lap("tts_archs_phase")
+    for group in ("train", "serve"):
+        archs[group].update(tts[group])
 
     a = trained["a"]
     shapes = attention_shapes({**fwd, **hubert_kernel,

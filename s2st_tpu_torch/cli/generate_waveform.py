@@ -22,8 +22,18 @@ A ``t2s_transformer`` checkpoint (its echo's arch; JAX's :105-107,
 source dictionary's ids and PAD-padded to JAX's ``snap_len(longest, 8)``
 columns, goes through the T2S text encoder, then the same decode, postnet,
 vocoder and dumps (``--teacher-forcing`` does not apply, as in JAX). A
-fairseq ``.pt`` is read as an S2ST checkpoint, as JAX's
-``load_variables_any`` reads it, so a T2S ``.pt`` raises ``KeyError``.
+``fastspeech2`` checkpoint serves from the same text columns and their
+lengths in one free-running pass at ``min(--max-iter,
+max_target_positions)`` frames, its durations scaled by
+``--duration-factor`` and floored at ``--min-duration``, then GCMVN
+denormalisation, ``out_lens * n_frames_per_step`` frames, the vocoder and
+the dumps (JAX's ``is_fs2`` path, :106, :130-152; the batch's ``forward_ms``
+in ``timing.json``). A ``tacotron_2`` or ``s2t_berard`` checkpoint raises
+``AttributeError`` after the model, vocoder and GCMVN stats are loaded,
+where JAX's CLI raises it: their configs have no ``max_target_positions``
+(ROADMAP §3). A fairseq ``.pt`` is read as an S2ST checkpoint, as JAX's
+``load_variables_any`` reads it, so a ``.pt`` of another family raises
+``KeyError``.
 
 With ``--use-hubert True`` (stage 7's line plus that flag, for a model
 trained with the HuBERT frontend) the sources are the raw waveforms of the
@@ -61,11 +71,13 @@ from ..generate.speech_generator import (GenerationConfig, decode_loop,
                                          postprocess,
                                          teacher_forcing_features)
 from ..generate.vocoder import get_vocoder
+from ..models import berard, fastspeech2, tacotron2
 from ..models import t2s_transformer as t2s
 from ..models.config_from_args import (add_model_args,
                                        add_model_overrides_arg,
-                                       add_speaker_args, build_model_config,
-                                       is_t2s, model_args_from_checkpoint,
+                                       add_speaker_args, arch_family,
+                                       build_model_config,
+                                       model_args_from_checkpoint,
                                        num_speakers)
 from ..models.fairseq_checkpoint import (is_torch_checkpoint, s2st_config,
                                          s2st_from_fairseq, s2st_state_dict)
@@ -94,6 +106,10 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--max-iter", type=int, default=1500)
     p.add_argument("--eos-prob-threshold", type=float, default=0.5)
+    p.add_argument("--duration-factor", type=float, default=1.0,
+                   help="FastSpeech2: scale the predicted durations")
+    p.add_argument("--min-duration", type=int, default=0,
+                   help="FastSpeech2: the least frames a token gets")
     p.add_argument("--spec-bwd-max-iter", type=int, default=8)
     p.add_argument("--output-sample-rate", type=int, default=16000)
     p.add_argument("--teacher-forcing", action="store_true")
@@ -204,10 +220,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     speakers = num_speakers(args) if args.speaker_to_id else None
     src_dict = None
     if is_torch_checkpoint(path):
-        if is_t2s(model_args_from_checkpoint(args, {})):
+        family = arch_family(model_args_from_checkpoint(args, {}))
+        if family in _FROM_JAX:
             raise KeyError(f"{path}: a fairseq .pt is read as an S2ST "
                            f"checkpoint, as JAX's load_variables_any reads "
-                           f"it; it holds no T2S text encoder")
+                           f"it; it holds no {family} model")
         sd = s2st_state_dict(path)
         cfg = s2st_config(sd, model_args_from_checkpoint(args, {}),
                           data_cfg.input_feat_per_channel, speakers)
@@ -218,12 +235,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         margs = model_args_from_checkpoint(args, meta)
         cfg = build_model_config(margs, variables,
                                  data_cfg.input_feat_per_channel, speakers)
-        if is_t2s(margs):
-            model = t2s.from_jax_variables(cfg, variables)
+        family = arch_family(margs)
+        model = _FROM_JAX.get(family, from_jax_variables)(cfg, variables)
+        if family in ("t2s", "fastspeech2"):     # served from text
             src_dict = load_dictionaries(args.data, data_cfg)[0]
+        if family == "t2s":
             cfg = cfg.base      # the spectrogram decoder's config
-        else:
-            model = from_jax_variables(cfg, variables)
         logger.info(f"loaded {path} (step {meta.get('step', '?')})")
     model = cast_for_inference(model.to(device).eval(), cfg.dtype)
     logger.info(f"serving on {device}, compute {cfg.dtype}")
@@ -236,6 +253,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         stats = np.load(stats_path)
         gcmvn_mean = torch.from_numpy(stats["mean"].astype(np.float32))
         gcmvn_std = torch.from_numpy(stats["std"].astype(np.float32))
+    # a Tacotron2 or Berard config has no max_target_positions: JAX's CLI
+    # raises AttributeError here too, after the same loads (ROADMAP §3)
     gen_cfg = GenerationConfig(
         max_iter=min(args.max_iter, cfg.max_target_positions
                      // max(cfg.n_frames_per_step, 1)),
@@ -258,14 +277,25 @@ def main(argv: Optional[List[str]] = None) -> int:
                    if isinstance(v, torch.Tensor)}
         rec = {"batch": bi, "rows": len(indices),
                "src_frames": int(batch["src_speech"].shape[1])}
-        if args.teacher_forcing and src_dict is None:
+        if isinstance(model, fastspeech2.FastSpeech2):
+            n = len(indices)
+            out = fastspeech2_features(
+                model, *with_pad_text_rows(tensors["src_text"],
+                                           tensors["src_text_len"]),
+                min(args.max_iter, cfg.max_target_positions),
+                args.duration_factor, args.min_duration, gcmvn_mean,
+                gcmvn_std)
+            out = {k: v[:n] if v is not None else None
+                   for k, v in out.items()}
+            rec["forward_ms"] = clock.lap()
+        elif args.teacher_forcing and src_dict is None:
             out = teacher_forcing_features(model, tensors, gcmvn_mean,
                                            gcmvn_std, gen)
             rec["forward_ms"] = clock.lap()
         else:
             n = len(indices)
             if src_dict is not None:
-                enc = model.encode(with_pad_text_rows(tensors["src_text"]))
+                enc = model.encode(with_pad_text_rows(tensors["src_text"])[0])
             else:
                 enc = model.encode(*with_pad_rows(
                     tensors["src_speech"], tensors["src_speech_lens"]))
@@ -333,13 +363,48 @@ def with_pad_rows(src: torch.Tensor, lens: torch.Tensor):
             torch.cat([lens, lens.new_zeros(pad)]))
 
 
-def with_pad_text_rows(tokens: torch.Tensor) -> torch.Tensor:
+def with_pad_text_rows(tokens: torch.Tensor,
+                       lens: Optional[torch.Tensor] = None):
     """``with_pad_rows`` of a text batch: JAX's snap_len(n, 8) rows, the
-    added ones all PAD (data/s2st_dataset.py:273)."""
+    added ones all PAD (data/s2st_dataset.py:273) and of length 0.
+    Returns (tokens, lens)."""
     pad = snap_len(tokens.shape[0], 8) - tokens.shape[0]
     if pad == 0:
-        return tokens
-    return torch.cat([tokens, tokens.new_full((pad, tokens.shape[1]), PAD)])
+        return tokens, lens
+    return (torch.cat([tokens, tokens.new_full((pad, tokens.shape[1]),
+                                               PAD)]),
+            None if lens is None else torch.cat([lens, lens.new_zeros(pad)]))
+
+
+def fastspeech2_features(model, src_text: torch.Tensor,
+                         src_lens: torch.Tensor, max_out: int,
+                         d_factor: float, min_duration: int,
+                         gcmvn_mean: Optional[torch.Tensor],
+                         gcmvn_std: Optional[torch.Tensor]) -> dict:
+    """One free-running FastSpeech2 pass at ``max_out`` frames (JAX's
+    ``infer_fs2``, cli/generate_waveform.py:130-152): the postnet's (or
+    the decoder's) features as (B, frames * r, output_frame_dim) fp32,
+    GCMVN denormalised, ``raw_out_lens`` = ``out_lens`` * r, EOS
+    probabilities 0, no attention."""
+    cfg = model.cfg
+    out = model(src_text, src_lens, max_out_len=max_out, d_factor=d_factor,
+                min_duration=min_duration)
+    b = out["post_feat_out"].shape[0]
+    feats = out["post_feat_out"].float().reshape(b, -1, cfg.output_frame_dim)
+    if gcmvn_mean is not None:
+        feats = feats * gcmvn_std.to(feats.device) \
+            + gcmvn_mean.to(feats.device)
+    return {"feats": feats,
+            "raw_out_lens": out["out_lens"] * cfg.n_frames_per_step,
+            "out_lens": out["out_lens"],
+            "eos_prob": feats.new_zeros(feats.shape[:2]), "attn": None}
+
+
+# the families loaded from a JAX tree by their own module
+_FROM_JAX = {"t2s": t2s.from_jax_variables,
+             "berard": berard.from_jax_variables,
+             "tacotron2": tacotron2.from_jax_variables,
+             "fastspeech2": fastspeech2.from_jax_variables}
 
 
 def cli_main():

@@ -90,13 +90,17 @@ accepted): ``s2st_transformer`` with ``s2st_loss``;
 in it; ``t2s_transformer`` (the text encoder's
 ``--encoder-conv-layers/-conv-kernel-size/-dropout/-transformer-layers``)
 with ``t2s_loss`` over the batches' source text, its BatchNorms' statistics
-written back after each microbatch; or an ``s2t_transformer`` arch
+written back after each microbatch; an ``s2t_transformer`` arch
 (``_hubert``, the s/xs/sp/m/mp/l/lp ladder), ``xm_transformer`` (over raw
-waveforms) or ``convtransformer[_espnet]``, each with its defaults under
-the flags given, with ``s2t_loss`` over the target text (``--test-type
-st``) or the source text (``asr``); a run of a text-output model or of
-T2S validates by its loss, ``--eval-inference`` being for ``s2st*`` archs
-(:302).
+waveforms), ``convtransformer[_espnet]`` or ``s2t_berard`` (``_256_3_3``,
+``_512_5_3``, ``_512_3_2``), each with its defaults under the flags given,
+with ``s2t_loss`` over the target text (``--test-type st``) or the source
+text (``asr``); ``tacotron_2`` (or ``tacotron2``) with ``tacotron2_loss``
+over the source text, its encoder's and postnet's BatchNorm statistics
+written back; or ``fastspeech2`` with ``fastspeech2_loss`` over the source
+text and the split's ``duration``, ``pitch`` and ``energy`` columns. A run
+of a model other than S2ST validates by its loss, ``--eval-inference``
+being for ``s2st*`` archs (:302).
 ``--load-pretrained-encoder-from`` and ``--load-pretrained-decoder-from``
 (a ``.npz`` or a fairseq ``.pt``) then warm-start those components'
 parameters, after the frontend's load and before a resume, which wins
@@ -169,10 +173,12 @@ def get_parser() -> argparse.ArgumentParser:
                    choices=["s2s_translation", "s2s_translation_mtl"])
     p.add_argument("--criterion", default="s2st_loss",
                    choices=["s2st_loss", "s2st_loss_mtl", "s2t_loss",
-                            "t2s_loss"],
+                            "t2s_loss", "tacotron2", "tacotron2_loss",
+                            "fastspeech2", "fastspeech2_loss"],
                    help="the arch binds its loss, as in JAX: s2st_loss for "
-                   "the s2st archs, t2s_loss for t2s_transformer, s2t_loss "
-                   "for the text-output archs")
+                   "the s2st archs, t2s_loss for t2s_transformer, "
+                   "tacotron2_loss for tacotron_2, fastspeech2_loss for "
+                   "fastspeech2, s2t_loss for the text-output archs")
     p.add_argument("--config-yaml", default="config.yaml")
     p.add_argument("--train-subset", default="train")
     p.add_argument("--valid-subset", default="valid")

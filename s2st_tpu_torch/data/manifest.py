@@ -211,7 +211,8 @@ class GenerationSplit(Manifest):
         prev_output_tokens (zero first frame, shifted targets) and
         target_lengths, in packed frames; ``src_dict`` adds src_text, each
         row's source text in that dictionary's ids with EOS, PAD-padded to
-        JAX's ``snap_len(longest, 8)`` columns (data/iterators.py:304)."""
+        JAX's ``snap_len(longest, 8)`` columns (data/iterators.py:304),
+        and src_text_len."""
         src = [self.source(i) for i in indices]
         order = np.argsort([-x.shape[0] for x in src], kind="stable")
         indices = [indices[i] for i in order]
@@ -248,4 +249,5 @@ class GenerationSplit(Manifest):
             for i, x in enumerate(ids):
                 text[i, :len(x)] = x
             batch["src_text"] = torch.from_numpy(text)
+            batch["src_text_len"] = torch.tensor([len(x) for x in ids])
         return batch

@@ -12,8 +12,12 @@ shifted with eos moved to the front; the token counts; padded to the
 given static shapes, with rows past the batch's of length 0; waveforms
 collate to a (B, L) source, :260-275), with each row's speaker id under
 ``speaker`` where the split has a ``--speaker-to-id`` map (:208-210,
-:300-325). Batches and their order come from
-``data/iterators.py``, whose pads then count samples.
+:300-325), and FastSpeech2's ``duration``, ``pitch`` and ``energy``
+columns (space-separated, or ``.npy`` paths; :49-52, :102-110, :225-227)
+padded with 0 into ``durations``, ``pitches`` and ``energies`` (B, source
+tokens) where the batch's first row has a duration (:326-345). Batches
+and their order come from ``data/iterators.py``, whose pads then count
+samples.
 
 A train split of several corpora (``--train-subset train_a,train_b``)
 under a ``sampling_alpha`` other than 1.0 is resampled by temperature
@@ -33,12 +37,17 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .audio_utils import get_features
+from .audio_utils import get_features, get_features_or_waveform
 from .data_cfg import S2STDataConfig
 from .dictionary import Dictionary
 from .manifest import Manifest, pack_frames
 
 PAD = 1
+# FastSpeech2's per-token targets: (manifest column, batch key, dtype)
+# (:49-52, :326-345)
+VARIANCE_COLUMNS = (("duration", "durations", np.int64),
+                    ("pitch", "pitches", np.float32),
+                    ("energy", "energies", np.float32))
 
 logger = logging.getLogger(__name__)
 
@@ -127,6 +136,9 @@ class TrainSplit(Manifest):
         if self.speaker_to_id is not None:
             # an unknown speaker is 0 (s2st_dataset.py:208-210)
             item["speaker"] = self.speaker_to_id.get(s.get("speaker", ""), 0)
+        for col, _, dtype in VARIANCE_COLUMNS:
+            if s.get(col):
+                item[col] = variance(s[col], dtype)
         return item
 
     def collate(self, items: List[Dict[str, np.ndarray]], **pads
@@ -191,7 +203,25 @@ def collate(items: List[Dict[str, np.ndarray]],
         speaker = np.zeros((b,), np.int64)   # pad rows: speaker 0
         speaker[:len(items)] = [it["speaker"] for it in items]
         batch["speaker"] = torch.from_numpy(speaker)
+    if "duration" in items[0]:
+        # one value a source token, 0 past each row's values (:326-345)
+        for col, key, dtype in VARIANCE_COLUMNS:
+            arr = np.zeros((b, src_n), dtype)
+            for i, it in enumerate(items):
+                if col in it:
+                    v = it[col][:src_n]
+                    arr[i, :len(v)] = v
+            batch[key] = torch.from_numpy(arr)
     return batch
+
+
+def variance(value: str, dtype) -> np.ndarray:
+    """A FastSpeech2 variance column's value: space-separated numbers, or
+    a ``.npy`` path (or zip slice, with a ``:``) read as features
+    (``_variance``, s2st_dataset.py:219-225)."""
+    if value.endswith(".npy") or ":" in value:
+        return np.asarray(get_features_or_waveform(value), dtype)
+    return np.asarray(value.split(), dtype)
 
 
 def to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:

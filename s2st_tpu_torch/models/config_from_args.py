@@ -10,11 +10,14 @@ override both, and ``build_model_config``
 (``apply_arch``, the arch functions of options.py:700-1004) and configs:
 ``s2st_transformer`` and ``s2st_transformer_mtl`` (``model_config``), the
 S2T archs (``S2T_ARCHS``, ``s2t_config``), ``t2s_transformer``
-(``t2s_config``), ``xm_transformer`` (``xm_config``) and
-``convtransformer[_espnet]`` (``convtransformer_config``); ``arch_family``
-names the model an arch builds, as JAX's ``build_model_and_loss``
-dispatches (tasks/s2s_translation.py:113-294). ``model_config`` takes the
-vocabulary sizes from the caller
+(``t2s_config``), ``xm_transformer`` (``xm_config``),
+``convtransformer[_espnet]`` (``convtransformer_config``), the four
+``s2t_berard`` sizes (``berard_config``), ``tacotron_2`` / ``tacotron2``
+(``tacotron2_config``, its flags :270-280) and ``fastspeech2``
+(``fastspeech2_config``, its flags :289-300); ``arch_family`` names the
+model an arch builds, as JAX's ``build_model_and_loss`` dispatches
+(tasks/s2s_translation.py:113-294): all seven of its families.
+``model_config`` takes the vocabulary sizes from the caller
 (the training CLI's dictionaries); ``build_model_config`` takes them, and
 the speaker count, from a checkpoint's array shapes, so that generation
 loads no dictionary.
@@ -105,6 +108,30 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--ctc-weight-tgt", type=float, default=0.0)
     p.add_argument("--asr-ce-weight", type=float, default=0.0)
     p.add_argument("--st-ce-weight", type=float, default=0.0)
+    # Tacotron2 (options.py:270-280)
+    p.add_argument("--encoder-lstm-layers", type=int, default=1)
+    p.add_argument("--attention-dim", type=int, default=128)
+    p.add_argument("--attention-conv-dim", type=int, default=32)
+    p.add_argument("--attention-conv-kernel-size", type=int, default=15)
+    p.add_argument("--init-attn-c", default="zero", choices=["zero", "avg"])
+    p.add_argument("--attention-use-cumprob", action="store_true",
+                   default=True)
+    p.add_argument("--zoneout", type=float, default=0.1)
+    p.add_argument("--decoder-lstm-layers", type=int, default=2)
+    p.add_argument("--decoder-lstm-dim", type=int, default=1024)
+    # FastSpeech2 (options.py:289-300)
+    p.add_argument("--fft-hidden-dim", type=int, default=1024)
+    p.add_argument("--fft-kernel-size", type=int, default=9)
+    p.add_argument("--var-pred-n-bins", type=int, default=256)
+    p.add_argument("--var-pred-hidden-dim", type=int, default=256)
+    p.add_argument("--var-pred-kernel-size", type=int, default=3)
+    p.add_argument("--var-pred-dropout", type=float, default=0.5)
+    p.add_argument("--pitch-min", type=float, default=0.0)
+    p.add_argument("--pitch-max", type=float, default=600.0)
+    p.add_argument("--energy-min", type=float, default=0.0)
+    p.add_argument("--energy-max", type=float, default=5.0)
+    p.add_argument("--add-postnet", action="store_true",
+                   help="FastSpeech2: refine the features with a postnet")
     # the S2T criterion's targets (options.py:281-282)
     p.add_argument("--test-type", default="st", choices=["st", "asr"])
 
@@ -132,9 +159,24 @@ _CONVTRANSFORMER = dict(
     encoder_attention_heads=8, decoder_layers=6, decoder_embed_dim=512,
     decoder_ffn_embed_dim=2048, decoder_attention_heads=8, dropout=0.1,
     attention_dropout=0.0, activation_dropout=0.0)
+# Berard's archs (options.py:956-980, :2230-2250). Its sizes are no flags
+# in JAX: the arch functions set them on the namespace, the layer lists as
+# Python literals. ``s2t_berard`` keeps the parser's --attention-dim (128;
+# the arch function's getattr default of 512 never applies, ROADMAP §3)
+_BERARD = dict(input_layers="[256, 128]",
+               conv_layers="[(16, 3, 2), (16, 3, 2)]", num_blstm_layers=3,
+               lstm_size=256, dropout=0.2, decoder_embed_dim=128,
+               decoder_num_layers=2, decoder_hidden_dim=512,
+               output_layer_dim=128)
+_BERARD_512 = dict(_BERARD, num_blstm_layers=5, lstm_size=512, dropout=0.3,
+                   decoder_embed_dim=256, decoder_num_layers=3,
+                   decoder_hidden_dim=1024, attention_dim=512,
+                   output_layer_dim=256)
 # arch -> (the model it builds, its defaults). JAX's build_model_and_loss
 # matches ``t2s_transformer`` by prefix, so ``tts_transformer``, registered
-# beside it, builds the S2ST model (ROADMAP §3)
+# beside it, builds the S2ST model (ROADMAP §3). ``tacotron2`` builds what
+# ``tacotron_2`` builds, as JAX's build_model_and_loss does (its CLI knows
+# only ``tacotron_2``; the arch function sets the parser's defaults)
 ARCHS = {
     "s2st_transformer": ("s2st", {}),
     # the decoder tap at 3 unless --middle-layers-decoder names others
@@ -150,12 +192,28 @@ ARCHS = {
     "convtransformer_espnet": ("convtransformer", {
         **_CONVTRANSFORMER, "encoder_layers": 12,
         "encoder_attention_heads": 4, "decoder_attention_heads": 4}),
+    "s2t_berard": ("berard", _BERARD),
+    "s2t_berard_256_3_3": ("berard", dict(_BERARD, decoder_num_layers=3)),
+    "s2t_berard_512_5_3": ("berard", _BERARD_512),
+    "s2t_berard_512_3_2": ("berard", dict(_BERARD_512, num_blstm_layers=3,
+                                          decoder_num_layers=2)),
+    "tacotron_2": ("tacotron2", dict(encoder_embed_dim=512,
+                                     encoder_dropout=0.5,
+                                     encoder_conv_layers=3,
+                                     encoder_conv_kernel_size=5)),
+    "tacotron2": ("tacotron2", {}),
+    "fastspeech2": ("fastspeech2", dict(
+        encoder_layers=4, encoder_embed_dim=256, encoder_attention_heads=2,
+        decoder_layers=4, decoder_embed_dim=256, decoder_attention_heads=2,
+        dropout=0.2, attention_dropout=0.0)),
 }
 
 
 def arch_family(args: argparse.Namespace) -> str:
-    """The model an arch builds: "s2st", "s2t", "t2s", "xm" or
-    "convtransformer"; an arch the port does not build raises."""
+    """The model an arch builds: "s2st", "s2t", "t2s", "xm",
+    "convtransformer", "berard", "tacotron2" or "fastspeech2" (each family
+    JAX's build_model_and_loss dispatches); an arch the port does not
+    build raises."""
     arch = getattr(args, "arch", "s2st_transformer")
     if arch in S2T_ARCHS:
         return "s2t"
@@ -193,9 +251,87 @@ def apply_arch(args: argparse.Namespace, argv: List[str]
     return args
 
 
-def is_t2s(args: argparse.Namespace) -> bool:
-    """The arch builds the T2S model (JAX's generate_waveform, :105)."""
-    return ARCHS.get(getattr(args, "arch", ""), ("",))[0] == "t2s"
+def berard_config(args: argparse.Namespace, src_vocab_size: int,
+                  tgt_vocab_size: int, input_feat_per_channel: int,
+                  num_speakers: int = 0):
+    """Berard's config (tasks/s2s_translation.py:235-263): the layer lists
+    read with ``ast.literal_eval``, the text vocabulary of --test-type."""
+    from .berard import BerardConfig
+    return BerardConfig(
+        vocab_size=_text_vocab(args, src_vocab_size, tgt_vocab_size),
+        input_feat_per_channel=input_feat_per_channel,
+        input_layers=tuple(ast.literal_eval(str(getattr(
+            args, "input_layers", "[256, 128]")))),
+        conv_layers=tuple(tuple(t) for t in ast.literal_eval(str(getattr(
+            args, "conv_layers", "[(16, 3, 2), (16, 3, 2)]")))),
+        num_blstm_layers=getattr(args, "num_blstm_layers", 3),
+        lstm_size=getattr(args, "lstm_size", 256),
+        decoder_embed_dim=args.decoder_embed_dim,
+        decoder_num_layers=getattr(args, "decoder_num_layers", 2),
+        decoder_hidden_dim=getattr(args, "decoder_hidden_dim", 512),
+        attention_dim=getattr(args, "attention_dim", 512),
+        output_layer_dim=getattr(args, "output_layer_dim", 128),
+        dropout=args.dropout, dtype=_dtype(args))
+
+
+def tacotron2_config(args: argparse.Namespace, src_vocab_size: int,
+                     tgt_vocab_size: int, input_feat_per_channel: int,
+                     num_speakers: int = 0):
+    """Tacotron2's config (tasks/s2s_translation.py:132-165): the source
+    vocabulary, the flags, and the frames and speakers of the base."""
+    from .tacotron2 import Tacotron2Config
+    a = args
+    return Tacotron2Config(
+        vocab_size=src_vocab_size, encoder_dropout=a.encoder_dropout,
+        encoder_embed_dim=a.encoder_embed_dim,
+        encoder_conv_layers=a.encoder_conv_layers,
+        encoder_conv_kernel_size=a.encoder_conv_kernel_size,
+        encoder_lstm_layers=a.encoder_lstm_layers,
+        attention_dim=a.attention_dim, attention_conv_dim=a.attention_conv_dim,
+        attention_conv_kernel_size=a.attention_conv_kernel_size,
+        prenet_dropout=a.prenet_dropout, prenet_layers=a.prenet_layers,
+        prenet_dim=a.prenet_dim, postnet_dropout=a.postnet_dropout,
+        postnet_layers=a.postnet_layers, postnet_conv_dim=a.postnet_conv_dim,
+        postnet_conv_kernel_size=a.postnet_conv_kernel_size,
+        init_attn_c=a.init_attn_c,
+        attention_use_cumprob=a.attention_use_cumprob, zoneout=a.zoneout,
+        decoder_lstm_layers=a.decoder_lstm_layers,
+        decoder_lstm_dim=a.decoder_lstm_dim,
+        output_frame_dim=a.output_frame_dim,
+        n_frames_per_step=a.n_frames_per_step, num_speakers=num_speakers,
+        speaker_embed_dim=a.speaker_embed_dim, dtype=_dtype(a))
+
+
+def fastspeech2_config(args: argparse.Namespace, src_vocab_size: int,
+                       tgt_vocab_size: int, input_feat_per_channel: int,
+                       num_speakers: int = 0):
+    """FastSpeech2's config (tasks/s2s_translation.py:166-203): the source
+    vocabulary, the flags, the CTC head where --ctc-weight is above 0."""
+    from .fastspeech2 import FS2Config
+    a = args
+    return FS2Config(
+        vocab_size=src_vocab_size, output_frame_dim=a.output_frame_dim,
+        n_frames_per_step=a.n_frames_per_step,
+        encoder_layers=a.encoder_layers,
+        encoder_embed_dim=a.encoder_embed_dim,
+        encoder_attention_heads=a.encoder_attention_heads,
+        decoder_layers=a.decoder_layers,
+        decoder_embed_dim=a.decoder_embed_dim,
+        decoder_attention_heads=a.decoder_attention_heads,
+        fft_hidden_dim=a.fft_hidden_dim, fft_kernel_size=a.fft_kernel_size,
+        dropout=a.dropout, attention_dropout=a.attention_dropout,
+        var_pred_n_bins=a.var_pred_n_bins,
+        var_pred_hidden_dim=a.var_pred_hidden_dim,
+        var_pred_kernel_size=a.var_pred_kernel_size,
+        var_pred_dropout=a.var_pred_dropout, pitch_min=a.pitch_min,
+        pitch_max=a.pitch_max, energy_min=a.energy_min,
+        energy_max=a.energy_max, add_postnet=a.add_postnet,
+        postnet_layers=a.postnet_layers, postnet_conv_dim=a.postnet_conv_dim,
+        postnet_conv_kernel_size=a.postnet_conv_kernel_size,
+        postnet_dropout=a.postnet_dropout,
+        speaker_embed_dim=a.speaker_embed_dim, num_speakers=num_speakers,
+        ctc=a.ctc_weight > 0.0, max_source_positions=a.max_source_positions,
+        max_target_positions=a.max_target_positions, dtype=_dtype(a))
 
 
 def add_model_overrides_arg(p: argparse.ArgumentParser) -> None:
@@ -256,7 +392,8 @@ def build_model_config(args: argparse.Namespace, variables: Dict[str, Any],
     """The config of a checkpoint's model: vocabularies from its array
     shapes, the rest from ``args``; the speaker count is ``speakers``
     where given, else the checkpoint's. A T2S checkpoint (its echo's arch)
-    gives a ``T2SConfig``, others an ``S2STConfig``."""
+    gives a ``T2SConfig``, a Berard, Tacotron2 or FastSpeech2 one its
+    family's config, others an ``S2STConfig``."""
     params = variables["params"]
 
     def rows(*path, axis=0, default=0):
@@ -269,12 +406,19 @@ def build_model_config(args: argparse.Namespace, variables: Dict[str, Any],
 
     src_vocab = rows("aux_asr_decoder", "embed", "w") \
         or rows("encoder", "embed_tokens", "w") \
+        or rows("embed", "w") \
         or rows("decoder", "ctc_proj", "w", axis=1, default=100)
     tgt_vocab = rows("aux_st_decoder", "embed", "w") \
         or rows("decoder", "ctc_proj_tgt", "w", axis=1, default=100)
+    family = arch_family(args)
+    if family == "berard":      # one text vocabulary, the decoder's
+        src_vocab = tgt_vocab = rows("decoder", "embed", "w")
     if speakers is None:
-        speakers = rows("encoder", "embed_speaker", "w")
-    build = t2s_config if is_t2s(args) else model_config
+        speakers = rows("encoder", "embed_speaker", "w") \
+            or rows("embed_speaker", "w")
+    build = {"t2s": t2s_config, "berard": berard_config,
+             "tacotron2": tacotron2_config,
+             "fastspeech2": fastspeech2_config}.get(family, model_config)
     return build(args, src_vocab, tgt_vocab, input_feat_per_channel,
                  num_speakers=speakers)
 

@@ -10,7 +10,9 @@ The S2ST model's modules carry fairseq's ``state_dict`` names, the names
 so a fairseq S2ST checkpoint loads into the model without a map, the MTL
 variant's ``decoder.ctc_proj_tgt`` (:151-152) with it; so do the T2S
 model's (``t2s_from_fairseq``, JAX's ``t2s_from_fairseq_state_dict``,
-:242-277), whose BatchNorm counts are 0 where the file has none. As JAX's
+:242-277), and Tacotron2's and FastSpeech2's (``tacotron2_from_fairseq``,
+``fs2_from_fairseq``, :503-558 and :304-337, for callers that ask for
+them), whose BatchNorm counts are 0 where the file has none. As JAX's
 ``load_fairseq_checkpoint`` and ``from_fairseq_state_dict`` (:174-218) do,
 ``s2st_state_dict`` takes ``state["model"]`` (or the dict itself) as fp32
 and drops ``hubert.*``; ``s2st_from_fairseq`` loads the rest into the
@@ -149,7 +151,31 @@ def t2s_from_fairseq(cfg, sd: Dict[str, torch.Tensor]):
     ``t2s_transformer`` entries ``sd``; a BatchNorm without
     ``num_batches_tracked`` counts 0."""
     from .t2s_transformer import T2STransformer
-    model = T2STransformer(cfg)
+    return _load_counting(T2STransformer(cfg), sd)
+
+
+def tacotron2_from_fairseq(cfg, sd: Dict[str, torch.Tensor]):
+    """A Tacotron2 of ``cfg`` holding fairseq ``tacotron2`` entries ``sd``
+    (JAX's ``tacotron2_from_fairseq_state_dict``, :503-558): the
+    never-applied ``decoder.ctc_proj`` is dropped, a BatchNorm without
+    ``num_batches_tracked`` counts 0."""
+    from .tacotron2 import Tacotron2
+    sd = {k: v for k, v in sd.items() if not k.startswith("decoder.ctc_proj.")}
+    return _load_counting(Tacotron2(cfg), sd)
+
+
+def fs2_from_fairseq(cfg, sd: Dict[str, torch.Tensor]):
+    """A FastSpeech2 of ``cfg`` holding fairseq ``fastspeech2`` entries
+    ``sd`` (JAX's ``fs2_from_fairseq_state_dict``, :304-337); the alphas
+    keep fairseq's (1,) shape, a BatchNorm without
+    ``num_batches_tracked`` counts 0."""
+    from .fastspeech2 import FastSpeech2
+    return _load_counting(FastSpeech2(cfg), sd)
+
+
+def _load_counting(model, sd: Dict[str, torch.Tensor]):
+    """``_load`` with a count of 0 for each BatchNorm the file gives
+    none."""
     counts = {k: torch.zeros((), dtype=torch.long)
               for k in model.state_dict()
               if k.endswith("num_batches_tracked") and k not in sd}
@@ -175,4 +201,4 @@ def _load(model, sd: Dict[str, torch.Tensor]):
 
 __all__ = ["read_torch_checkpoint", "plain", "is_torch_checkpoint",
            "s2st_state_dict", "s2st_config", "s2st_from_fairseq",
-           "t2s_from_fairseq"]
+           "t2s_from_fairseq", "tacotron2_from_fairseq", "fs2_from_fairseq"]

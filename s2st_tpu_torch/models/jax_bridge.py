@@ -137,6 +137,8 @@ _LAYER_PARTS = {
 }
 _BN_STATS = {"running_mean": "mean", "running_var": "var",
              "num_batches_tracked": "count"}
+# a ``jax_names`` leaf that is a whole key, not one under the module's path
+_ABSOLUTE = ("params" + SEP, "stats" + SEP)
 
 
 def _jax_module_path(name: str, rules=()) -> str:
@@ -152,10 +154,12 @@ def jax_layout(model: nn.Module) -> List[Tuple[str, str, str]]:
     """(state_dict name, JAX flat key, kind) for every entry of the
     model's ``state_dict``. kind: "linear" (weight transposed), "conv"
     ((out, in, K) <-> (K, in, out)), "conv2d" ((out, in, KH, KW) <->
-    (KH, KW, in, out)), "heads_k" ((H, 1, K) <-> (H, K)), "count" (int32
-    in JAX) or "same". A module may name its own entries' leaves in a
-    ``jax_names`` table {entry: (leaf path, kind)}, and a model its own
-    module rules, tried before the shared ones, in ``jax_rules``."""
+    (KH, KW, in, out)), "heads_k" ((H, 1, K) <-> (H, K)), "scalar" ((1,)
+    <-> ()), "count" (int32 in JAX) or "same". A module may name its own
+    entries' leaves in a ``jax_names`` table {entry: (leaf path, kind)}, a
+    leaf path that starts with ``params::`` or ``stats::`` being the whole
+    key, and a model its own module rules, tried before the shared ones,
+    in ``jax_rules``."""
     table = []
     rules = getattr(model, "jax_rules", ())
     for mod_name, mod in model.named_modules():
@@ -171,7 +175,9 @@ def jax_layout(model: nn.Module) -> List[Tuple[str, str, str]]:
             own = getattr(mod, "jax_names", {})
             if pname in own:
                 leaf, kind = own[pname]
-                table.append((full, SEP.join(["params", path, leaf]), kind))
+                key = leaf if leaf.startswith(_ABSOLUTE) \
+                    else SEP.join(["params", path, leaf])
+                table.append((full, key, kind))
                 continue
             if isinstance(mod, nn.Linear):
                 leaf = {"weight": "w", "bias": "b"}[pname]
@@ -212,6 +218,8 @@ def _to_torch(arr: np.ndarray, kind: str) -> torch.Tensor:
         arr = np.transpose(arr, (3, 2, 0, 1))
     elif kind == "heads_k":
         arr = arr[:, None, :]
+    elif kind == "scalar":
+        arr = arr.reshape(1)
     return torch.from_numpy(np.array(arr, order="C"))
 
 
@@ -226,17 +234,22 @@ def _to_jax(t: torch.Tensor, kind: str) -> np.ndarray:
         arr = np.transpose(arr, (2, 3, 1, 0))
     elif kind == "heads_k":
         arr = arr[:, 0, :]
+    elif kind == "scalar":
+        arr = arr.reshape(())
     elif kind == "count":
         arr = arr.astype(np.int32)
     return np.array(arr, order="C")
 
 
 def flatten_tree(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
-    """Nested dicts -> {"a::b::c": leaf}."""
+    """Nested dicts (and lists, by index, as JAX flattens FastSpeech2's
+    layer lists) -> {"a::b::c": leaf}."""
     flat = {}
-    for k, v in tree.items():
+    items = enumerate(tree) if isinstance(tree, (list, tuple)) \
+        else tree.items()
+    for k, v in items:
         key = f"{prefix}{SEP}{k}" if prefix else str(k)
-        if isinstance(v, dict):
+        if isinstance(v, (dict, list, tuple)):
             flat.update(flatten_tree(v, key))
         else:
             flat[key] = v

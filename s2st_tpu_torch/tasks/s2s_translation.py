@@ -27,12 +27,16 @@ import torch
 from ..data.data_cfg import S2STDataConfig
 from ..data.dictionary import Dictionary
 from ..models import config_from_args as ca
+from ..models.berard import Berard
 from ..models.convtransformer import ConvTransformer
+from ..models.fastspeech2 import FastSpeech2
 from ..models.s2st_transformer import S2STTransformer
 from ..models.s2t_transformer import S2TTransformer
 from ..models.t2s_transformer import T2STransformer
+from ..models.tacotron2 import Tacotron2
 from ..models.xm_transformer import XMTransformer
-from ..train.losses import s2st_loss, s2t_loss, t2s_loss
+from ..train.losses import (fastspeech2_loss, s2st_loss, s2t_loss, t2s_loss,
+                            tacotron2_loss)
 from ..generate.speech_generator import GenerationConfig, generate_features
 from ..ops.dsp import griffin_lim, logmel_to_linear, make_pinv_mel_basis
 from ..ops.mcd import batch_mcd
@@ -64,11 +68,13 @@ def build_model_and_loss(args, src_vocab_size: int, tgt_vocab_size: int,
     (``build_model_and_loss``, :113-290, dispatched as JAX dispatches,
     ``config_from_args.arch_family``): ``t2s_transformer`` builds the T2S
     model with ``t2s_loss``; an S2T arch, ``xm_transformer`` and
-    ``convtransformer[_espnet]`` their models with ``s2t_loss`` bound to
-    ``--test-type``; ``s2st_transformer`` and ``s2st_transformer_mtl`` the
-    S2ST model (the MTL taps and target CTC from the flags) with
-    ``s2st_loss``. ``--criterion`` does not choose, as in JAX. Any other
-    arch raises."""
+    ``convtransformer[_espnet]`` and ``s2t_berard*`` their models with
+    ``s2t_loss`` bound to ``--test-type``; ``tacotron_2`` (``tacotron2``)
+    Tacotron2 with ``tacotron2_loss``; ``fastspeech2`` FastSpeech2 with
+    ``fastspeech2_loss``; ``s2st_transformer`` and
+    ``s2st_transformer_mtl`` the S2ST model (the MTL taps and target CTC
+    from the flags) with ``s2st_loss``. ``--criterion`` does not choose,
+    as in JAX. Any other arch raises."""
     text_loss = functools.partial(s2t_loss, test_type=args.test_type)
     config_fn, model_cls, loss = {
         "s2st": (ca.model_config, S2STTransformer, s2st_loss),
@@ -77,6 +83,10 @@ def build_model_and_loss(args, src_vocab_size: int, tgt_vocab_size: int,
         "xm": (ca.xm_config, XMTransformer, text_loss),
         "convtransformer": (ca.convtransformer_config, ConvTransformer,
                             text_loss),
+        "berard": (ca.berard_config, Berard, text_loss),
+        "tacotron2": (ca.tacotron2_config, Tacotron2, tacotron2_loss),
+        "fastspeech2": (ca.fastspeech2_config, FastSpeech2,
+                        fastspeech2_loss),
     }[ca.arch_family(args)]
     cfg = config_fn(args, src_vocab_size, tgt_vocab_size,
                     input_feat_per_channel, num_speakers)

@@ -76,14 +76,22 @@ def _to_jax_layout(t: torch.Tensor, kind: str) -> torch.Tensor:
         return t.t()
     if kind == "conv":
         return t.permute(2, 1, 0)
+    if kind == "conv2d":
+        return t.permute(2, 3, 1, 0)
     if kind == "heads_k":
         return t[:, 0, :]
+    if kind == "scalar":
+        return t.reshape(())
     return t
 
 
 def _from_jax_layout(t: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "heads_k":
         return t[:, None, :]
+    if kind == "conv2d":
+        return t.permute(3, 2, 0, 1)
+    if kind == "scalar":
+        return t.reshape(1)
     return _to_jax_layout(t, kind)
 
 
@@ -96,11 +104,12 @@ def _host(t: torch.Tensor, kind: str) -> np.ndarray:
 
 
 def _tensor(arr: np.ndarray, kind: str) -> torch.Tensor:
+    # ascontiguousarray makes a 0-d array 1-d: keep the file's shape
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)
     if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
-                             ).view(torch.bfloat16)
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = torch.from_numpy(arr)
     return _from_jax_layout(t, kind)
 
 

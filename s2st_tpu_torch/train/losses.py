@@ -1,12 +1,14 @@
-"""The training losses: the composite S2ST loss, the T2S loss and the S2T
-CE.
+"""The training losses: the composite S2ST loss, the T2S and Tacotron2
+losses, the S2T CE and the FastSpeech2 loss.
 
-Counterpart of ``s2st_tpu/train/losses.py`` (:29-182, :183-283): L1 + MSE
+Counterpart of ``s2st_tpu/train/losses.py`` (:29-182, :183-283,
+:299-318, :1216-1286): L1 + MSE
 on the features before and after the postnet over valid frames, the EOS BCE
 with a positive-class weight, the guided-attention loss, CTC over encoder
 tap 0, the MTL target CTC over the first decoder tap and the
 label-smoothed CE of the aux ASR/ST decoders, each normalised as JAX does;
-``t2s_loss`` is the spectrogram terms on the T2S model's forward. Every
+``t2s_loss`` and ``tacotron2_loss`` are the spectrogram terms on the T2S
+and Tacotron2 models' forwards; ``fastspeech2_loss`` is its own. Every
 term is an fp32 scalar; the loss is a mean, and
 ``sample_size`` is the number of target frames (the trainer still divides
 the gradients by it, as JAX's does).
@@ -292,8 +294,75 @@ def s2t_loss(model, lcfg: LossConfig, batch: Dict[str, Any],
                       "mean_keys": ("loss", "nll_loss")}
 
 
+def tacotron2_loss(model, lcfg: LossConfig, batch: Dict[str, Any],
+                   train: bool = True,
+                   generator: Optional[torch.Generator] = None,
+                   layer_keep: Optional[Sequence[bool]] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """``tacotron2_loss`` (:299-318): the Tacotron2 model's teacher-forced
+    forward, then the composite loss on its attention transposed to (B,
+    Tt, Ts), guided attention included; the new statistics are the
+    encoder's BatchNorms' and the postnet's."""
+    net = model(batch, train=train, generator=generator,
+                layer_keep=layer_keep)
+    net["attn"] = net["attn"].transpose(1, 2)
+    return composite_loss(net, lcfg, batch)
+
+
+def fastspeech2_loss(model, lcfg: LossConfig, batch: Dict[str, Any],
+                     train: bool = True,
+                     generator: Optional[torch.Generator] = None,
+                     layer_keep: Optional[Sequence[bool]] = None
+                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """``fastspeech2_loss`` (:1216-1286): the teacher-forced FastSpeech2
+    pass at the batch's padded target length; masked-mean L1 on the
+    features (and on the postnet's, with one), MSE on pitch and energy and
+    on log(duration + 1) over source positions, and with ``ctc_weight``
+    the CTC of the source tokens (PAD positions as 0) against the frame
+    logits over each row's target frames. ``sample_size`` is the number of
+    rows."""
+    tgt = batch["tgt_speech"]
+    b, tt, _ = tgt.shape
+    ts = batch["src_text"].shape[1]
+    net = model(batch["src_text"], batch["src_text_len"],
+                speaker=batch.get("speaker"), durations=batch["durations"],
+                pitches=batch["pitches"], energies=batch["energies"],
+                max_out_len=tt, train=train, generator=generator)
+    tgt_mask = lengths_to_mask(batch["target_lengths"], tt)[:, :, None]
+    src_mask = lengths_to_mask(batch["src_text_len"], ts)
+    feat = tgt.float()
+    l1 = masked_mean((net["feat_out"].float() - feat).abs(), tgt_mask)
+    if model.cfg.add_postnet:
+        l1 = l1 + masked_mean((net["post_feat_out"].float() - feat).abs(),
+                              tgt_mask)
+    pitch = masked_mean((net["pitch_out"].float()
+                         - batch["pitches"].float()) ** 2, src_mask)
+    energy = masked_mean((net["energy_out"].float()
+                          - batch["energies"].float()) ** 2, src_mask)
+    log_dur = torch.log(batch["durations"].float() + 1.0)
+    dur = masked_mean((net["log_dur_out"].float() - log_dur) ** 2, src_mask)
+    ctc = torch.zeros((), device=feat.device)
+    if lcfg.ctc_weight > 0.0 and "ctc_logits" in net:
+        labels = torch.where(src_mask, batch["src_text"],
+                             torch.zeros_like(batch["src_text"]))
+        per_ex = ctc_loss(net["ctc_logits"], batch["target_lengths"],
+                          labels, batch["src_text_len"])
+        per_ex = per_ex / batch["src_text_len"].float().clamp(min=1.0)
+        ctc = per_ex.mean() * lcfg.ctc_weight
+    loss = l1 + dur + pitch + energy + ctc
+    sample_size = torch.tensor(b, device=feat.device)
+    logging = {"loss": loss, "l1_loss": l1, "dur_loss": dur,
+               "pitch_loss": pitch, "energy_loss": energy, "ctc_loss": ctc,
+               "ntokens": batch["target_lengths"].sum(), "nsentences": b,
+               "sample_size": sample_size}
+    return loss, {"new_stats": net["new_stats"], "logging": logging,
+                  "sample_size": sample_size, "mean_keys": FS2_MEAN_KEYS}
+
+
 # the logging values that are means over a batch (:291-294): a gradient
 # accumulation sums every value over its microbatches, then divides these
 # by their number
 MEAN_KEYS = ("loss", "l1_loss", "mse_loss", "eos_loss", "attn_loss",
              "ctc_loss", "ctc_loss_tgt", "aux_asr_loss", "aux_st_loss")
+FS2_MEAN_KEYS = ("loss", "l1_loss", "dur_loss", "pitch_loss", "energy_loss",
+                 "ctc_loss")

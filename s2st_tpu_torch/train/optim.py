@@ -278,8 +278,12 @@ def to_jax_view(t: torch.Tensor, kind: str) -> torch.Tensor:
         return t.t()
     if kind == "conv":
         return t.permute(2, 1, 0)
+    if kind == "conv2d":
+        return t.permute(2, 3, 1, 0)
     if kind == "heads_k":
         return t[:, 0, :]
+    if kind == "scalar":
+        return t.view(())
     return t
 
 
@@ -287,6 +291,10 @@ def from_jax_view(t: torch.Tensor, kind: str) -> torch.Tensor:
     """The inverse of ``to_jax_view``."""
     if kind == "heads_k":
         return t[:, None, :]
+    if kind == "conv2d":
+        return t.permute(3, 2, 0, 1)
+    if kind == "scalar":
+        return t.view(1)
     return to_jax_view(t, kind)
 
 

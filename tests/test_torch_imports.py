@@ -80,7 +80,8 @@ def test_port_imports_neither_jax_nor_s2st_tpu():
                  "preprocessing.filter_manifest",
                  "preprocessing.doc_tools", "models.t2s_transformer",
                  "models.xm_transformer", "models.convtransformer",
-                 "models.transformer_text"):
+                 "models.transformer_text", "models.lstm", "models.berard",
+                 "models.tacotron2", "models.fastspeech2"):
         assert f"s2st_tpu_torch.{name}" in _walk_names(), name
     assert bad == "[]", bad
 
