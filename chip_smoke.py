@@ -320,6 +320,27 @@ library's SASS, and the attention libraries must hold some.
    tst split's text (--duration-factor 1.0 --min-duration 1): 8 launches
    a batch, each call held, finite 80-d features of at least a frame a
    token, PCM16 WAVs of their length.
+25. Self-supervised speech training at hubert-base / wav2vec2-base width
+   (7 convs of 512, 12 post-LN layers of 768-d, 12 heads, FFN 3072,
+   pos_conv 128/16), --fp16 (the trunk computes in fp32 past its
+   GroupNorm: the kernels take fp32 at D=64), seeded weights, 3 updates
+   each through the train CLI in this process, on phase 16's 16 WAVs as
+   a wav2vec manifest in batches of 8, every distinct forward and
+   backward kernel call held against the plain version (fp32 backward
+   also by direction against the float64 plain version where fp32
+   resolves the gradient): (a) hubert_pretraining on seeded 500-unit
+   labels at 50 Hz: 12 forward and 12 backward launches an update; (b)
+   audio_finetuning --arch hubert_ctc from (a)'s checkpoint_last.npz with
+   --freeze-finetune-updates 1, seeded letters, validated once: 12
+   forward an update, 0 backward in the first and 12 in the second and
+   third, the trunk equal to (a)'s bit for bit after the first and the
+   extractor after all three, the validation's c_errors, c_total,
+   w_errors and w_total finite; (c) audio_pretraining --arch wav2vec2
+   --quantize-targets --attention-dropout 0 (320 x 2 codes, 100
+   negatives): 12 and 12 an update, the logged temperature max(2 *
+   0.999995^n, 0.5), stats::num_updates 3 in its checkpoint. Prints each
+   run's losses, the second update's ms, the third's device ms, device
+   activities and idle share, peak memory and the kernels' dtype.
 
 Prints the card's name and power limit, one JSON line of kernel
 measurements, and, last, {"ok": true, "device": {...}}.
@@ -4201,8 +4222,7 @@ PAPER_UPDATES = 3
 TEXT_FAMILIES = ("s2t", "xm", "convtransformer", "berard")
 PAPER_FLAGS = ("--use-flash-attention", "--attention-dropout", "0",
                "--device", "cuda", "--log-interval", "1",
-               "--disable-validation", "--no-epoch-checkpoints",
-               "--save-interval", "100")
+               "--no-epoch-checkpoints", "--save-interval", "100")
 PAPER_ALPHA = 0.5
 # mix-tuning stage 2's two corpora: the first 10 and the last 6 of phase
 # 16's 16 utterances
@@ -4316,9 +4336,72 @@ def bwd_error_bound(q, k, v, kpm, causal, g, out) -> tuple:
     return dq, dk, dv
 
 
-def _bwd_within(got, want, bounds) -> tuple:
-    """(every gradient finite and within its bound elementwise, max abs
-    err, largest err / bound)."""
+# fp32: besides its own inputs, each call is also run, kernel and plain
+# version alike, at its shapes, padding mask and causality on seeded
+# normal q, k, v (each at the RMS of the path's) and a unit-normal dO;
+# dq, dk, dv are each held there by relative error ||got - exact|| /
+# ||exact|| against the float64 plain version. A path's own inputs can
+# leave a gradient unresolved in fp32: phase 25's CTC run's dq is at
+# most 6.3e-08, under TOL_BWD_FP32's atol, and even at a unit dO on its
+# q, k, v the fp32 plain version's dq is 4.6e3 times the float64 one's
+# norm away from it, so no check there can refuse dq = 0. The kernel
+# sums in fp32 FMAs over up to 512 keys or queries: n 2^-24 = 3e-5
+REL_BWD_FP32 = 1e-4
+
+
+def attention_fp64(q, k, v, kpm, causal):
+    """The plain version in float64 (an oracle for fp32 gradients)."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    if causal:
+        tq, tk = logits.shape[-2:]
+        logits = logits.masked_fill(torch.ones(
+            tq, tk, dtype=torch.bool, device=q.device).triu(1), -1e9)
+    if kpm is not None:
+        logits = logits.masked_fill(kpm[:, None, None, :], -1e9)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, -1), v)
+
+
+def unit_case_grads(shape, tk, kpm, causal, path) -> dict:
+    """dq, dk, dv at a recorded fp32 call's shapes, padding mask and
+    causality, on seeded normal q, k, v at the RMS of the path's
+    (``path``) and a unit-normal dO: the kernels' (its forward for the
+    output and row statistics; neither launch counted), and the fp32
+    and float64 plain versions' autograd."""
+    from s2st_tpu_torch.kernels import attention as ka
+    b, tq, h, d = shape
+    dev = path[0].device
+    gen = torch.Generator(dev).manual_seed(0)
+    q, k, v = (torch.randn(size, device=dev, generator=gen)
+               * float(x.detach().float().square().mean().sqrt())
+               for size, x in zip(((b, tq, h, d), (b, tk, h, d),
+                                   (b, tk, h, d)), path))
+    g = torch.randn(shape, device=dev, generator=gen)
+    launches = ka.flash_attention.launches, ka.flash_attention.bwd_launches
+    out, row_max, row_logsum = ka.flash_attention_forward(
+        q, k, v, kpm, causal, stats=True)
+    kernel = ka.flash_attention_backward(q, k, v, out, row_max, row_logsum,
+                                         g, kpm, causal)
+    ka.flash_attention.launches, ka.flash_attention.bwd_launches = launches
+    grads = {"kernel": kernel}
+    for name, plain, dt in (("fp32", ka.flash_attention_reference,
+                             torch.float32),
+                            ("exact", attention_fp64, torch.float64)):
+        leaves = [x.to(dt).requires_grad_() for x in (q, k, v)]
+        grads[name] = torch.autograd.grad(plain(*leaves, kpm, causal),
+                                          leaves, g.to(dt))
+    return grads
+
+
+def _rel_errs(got, exact) -> list:
+    return [float((x.double() - e).norm() / e.norm()) for x, e in
+            zip(got, exact)]
+
+
+def _bwd_within(got, want, bounds, unit=None) -> tuple:
+    """(every gradient finite and within its bound elementwise and, with
+    ``unit`` ((dq, dk, dv) of unit_case_grads' case, and its float64
+    ones), each there within REL_BWD_FP32 of its float64 one, max abs err,
+    largest err / bound)."""
     ok, max_err, share = True, 0.0, 0.0
     for x, y, bound in zip(got, want, bounds):
         err = (x.float() - y).abs()
@@ -4327,56 +4410,83 @@ def _bwd_within(got, want, bounds) -> tuple:
             share = max(share, float((err / bound).max()))
         ok = ok and bool(torch.isfinite(x.float()).all()) and \
             bool((err <= bound).all())
+    if unit is not None:
+        ok = ok and all(e <= REL_BWD_FP32 for e in _rel_errs(*unit))
     return ok, max_err, share
 
 
 def hold_path_attention_bwd(calls: dict, label: str, card: str) -> float:
     """Each recorded backward call's dq, dk, dv against the plain
     version's fp32 autograd on the same inputs and dO: fp32 within phase
-    5's TOL_BWD_FP32; bf16 within ``bwd_error_bound`` elementwise plus
-    1e-3 of the gradient's largest magnitude (phase 5's bound, 3e-2 of
-    it alone, fails on the path's gradients, whose dS cancels to near 0
-    in most rows). Each call's check must also refuse two wrong answers,
-    dq set to 0 and dk and dv swapped (dq or dk set to 1 where dO, and so
+    5's TOL_BWD_FP32, and at the same shapes and mask on seeded inputs
+    each within REL_BWD_FP32 of the float64 plain version's
+    (unit_case_grads); bf16 within
+    ``bwd_error_bound`` elementwise plus 1e-3 of the gradient's largest
+    magnitude (phase 5's bound, 3e-2 of it alone, fails on the path's
+    gradients, whose dS cancels to near 0 in most rows). Each call's check
+    must also refuse two wrong answers, dq set to 0 and dk and dv swapped
+    (in fp32 on both inputs; in bf16 dq or dk set to 1 where dO, and so
     every gradient, is 0), or it checks nothing there. Returns the largest
     error."""
     from s2st_tpu_torch.kernels import attention as ka
     worst = 0.0
-    for (shape, tk, dtype, causal, masked), (q, k, v, kpm, g, out, *got) in \
-            calls.items():
+    for (shape, tk, dtype, causal, masked), \
+            (q, k, v, kpm, g, out, *got) in calls.items():
         leaves = [x.float().requires_grad_() for x in (q, k, v)]
         want = torch.autograd.grad(ka.flash_attention_reference(
             *leaves, kpm, causal), leaves, g.float())
+        unit = None
         if dtype == "float32":
             atol, rtol = TOL_BWD_FP32
             bounds = [atol + rtol * y.abs() for y in want]
+            unit = unit_case_grads(shape, tk, kpm, causal, (q, k, v))
         else:
             with torch.no_grad():
                 bounds = [b + 1e-3 * y.abs().max() for b, y in zip(
                     bwd_error_bound(*(x.float() for x in (q, k, v)), kpm,
                                     causal, g.float(), out.float()), want)]
-        ok, max_err, worst_share = _bwd_within(got, want, bounds)
-        dq, dk, dv = got
+        ok, max_err, worst_share = _bwd_within(
+            got, want, bounds,
+            None if unit is None else (unit["kernel"], unit["exact"]))
         # where dO is 0 (a loss term weighted 0 upstream) every gradient
-        # and every bound is 0, so ones stand in for the wrong answers
+        # and every bound is 0: in bf16 ones stand in for the wrong answers
         zero = not any(bool(y.any()) for y in want)
-        wrong = ((torch.ones_like(dq), dk, dv), (dq, torch.ones_like(dk), dv)
-                 ) if zero else ((torch.zeros_like(dq), dk, dv), (dq, dv, dk))
-        caught = [not _bwd_within(w, want, bounds)[0] for w in wrong]
+
+        def planted(dq, dk, dv):
+            if zero and unit is None:
+                return (torch.ones_like(dq), dk, dv), \
+                    (dq, torch.ones_like(dk), dv)
+            return (torch.zeros_like(dq), dk, dv), (dq, dv, dk)
+        if unit is None:
+            caught = [not _bwd_within(w, want, bounds)[0]
+                      for w in planted(*got)]
+        else:
+            caught = [not _bwd_within(w, want, bounds, (w_unit,
+                                                         unit["exact"]))[0]
+                      for w, w_unit in zip(planted(*got),
+                                           planted(*unit["kernel"]))]
         b, tq, h, d = shape
         print("path_case_bwd " + json.dumps({
             "path": label, "B": b, "Tq": tq, "Tk": tk, "H": h, "D": d,
             "dtype": dtype, "causal": causal, "key_padding": masked,
             "max_abs_err": max_err, "err_over_bound": worst_share,
             "max_abs_grad": [float(y.abs().max()) for y in want],
+            "seeded_rel_err": None if unit is None else {
+                "kernel": _rel_errs(unit["kernel"], unit["exact"]),
+                "plain_fp32": _rel_errs(unit["fp32"], unit["exact"]),
+                "limit": REL_BWD_FP32},
             "dO_zero": zero, "refuses_wrong_answers": caught,
             "card": card}),
             flush=True)
+        rel = "" if unit is None else (
+            f", on seeded inputs relative errors "
+            f"{_rel_errs(unit['kernel'], unit['exact'])} (limit "
+            f"{REL_BWD_FP32})")
         if not ok:
             raise AssertionError(f"{label}: the backward kernel at B={b} "
                                  f"Tq={tq} Tk={tk} D={d} {dtype} disagrees "
                                  f"with the plain version: {max_err} "
-                                 f"({worst_share:.3f} of the bound)")
+                                 f"({worst_share:.3f} of the bound){rel}")
         if not all(caught):
             raise AssertionError(f"{label}: the backward check at B={b} "
                                  f"Tq={tq} Tk={tk} D={d} {dtype} passes a "
@@ -4388,23 +4498,27 @@ def hold_path_attention_bwd(calls: dict, label: str, card: str) -> float:
     return worst
 
 
-def run_paper_line(argv: list, card: str, label: str, extra=()) -> dict:
+def run_paper_line(argv: list, card: str, label: str, extra=(),
+                   want=None, validate=False) -> dict:
     """One recipe line through the port's train CLI in this process, with
-    PAPER_FLAGS and ``extra``: each update's attention launches (forward,
-    backward) must be paper_launches' for the line's model; the second
-    update's ms, the third's device ms and wall under torch.profiler
-    (device events only) and the idle share of that one update, peak
-    memory; every distinct kernel call, forward and backward, held against
-    the plain version."""
+    PAPER_FLAGS, ``--disable-validation`` unless ``validate``, and
+    ``extra``: each update's attention launches (forward, backward) must
+    be ``want``'s, a list of one pair an update (by default
+    paper_launches' for the line's model each update);
+    the second update's ms, the third's device ms and wall under
+    torch.profiler (device events only) and the idle share of that one
+    update, peak memory; every distinct kernel call, forward and backward,
+    held against the plain version, and the dtypes the kernels took."""
     from s2st_tpu_torch.cli import train
     from s2st_tpu_torch.kernels import attention as ka
     from s2st_tpu_torch.models.config_from_args import apply_arch, arch_family
     from s2st_tpu_torch.train.trainer import Trainer
-    argv = [*argv, "--max-update", str(PAPER_UPDATES), *PAPER_FLAGS, *extra]
+    argv = [*argv, "--max-update", str(PAPER_UPDATES), *PAPER_FLAGS,
+            *(() if validate else ("--disable-validation",)), *extra]
     save = Path(argv[argv.index("--save-dir") + 1])
     argv += ["--log-file", str(save / "log.jsonl")]
     args = apply_arch(train.get_parser().parse_args(argv), argv)
-    want = paper_launches(args)
+    want = want or [paper_launches(args)] * PAPER_UPDATES
     orig, per_update, prof = Trainer.train_step, [], {}
 
     def step(self, *a, **k):
@@ -4425,27 +4539,32 @@ def run_paper_line(argv: list, card: str, label: str, extra=()) -> dict:
         return out
 
     Trainer.train_step = step
+    text = args.task == "audio_finetuning" or (
+        args.task not in train.AUDIO_TASKS
+        and arch_family(args) in TEXT_FAMILIES)
     try:
         with RecordAttention() as rf, RecordAttentionBwd() as rb:
-            run = run_train_cli(argv, save, card, label,
-                                s2t=arch_family(args) in TEXT_FAMILIES,
+            run = run_train_cli(argv, save, card, label, s2t=text,
                                 frames_per_step=args.n_frames_per_step)
     finally:
         Trainer.train_step = orig
-    if run["updates"] != PAPER_UPDATES or \
-            per_update != [want] * PAPER_UPDATES:
+    if run["updates"] != PAPER_UPDATES or per_update != list(want):
         raise AssertionError(f"{label}: {run['updates']} updates, launches "
                              f"(fwd, bwd) an update {per_update}; want "
                              f"{PAPER_UPDATES} of {want}")
     run["launches_per_update"] = want
-    run["update_ms"] = json.loads((save / "log.jsonl").read_text()
-                                  .splitlines()[1])["step_ms"]
+    run["update_ms"] = json.loads([line for line in (
+        save / "log.jsonl").read_text().splitlines()
+        if '"valid"' not in line][1])["step_ms"]
     prof["idle"] = 1 - prof["device_ms"] / prof["wall_ms"]
-    run["profile"] = {k: prof[k] for k in ("wall_ms", "device_ms", "idle")}
+    run["profile"] = {k: prof[k] for k in ("wall_ms", "device_ms", "idle",
+                                           "activities")}
     run["fwd_err"] = hold_path_attention(rf.calls, label, card)
     run["bwd_err"] = hold_path_attention_bwd(rb.calls, label, card)
-    print(f"paper {label}: {want[0]} forward and {want[1]} backward kernel "
-          f"launches an update; {run['update_ms']:.3f} ms an update (the "
+    run["kernel_dtypes"] = sorted({key[2] for key in (*rf.calls, *rb.calls)})
+    print(f"paper {label}: launches (forward, backward) an update {want}, "
+          f"the kernels in {run['kernel_dtypes']}; "
+          f"{run['update_ms']:.3f} ms an update (the "
           f"second); the third under torch.profiler: device "
           f"{prof['device_ms']:.3f} ms in {prof['activities']} activities "
           f"of {prof['wall_ms']:.3f} ms wall with the profiler, idle share "
@@ -5617,6 +5736,176 @@ def tts_archs_phase(card: str) -> dict:
             "generate": generate}
 
 
+# --------------------------------------------------------------------------
+# phase 25: self-supervised speech training: HuBERT, CTC fine-tuning,
+# wav2vec 2.0
+# --------------------------------------------------------------------------
+
+SSL_FLAGS = ("--train-subset", "train", "--fp16", "--max-tokens", "1300000",
+             "--max-sample-size", "250000", "--min-sample-size", "32000",
+             "--optimizer", "adam", "--lr", "5e-4", "--lr-scheduler",
+             "inverse_sqrt", "--warmup-updates", "4000", "--clip-norm",
+             "10.0", "--seed", "1")
+SSL_UNITS = 500          # the base recipe's second-iteration k-means units
+SSL_LETTERS = "abcdefghijklmnopqrstuvwxyz'"
+SSL_DEV = 4              # the first 4 utterances, validated in one batch
+
+
+def write_ssl_corpus(root: Path, seed: int) -> None:
+    """Phase 16's 16 utterances (10 s down to 4 s, 16 kHz PCM16 noise) as
+    a wav2vec manifest (``train.tsv``; ``dev.tsv`` the first 4), seeded
+    k-means labels at 50 Hz from a 500-unit ``dict.km.txt`` and seeded
+    letter transcripts (26 letters, ', | between words; ``dict.ltr.txt``),
+    about 12 letters a second."""
+    from s2st_tpu_torch.data.audio_utils import write_wav
+    r = np.random.RandomState(seed)
+    (root / "wavs").mkdir(parents=True)
+    rows, km, ltr = [], [], []
+    for i, n in enumerate(hubert_samples()):
+        write_wav(str(root / "wavs" / f"utt{i}.wav"),
+                  np.clip(r.randn(n) * 0.1, -1.0, 1.0), 16000)
+        rows.append(f"utt{i}.wav\t{n}")
+        km.append(" ".join(str(u) for u in r.randint(0, SSL_UNITS, n // 320)))
+        words = [r.choice(list(SSL_LETTERS), r.randint(2, 9))
+                 for _ in range(n * 12 // 16000 // 6)]
+        ltr.append(" | ".join(" ".join(w) for w in words) + " |")
+    for split, keep in (("train", slice(None)), ("dev", slice(0, SSL_DEV))):
+        (root / f"{split}.tsv").write_text(
+            "\n".join([str(root / "wavs"), *rows[keep]]) + "\n")
+        (root / f"{split}.km").write_text("\n".join(km[keep]) + "\n")
+        (root / f"{split}.ltr").write_text("\n".join(ltr[keep]) + "\n")
+    (root / "dict.km.txt").write_text(
+        "".join(f"{u} 1\n" for u in range(SSL_UNITS)))
+    (root / "dict.ltr.txt").write_text(
+        "".join(f"{c} 1\n" for c in SSL_LETTERS + "|"))
+
+
+def ssl_phase(card: str) -> dict:
+    """25: the three self-supervised speech tasks through the port's train
+    CLI in this process (``run_paper_line``), at hubert-base /
+    wav2vec2-base width (7 convs of 512, 12 post-LN layers of 768-d, 12
+    heads, FFN 3072, pos_conv 128/16), --fp16 (the trunk computes in fp32
+    past its GroupNorm, so the kernels take fp32), seeded weights, on
+    ``write_ssl_corpus``'s 16 WAVs in batches of 8, 3 updates each, every
+    distinct forward and backward kernel call held against the plain
+    version: (a) hubert_pretraining --arch hubert (mask 0.8 x 10,
+    final_dim 256, 500-unit labels at 50 Hz): 12 forward and 12 backward
+    launches an update; (b) audio_finetuning --arch hubert_ctc --criterion
+    ctc --labels ltr from (a)'s checkpoint_last.npz (--w2v-path) with
+    --freeze-finetune-updates 1, --apply-mask and a channel mask,
+    validated once after the third update on 4 utterances: 12 forward
+    launches an update, 0 backward in the first and 12 in the second and
+    third; the trunk equal to (a)'s bit for bit after the first update,
+    the extractor (feature_grad_mult 0) after all three; the validation's
+    c_errors, c_total, w_errors and w_total finite; (c) audio_pretraining
+    --arch wav2vec2 --criterion wav2vec --quantize-targets
+    --attention-dropout 0 (320 x 2 codebook, 100 negatives, final_dim
+    256): 12 and 12 launches an update, the logged temp max(2 * 0.999995^n,
+    0.5) for n = 0, 1, 2, checkpoint_last.npz's stats::num_updates 3.
+    Prints each run's losses, the second update's ms, the third's device ms
+    and idle share (for (b) also its device activities: the CTC loop's),
+    peak memory, the launches and the kernels' dtype."""
+    from s2st_tpu_torch.models.jax_bridge import _to_jax, jax_layout
+    from s2st_tpu_torch.train import checkpoint as pckpt
+    from s2st_tpu_torch.train.trainer import Trainer
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_ssl_"))
+    runs = {}
+    try:
+        data = work / "data"
+        write_ssl_corpus(data, seed=251)
+        base = [str(data), *SSL_FLAGS]
+        runs["hubert"] = run_paper_line(
+            base + ["--save-dir", str(work / "hubert"), "--task",
+                    "hubert_pretraining", "--arch", "hubert", "--criterion",
+                    "hubert", "--labels", "km", "--label-rate", "50"],
+            card, "ssl_hubert", want=[(12, 12)] * PAPER_UPDATES)
+        pre = work / "hubert" / "checkpoint_last.npz"
+        pre_flat = pckpt.load_checkpoint_file(str(pre))[0]
+
+        snaps, orig = {}, Trainer.train_step
+
+        def snapshot(self, *a, **k):
+            out = orig(self, *a, **k)
+            if self.step == 1:
+                sd = self.model.state_dict()
+                snaps.update({key: _to_jax(sd[name], kind)
+                              for name, key, kind in jax_layout(self.model)
+                              if key.startswith("params::w2v::")})
+            return out
+        Trainer.train_step = snapshot
+        try:
+            runs["ctc"] = run_paper_line(
+                base + ["--save-dir", str(work / "ctc"), "--task",
+                        "audio_finetuning", "--arch", "hubert_ctc",
+                        "--criterion", "ctc", "--labels", "ltr",
+                        "--w2v-path", str(pre), "--freeze-finetune-updates",
+                        "1", "--apply-mask", "--mask-channel-prob", "0.5",
+                        "--mask-channel-length", "64", "--lr", "5e-5",
+                        "--valid-subset", "dev", "--validate-interval",
+                        "1000", "--validate-interval-updates",
+                        str(PAPER_UPDATES)],
+                card, "ssl_ctc", want=[(12, 0)] + [(12, 12)] * (
+                    PAPER_UPDATES - 1),
+                validate=True)
+        finally:
+            Trainer.train_step = orig
+        run = runs["ctc"]
+        if (run["fwd_launches"], run["bwd_launches"]) != (
+                12 * (PAPER_UPDATES + 1), 12 * (PAPER_UPDATES - 1)):
+            raise AssertionError(f"ssl_ctc: launches {run['fwd_launches']}, "
+                                 f"{run['bwd_launches']}; want 12 an update "
+                                 f"and 12 for the validation's one batch, "
+                                 f"12 backward in updates 2 and 3")
+        trunk = {key: key.replace("params::w2v::", "params::", 1)
+                 for key in snaps}
+        moved = [k for k, p in trunk.items() if not np.array_equal(
+            snaps[k], pre_flat[p])]
+        final = pckpt.load_checkpoint_file(
+            str(work / "ctc" / "checkpoint_last.npz"))[0]
+        extractor = [k for k in trunk if "::extractor::" in k]
+        if len(trunk) < 200 or moved or not extractor or any(
+                not np.array_equal(final[k], pre_flat[trunk[k]])
+                for k in extractor) or int(final["stats::num_updates"]) != 3:
+            raise AssertionError(f"ssl_ctc: the trunk moved in the frozen "
+                                 f"update ({moved[:4]}) or the extractor "
+                                 f"since, or the count is not 3")
+        valid = run["valid"]
+        keys = ("c_errors", "c_total", "w_errors", "w_total")
+        if len(valid) != 1 or not all(np.isfinite(valid[0]["valid"][k])
+                                      for k in keys):
+            raise AssertionError(f"ssl_ctc: validations {valid}")
+        print(f"ssl ctc: the trunk's {len(trunk)} arrays equal (a)'s "
+              f"checkpoint bit for bit after the frozen update, the "
+              f"extractor's after {PAPER_UPDATES}; validation "
+              f"{ {k: valid[0]['valid'][k] for k in keys} } ({card})",
+              flush=True)
+        shutil.rmtree(work / "hubert")
+        shutil.rmtree(work / "ctc")
+
+        runs["wav2vec2"] = run_paper_line(
+            base + ["--save-dir", str(work / "w2v"), "--task",
+                    "audio_pretraining", "--arch", "wav2vec2", "--criterion",
+                    "wav2vec", "--quantize-targets"],
+            card, "ssl_wav2vec2", want=[(12, 12)] * PAPER_UPDATES)
+        temps = [json.loads(line)["temp"] for line in
+                 (work / "w2v" / "log.jsonl").read_text().splitlines()]
+        want = [max(2.0 * 0.999995 ** n, 0.5) for n in range(PAPER_UPDATES)]
+        count = int(pckpt.load_checkpoint_file(str(
+            work / "w2v" / "checkpoint_last.npz"))[0]["stats::num_updates"])
+        if any(abs(a - b) > 1e-6 * b for a, b in zip(temps, want)) or \
+                count != PAPER_UPDATES:
+            raise AssertionError(f"ssl_wav2vec2: temps {temps} (want "
+                                 f"{want}), stats::num_updates {count}")
+        print(f"ssl wav2vec2: temps {temps}, stats::num_updates {count} "
+              f"({card})", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"ssl phase: {time.perf_counter() - t0:.1f} s ({card})",
+          flush=True)
+    return runs
+
+
 def attention_shapes(fwd: dict, bwd: dict) -> dict:
     """The attention kernels' graph-replay times at each main shape of
     phases 1 and 5 beside SDPA's, the plain version's and the bound."""
@@ -5761,6 +6050,8 @@ def main(argv=None) -> int:
     lap("archs_phase")
     tts = tts_archs_phase(card)
     lap("tts_archs_phase")
+    ssl = ssl_phase(card)
+    lap("ssl_phase")
     for group in ("train", "serve"):
         archs[group].update(tts[group])
 
@@ -5801,7 +6092,8 @@ def main(argv=None) -> int:
             **{f"arch_{k}": v["fwd_launches"]
                for k, v in archs["train"].items()},
             **{f"arch_{k}_serve": v["launches"]
-               for k, v in archs["serve"].items()}},
+               for k, v in archs["serve"].items()},
+            **{f"ssl_{k}": v["fwd_launches"] for k, v in ssl.items()}},
         "max_abs_err": serving["max_abs_err"],
         "path_max_abs_err": {
             "generate_for_s2st": s2t["path_max_abs_err"],
@@ -5818,7 +6110,8 @@ def main(argv=None) -> int:
                 "path_max_abs_err"],
             **{f"arch_{k}": v["fwd_err"] for k, v in archs["train"].items()},
             **{f"arch_{k}_serve": v["path_max_abs_err"]
-               for k, v in archs["serve"].items()}},
+               for k, v in archs["serve"].items()},
+            **{f"ssl_{k}": v["fwd_err"] for k, v in ssl.items()}},
         "ms": serving["kernel_graph_ms"],
         "plain_ms": serving["plain_graph_ms"],
         "bound_ms": serving["bound_ms"],
@@ -5843,14 +6136,17 @@ def main(argv=None) -> int:
             **{f"paper_{k}": v["bwd_launches"] for k, v in paper.items()},
             "train_leftouts": leftouts["bwd_launches"],
             **{f"arch_{k}": v["bwd_launches"]
-               for k, v in archs["train"].items()}},
+               for k, v in archs["train"].items()},
+            **{f"ssl_{k}": v["bwd_launches"] for k, v in ssl.items()}},
         "launches_per_update": a["bwd_launches"] / a["updates"],
         "max_abs_err": bwd["max_abs_err"],
         "path_max_abs_err": {**{f"paper_{k}": v["bwd_err"]
                                 for k, v in paper.items()},
                              "train_leftouts": leftouts["bwd_err"],
                              **{f"arch_{k}": v["bwd_err"]
-                                for k, v in archs["train"].items()}},
+                                for k, v in archs["train"].items()},
+                             **{f"ssl_{k}": v["bwd_err"]
+                                for k, v in ssl.items()}},
         "ms": bwd["bwd_graph_ms"],
         "plain_ms": bwd["plain_bwd_graph_ms"],
         "bound_ms": bwd["bound_ms"],

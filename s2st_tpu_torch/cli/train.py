@@ -109,6 +109,13 @@ parameters, after the frontend's load and before a resume, which wins
 ``sampling_alpha`` in config.yaml each epoch resamples them by
 temperature (``data/s2st_dataset.py``).
 
+``--task hubert_pretraining``, ``audio_pretraining`` and
+``audio_finetuning`` (``AUDIO_TASKS``, ``tasks/``) build their model, loss
+and raw-audio datasets from a wav2vec manifest, with no ``config.yaml``
+(JAX's ``get_task``, :71-74); their validation runs the criterion in eval
+(the CTC counters), and resume, retention and ``--save-async`` work as for
+the S2ST task.
+
 ``--use-hubert True`` trains over raw waveforms through the frozen HuBERT
 frontend (``--hubert-hidden/-layers/-ffn/-heads``), and
 ``--load-pretrained-hubert-from`` a fairseq ``.pt`` replaces its random
@@ -140,8 +147,8 @@ from ..data.iterators import (BufferedIterator, DevicePrefetcher,
 from ..data.s2st_dataset import TrainSplit, to_device
 from ..logging_utils import ProgressLogger
 from ..models.config_from_args import (add_model_args, add_speaker_args,
-                                       apply_arch, num_speakers,
-                                       speaker_to_id)
+                                       add_wav2vec2_args, apply_arch,
+                                       num_speakers, speaker_to_id)
 from ..models.hubert import load_torch_hubert
 from ..models.s2st_transformer import encoder_layer_keep
 from ..nn.core import disable_tf32, resolve_device
@@ -150,6 +157,9 @@ from ..train.checkpoint import (CheckpointManager, StateSnapshot,
                                 load_pretrained_component, restore_state)
 from ..train.ema import EMAConfig, ema_step, init_ema
 from ..train.losses import LossConfig
+from ..tasks.audio_finetuning import AudioFinetuningTask
+from ..tasks.audio_pretraining import AudioPretrainingTask
+from ..tasks.hubert_pretraining import HubertPretrainingTask
 from ..tasks.s2s_translation import (build_eval_inference_fn,
                                      build_model_and_loss, data_config,
                                      load_dictionaries)
@@ -164,21 +174,31 @@ logger = logging.getLogger("s2st_tpu_torch.train")
 
 # accepted for the recipe's command line, with no effect in this port
 IGNORED = ("report_accuracy",)
+# the tasks over raw audio, by JAX's names (s2st_tpu/cli/train.py:71-74
+# looks them up in its registry); they need no config.yaml
+AUDIO_TASKS = {"audio_pretraining": AudioPretrainingTask,
+               "hubert_pretraining": HubertPretrainingTask,
+               "audio_finetuning": AudioFinetuningTask}
 
 
 def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("data")
     p.add_argument("--task", default="s2s_translation",
-                   choices=["s2s_translation", "s2s_translation_mtl"])
+                   choices=["s2s_translation", "s2s_translation_mtl",
+                            *AUDIO_TASKS])
     p.add_argument("--criterion", default="s2st_loss",
                    choices=["s2st_loss", "s2st_loss_mtl", "s2t_loss",
                             "t2s_loss", "tacotron2", "tacotron2_loss",
-                            "fastspeech2", "fastspeech2_loss"],
-                   help="the arch binds its loss, as in JAX: s2st_loss for "
-                   "the s2st archs, t2s_loss for t2s_transformer, "
-                   "tacotron2_loss for tacotron_2, fastspeech2_loss for "
-                   "fastspeech2, s2t_loss for the text-output archs")
+                            "fastspeech2", "fastspeech2_loss", "hubert",
+                            "wav2vec", "ctc"],
+                   help="the arch (the task, for the audio tasks) binds its "
+                   "loss, as in JAX: s2st_loss for the s2st archs, t2s_loss "
+                   "for t2s_transformer, tacotron2_loss for tacotron_2, "
+                   "fastspeech2_loss for fastspeech2, s2t_loss for the "
+                   "text-output archs; hubert, wav2vec and ctc for "
+                   "hubert_pretraining, audio_pretraining and "
+                   "audio_finetuning")
     p.add_argument("--config-yaml", default="config.yaml")
     p.add_argument("--train-subset", default="train")
     p.add_argument("--valid-subset", default="valid")
@@ -301,6 +321,7 @@ def get_parser() -> argparse.ArgumentParser:
                        default=None)
     add_speaker_args(p)
     add_model_args(p)
+    add_wav2vec2_args(p)
     return p
 
 
@@ -399,6 +420,25 @@ def validate(args, trainer: Trainer, valid_itr: EpochBatchIterator,
     return stats, ms
 
 
+def load_frontends(args, model) -> None:
+    """``--load-pretrained-hubert-from`` into the HuBERT frontend (the
+    xm_transformer's trunk), then the component warm starts (:169-190)."""
+    frontend = getattr(model.encoder, "hubert", None)
+    if frontend is None:    # the xm_transformer's trunk
+        frontend = getattr(model.encoder, "w2v_model", None)
+    if frontend is not None and args.load_pretrained_hubert_from:
+        sd, _ = load_torch_hubert(args.load_pretrained_hubert_from)
+        frontend.carry_pretraining({k: tuple(v.shape) for k, v in sd.items()})
+        frontend.load_state_dict(sd, strict=True)
+        logger.info(f"loaded pretrained hubert from "
+                    f"{args.load_pretrained_hubert_from}")
+    for path, component in ((args.load_pretrained_encoder_from, "encoder"),
+                            (args.load_pretrained_decoder_from, "decoder")):
+        if path:
+            load_pretrained_component(model, path, component)
+            logger.info(f"warm-started {component} from {path}")
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     logging.basicConfig(
         level=logging.INFO,
@@ -410,38 +450,32 @@ def main(argv: Optional[List[str]] = None) -> int:
     device = resolve_device(args.device)
     check_args(args)
 
-    data_cfg = data_config(args)
-    dicts = load_dictionaries(args.data, data_cfg)
-    model_cfg, model, loss_fn = build_model_and_loss(
-        args, len(dicts[0]), len(dicts[1]), data_cfg.input_feat_per_channel,
-        num_speakers=num_speakers(args))
+    audio_task = AUDIO_TASKS[args.task](args) \
+        if args.task in AUDIO_TASKS else None
+    if audio_task is not None:
+        model_cfg, model, loss_fn = audio_task.build_model_and_loss()
+        lcfg = audio_task.build_loss_config()
+        split = audio_task.load_dataset(args.train_subset)
+    else:
+        data_cfg = data_config(args)
+        dicts = load_dictionaries(args.data, data_cfg)
+        model_cfg, model, loss_fn = build_model_and_loss(
+            args, len(dicts[0]), len(dicts[1]),
+            data_cfg.input_feat_per_channel, num_speakers=num_speakers(args))
+        lcfg = loss_config(args)
+        speakers = speaker_to_id(args)
+        split = TrainSplit(args.data, data_cfg, args.train_subset, *dicts,
+                           n_frames_per_step=args.n_frames_per_step,
+                           speaker_to_id=speakers, seed=args.seed)
+        load_frontends(args, model)
     # the S2ST-shaped config of the dropout streams and the log line (XM
     # has none: its config stands in)
     cfg = getattr(model_cfg, "base", model_cfg)
-    speakers = speaker_to_id(args)
-    split = TrainSplit(args.data, data_cfg, args.train_subset, *dicts,
-                       n_frames_per_step=args.n_frames_per_step,
-                       speaker_to_id=speakers, seed=args.seed)
-    frontend = getattr(model.encoder, "hubert", None)
-    if frontend is None:    # the xm_transformer's trunk
-        frontend = getattr(model.encoder, "w2v_model", None)
-    if frontend is not None and args.load_pretrained_hubert_from:
-        sd, _ = load_torch_hubert(args.load_pretrained_hubert_from)
-        frontend.carry_pretraining({k: tuple(v.shape) for k, v in sd.items()})
-        frontend.load_state_dict(sd, strict=True)
-        logger.info(f"loaded pretrained hubert from "
-                    f"{args.load_pretrained_hubert_from}")
-    # component warm starts, after the frontend's load (:182-190)
-    for path, component in ((args.load_pretrained_encoder_from, "encoder"),
-                            (args.load_pretrained_decoder_from, "decoder")):
-        if path:
-            load_pretrained_component(model, path, component)
-            logger.info(f"warm-started {component} from {path}")
     model = model.to(device)
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"model params: {n_params:,}; {len(split)} utterances in "
                 f"{args.train_subset}; compute {cfg.dtype} on {device}")
-    trainer = Trainer(model, loss_config(args), schedule_from_args(args),
+    trainer = Trainer(model, lcfg, schedule_from_args(args),
                       clip_norm=args.clip_norm, loss_fn=loss_fn,
                       optimizer=args.optimizer,
                       optimizer_kw=optimizer_kwargs(args))
@@ -481,7 +515,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         split, args.max_tokens, args.batch_size, seed=args.seed,
         required_batch_size_multiple=args.required_batch_size_multiple,
         max_positions=(args.max_source_positions
-                       if args.skip_invalid_size_inputs_valid_test else None),
+                       if args.skip_invalid_size_inputs_valid_test
+                       and audio_task is None else None),
         num_batch_buckets=args.num_batch_buckets,
         num_workers=args.num_workers, pin_memory=device.type == "cuda")
     if not epoch_itr.frozen_batches():
@@ -496,14 +531,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     valid_itr = eval_fn = None
     if not args.disable_validation:
         valid_itr = EpochBatchIterator(
-            TrainSplit(args.data, data_cfg, args.valid_subset, *dicts,
-                       n_frames_per_step=args.n_frames_per_step,
-                       speaker_to_id=speakers, seed=args.seed),
+            audio_task.load_dataset(args.valid_subset) if audio_task
+            else TrainSplit(args.data, data_cfg, args.valid_subset, *dicts,
+                            n_frames_per_step=args.n_frames_per_step,
+                            speaker_to_id=speakers, seed=args.seed),
             args.max_tokens, args.batch_size, seed=args.seed,
             required_batch_size_multiple=args.required_batch_size_multiple,
             max_positions=(args.max_source_positions
                            if args.skip_invalid_size_inputs_valid_test
-                           else None),
+                           and audio_task is None else None),
             num_batch_buckets=args.num_batch_buckets, shuffle=False,
             num_workers=args.num_workers)
         if args.eval_inference and args.arch.startswith("s2st"):

@@ -42,7 +42,10 @@ consumed itself, as JAX's does (``cli/train.py:443, 479``).
 
 The dataset gives ``src_n_frames`` (the lengths batches are formed from),
 ``item(index, rng)`` and ``collate(items, pad_batch, pad_src_t, pad_tgt_t,
-pad_src_txt, pad_tgt_txt)`` (``data/s2st_dataset.py::TrainSplit``).
+pad_src_txt, pad_tgt_txt)`` (``data/s2st_dataset.py::TrainSplit``), or,
+where it has ``snap_kwargs(items)``, ``collate(items, **snap_kwargs)`` with
+the shapes it chooses itself (the raw-audio datasets of ``tasks/``; their
+``collate_meta`` in JAX is None, so JAX's path is this one).
 """
 
 from __future__ import annotations
@@ -232,13 +235,21 @@ class EpochBatchIterator:
 
     def collate(self, indices: np.ndarray) -> Dict[str, Any]:
         items = [self.fetch_item(int(i)) for i in indices]
-        batch = self.dataset.collate(
-            items, pad_batch=snap_len(len(items), 8),
-            pad_src_t=self._snap_time(max(len(it["src_speech"])
-                                          for it in items)),
-            pad_tgt_t=snap_len(max(len(it["tgt_speech"]) for it in items)),
-            pad_src_txt=snap_len(max(len(it["src_text"]) for it in items), 8),
-            pad_tgt_txt=snap_len(max(len(it["tgt_text"]) for it in items), 8))
+        if hasattr(self.dataset, "snap_kwargs"):
+            # the dataset's own static shapes (raw audio, :286-297)
+            batch = self.dataset.collate(items,
+                                         **self.dataset.snap_kwargs(items))
+        else:
+            batch = self.dataset.collate(
+                items, pad_batch=snap_len(len(items), 8),
+                pad_src_t=self._snap_time(max(len(it["src_speech"])
+                                              for it in items)),
+                pad_tgt_t=snap_len(max(len(it["tgt_speech"])
+                                       for it in items)),
+                pad_src_txt=snap_len(max(len(it["src_text"])
+                                         for it in items), 8),
+                pad_tgt_txt=snap_len(max(len(it["tgt_text"])
+                                         for it in items), 8))
         if self.pin_memory:
             batch = {k: v.pin_memory() if isinstance(v, torch.Tensor) else v
                      for k, v in batch.items()}

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import ast
+import dataclasses
 import json
 from typing import Any, Dict, List, Optional
 
@@ -209,6 +210,139 @@ ARCHS = {
 }
 
 
+# the self-supervised and CTC archs (options.py:770-783, :852-866,
+# :897-915); their tasks (tasks/audio_*.py) build the model. They set the
+# parser's defaults only: a flag given on the command line wins
+_SSL_BASE = dict(encoder_layers=12, encoder_embed_dim=768,
+                 encoder_ffn_embed_dim=3072, encoder_attention_heads=12,
+                 activation_dropout=0.0)
+SSL_ARCHS = {
+    "wav2vec2": dict(_SSL_BASE, dropout=0.1, attention_dropout=0.1,
+                     quantize_targets=True, infonce=True),
+    "hubert": dict(_SSL_BASE, dropout=0.1, attention_dropout=0.1,
+                   mask_prob=0.8, loss_weights="10"),
+    "wav2vec_ctc": dict(_SSL_BASE, dropout=0.0, attention_dropout=0.0,
+                        dropout_input=0.0, dropout_features=0.0,
+                        feature_grad_mult=0.0, mask_prob=0.65),
+}
+SSL_ARCHS["hubert_ctc"] = SSL_ARCHS["wav2vec_ctc"]
+
+
+def add_wav2vec2_args(p: argparse.ArgumentParser) -> None:
+    """The audio tasks' flags (``add_wav2vec2_args``, options.py:400-475;
+    wav2vec 1.0's left out with its model)."""
+    g = p.add_argument_group("wav2vec2")
+    g.add_argument("--sample-rate", type=int, default=16000)
+    g.add_argument("--max-sample-size", type=int, default=250000)
+    g.add_argument("--min-sample-size", type=int, default=32000)
+    g.add_argument("--normalize", action="store_true",
+                   help="layer-normalize each (cropped) waveform")
+    g.add_argument("--conv-feature-layers",
+                   default="[(512,10,5)]+[(512,3,2)]*4+[(512,2,2)]*2",
+                   help="python literal [(dim, kernel, stride), ...]")
+    g.add_argument("--final-dim", type=int, default=256)
+    g.add_argument("--logit-temp", type=float, default=0.1)
+    g.add_argument("--quantize-targets", action="store_true")
+    g.add_argument("--latent-vars", type=int, default=320)
+    g.add_argument("--latent-groups", type=int, default=2)
+    g.add_argument("--latent-dim", type=int, default=0)
+    g.add_argument("--latent-temp", default="(2.0,0.5,0.999995)")
+    g.add_argument("--mask-prob", type=float, default=0.65)
+    g.add_argument("--mask-length", default="10")
+    g.add_argument("--num-negatives", type=int, default=100)
+    g.add_argument("--cross-sample-negatives", type=int, default=0)
+    g.add_argument("--dropout-input", type=float, default=0.1)
+    g.add_argument("--dropout-features", type=float, default=0.1)
+    g.add_argument("--feature-grad-mult", type=float, default=0.1)
+    g.add_argument("--conv-pos", type=int, default=128)
+    g.add_argument("--conv-pos-groups", type=int, default=16)
+    g.add_argument("--layer-norm-first", action="store_true")
+    g.add_argument("--infonce", action="store_true")
+    g.add_argument("--loss-weights", default="0.1,10",
+                   help="prob_ppl,features_pen weights")
+    g.add_argument("--labels", default="km",
+                   help="comma list of label suffixes")
+    g.add_argument("--label-dir", default=None,
+                   help="dir of {split}.{label} + dict.{label}.txt "
+                   "(default: the data dir)")
+    g.add_argument("--label-rate", type=float, default=50.0)
+    g.add_argument("--untie-final-proj", action="store_true")
+    g.add_argument("--skip-masked", action="store_true")
+    g.add_argument("--skip-nomask", action="store_true")
+    g.add_argument("--pred-masked-weight", type=float, default=1.0)
+    g.add_argument("--pred-nomask-weight", type=float, default=0.0)
+    g.add_argument("--w2v-path", default=None,
+                   help="pretrained SSL trunk (a fairseq .pt or an .npz)")
+    g.add_argument("--final-dropout", type=float, default=0.0)
+    g.add_argument("--apply-mask", action="store_true",
+                   help="apply the span mask during fine-tuning")
+    g.add_argument("--mask-channel-prob", type=float, default=0.0)
+    g.add_argument("--mask-channel-length", type=int, default=10)
+    g.add_argument("--freeze-finetune-updates", type=int, default=0)
+    g.add_argument("--blank-weight", type=float, default=0.0)
+    g.add_argument("--blank-mode", default="add", choices=["add", "set"])
+    g.add_argument("--no-zero-infinity", dest="zero_infinity",
+                   action="store_false", default=True)
+
+
+def wav2vec2_config(args: argparse.Namespace):
+    """``build_wav2vec2_config`` (options.py:808-849): the trunk from the
+    shared encoder flags, bf16 compute under ``--fp16``."""
+    from .hubert import HubertConfig, conv_spec
+    from .wav2vec2 import Wav2Vec2Config
+    dtype = _dtype(args)
+    trunk = HubertConfig(
+        conv_layers=conv_spec(str(args.conv_feature_layers)),
+        encoder_layers=args.encoder_layers,
+        encoder_embed_dim=args.encoder_embed_dim,
+        encoder_ffn_embed_dim=args.encoder_ffn_embed_dim,
+        encoder_attention_heads=args.encoder_attention_heads,
+        conv_pos=args.conv_pos, conv_pos_groups=args.conv_pos_groups,
+        layer_norm_first=args.layer_norm_first, dtype=dtype)
+    return Wav2Vec2Config(
+        trunk=trunk, final_dim=args.final_dim, logit_temp=args.logit_temp,
+        quantize_targets=args.quantize_targets,
+        latent_vars=args.latent_vars, latent_groups=args.latent_groups,
+        latent_dim=args.latent_dim,
+        latent_temp=tuple(ast.literal_eval(str(args.latent_temp))),
+        mask_prob=args.mask_prob, mask_length=int(args.mask_length),
+        num_negatives=args.num_negatives,
+        cross_sample_negatives=args.cross_sample_negatives,
+        dropout=args.dropout, attention_dropout=args.attention_dropout,
+        activation_dropout=args.activation_dropout,
+        dropout_input=args.dropout_input,
+        dropout_features=args.dropout_features,
+        feature_grad_mult=args.feature_grad_mult, dtype=dtype)
+
+
+def hubert_pretrain_config(args: argparse.Namespace, num_classes):
+    """``build_hubert_pretrain_config`` (options.py:869-892): the wav2vec2
+    trunk with the pretraining fields."""
+    return dataclasses.replace(
+        wav2vec2_config(args).trunk, label_rate=args.label_rate,
+        sample_rate=args.sample_rate, final_dim=args.final_dim,
+        logit_temp=args.logit_temp, num_classes=tuple(num_classes),
+        untie_final_proj=args.untie_final_proj,
+        skip_masked=args.skip_masked, skip_nomask=args.skip_nomask,
+        feature_grad_mult=args.feature_grad_mult, mask_prob=args.mask_prob,
+        mask_length=int(args.mask_length), dropout_input=args.dropout_input,
+        dropout_features=args.dropout_features, dropout=args.dropout,
+        activation_dropout=args.activation_dropout)
+
+
+def ctc_asr_config(args: argparse.Namespace, vocab_size: int):
+    """``build_ctc_asr_config`` (options.py:918-935)."""
+    from .ctc_asr import CtcAsrConfig
+    return CtcAsrConfig(
+        trunk=hubert_pretrain_config(args, ()), vocab_size=vocab_size,
+        final_dropout=args.final_dropout, apply_mask=args.apply_mask,
+        mask_channel_prob=args.mask_channel_prob,
+        mask_channel_length=args.mask_channel_length,
+        freeze_finetune_updates=args.freeze_finetune_updates,
+        blank_weight=args.blank_weight, blank_mode=args.blank_mode,
+        dtype=_dtype(args))
+
+
 def arch_family(args: argparse.Namespace) -> str:
     """The model an arch builds: "s2st", "s2t", "t2s", "xm",
     "convtransformer", "berard", "tacotron2" or "fastspeech2" (each family
@@ -239,6 +373,8 @@ def apply_arch(args: argparse.Namespace, argv: List[str]
             defaults.update({k: v for k, v in (("encoder_layers", enc),
                                                ("decoder_layers", dec))
                              if v})
+    elif args.arch in SSL_ARCHS:
+        defaults = dict(SSL_ARCHS[args.arch])
     else:
         defaults = dict(ARCHS.get(args.arch, ("", {}))[1])
         if getattr(args, "middle_layers_decoder", ""):

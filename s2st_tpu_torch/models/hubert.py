@@ -21,6 +21,18 @@ only, with base's conv spec and ``conv_pos``, whatever a loaded checkpoint's
 config says. The trunk is always post-LN (``encoder.layer_norm`` before the
 layers), as JAX's ``encode`` runs every checkpoint, pre-LN ones included.
 
+Training (``--task hubert_pretraining``, the trunks of
+``models/wav2vec2.py`` and ``models/ctc_asr.py``) uses the same trunk with
+what JAX's training paths add (:29-200, :336-465): the three dropouts of
+``_encoder_layer`` (:182-200) and the one after ``encoder.layer_norm``,
+``layer_norm_first`` (``encoder.layer_norm`` after the layers, :219-225),
+``grad_mult`` (``feature_grad_mult``, ``models/wav2vec2.py:117-126``) and a
+``conv_pos`` of either parity (only an even kernel's trailing frame is
+trimmed, :176-177). ``HubertPretrainModel`` is JAX's ``init_hubert_pretrain``
+tree with ``forward_pretrain`` (:381-465): fairseq's ``HubertModel`` names at
+the root, ``mask_emb``, ``final_proj`` and ``label_embs_concat``, and the
+``stats::num_updates`` counter JAX keeps (never advanced by its loss).
+
 ``load_torch_hubert`` reads a fairseq checkpoint (``{"model": state_dict,
 "cfg": ...}``) through ``models/fairseq_checkpoint.py``'s reader, which
 needs neither fairseq nor omegaconf: classes of modules that are not
@@ -30,16 +42,20 @@ contents.
 
 from __future__ import annotations
 
+import ast
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.core import layer_norm, lengths_to_padding_mask, linear
+from ..nn.core import dropout, layer_norm, lengths_to_padding_mask, linear
 from ..nn.transformer import TransformerEncoderLayer
 from .fairseq_checkpoint import plain, read_torch_checkpoint
+from .jax_bridge import trunk_jax_rules
 
 BASE_CONV_LAYERS: Tuple[Tuple[int, int, int], ...] = (
     (512, 10, 5), (512, 3, 2), (512, 3, 2), (512, 3, 2), (512, 3, 2),
@@ -48,10 +64,10 @@ BASE_CONV_LAYERS: Tuple[Tuple[int, int, int], ...] = (
 
 @dataclass(frozen=True)
 class HubertConfig:
-    """The inference fields of ``s2st_tpu.models.hubert.HubertConfig``
-    (hubert-base defaults). conv_layers: (dim, kernel, stride) a layer;
-    conv_pos is even, as in every fairseq HuBERT config (``_pos_conv``
-    trims the frame its even kernel adds)."""
+    """``s2st_tpu.models.hubert.HubertConfig`` (hubert-base defaults).
+    conv_layers: (dim, kernel, stride) a layer. The pretraining fields
+    (:48-63) are read by the training paths only; ``extract_features``
+    runs without dropout or masking whatever they say."""
     conv_layers: Tuple[Tuple[int, int, int], ...] = BASE_CONV_LAYERS
     encoder_layers: int = 12
     encoder_embed_dim: int = 768
@@ -59,11 +75,34 @@ class HubertConfig:
     encoder_attention_heads: int = 12
     conv_pos: int = 128
     conv_pos_groups: int = 16
+    layer_norm_first: bool = False
     dtype: Any = torch.float32
+    label_rate: float = 50
+    sample_rate: int = 16000
+    final_dim: int = 256
+    logit_temp: float = 0.1
+    num_classes: Tuple[int, ...] = ()
+    untie_final_proj: bool = False
+    skip_masked: bool = False
+    skip_nomask: bool = False
+    feature_grad_mult: float = 0.1
+    mask_prob: float = 0.8
+    mask_length: int = 10
+    dropout_input: float = 0.1
+    dropout_features: float = 0.1
+    dropout: float = 0.1
+    activation_dropout: float = 0.0
 
-    def __post_init__(self):
-        if self.conv_pos % 2:
-            raise ValueError(f"conv_pos {self.conv_pos} is odd")
+    @property
+    def downsample(self) -> int:
+        out = 1
+        for _, _, s in self.conv_layers:
+            out *= s
+        return out
+
+    @property
+    def feat2tar_ratio(self) -> float:
+        return self.label_rate * self.downsample / self.sample_rate
 
     def output_length(self, in_length):
         """Frames after the extractor: (L - k) // s + 1 a layer (JAX's
@@ -81,6 +120,17 @@ def frontend_config(cfg) -> HubertConfig:
                         encoder_ffn_embed_dim=cfg.hubert_ffn,
                         encoder_attention_heads=cfg.hubert_heads,
                         dtype=cfg.dtype)
+
+
+def grad_mult(x: torch.Tensor, c: float) -> torch.Tensor:
+    """GradMultiply (``_grad_mult``, models/wav2vec2.py:117-126): x with
+    its gradient times c, in JAX's arithmetic (x * c + detached x * (1 - c);
+    x itself at c = 1, a detached x at c = 0)."""
+    if c == 1.0:
+        return x
+    if c == 0.0:
+        return x.detach()
+    return x * c + x.detach() * (1.0 - c)
 
 
 def group_norm_over_time(x: torch.Tensor, weight: torch.Tensor,
@@ -111,17 +161,21 @@ class _FeatureExtractor(nn.Module):
 
 
 class _Encoder(nn.Module):
-    def __init__(self, cfg: HubertConfig):
+    def __init__(self, cfg: HubertConfig, rates: Sequence[float]):
         super().__init__()
         d = cfg.encoder_embed_dim
         self.pos_conv = nn.Sequential(nn.Conv1d(
             d, d, cfg.conv_pos, padding=cfg.conv_pos // 2,
             groups=cfg.conv_pos_groups))
         self.layer_norm = nn.LayerNorm(d)
+        drop, attn_drop, act_drop = rates
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(d, cfg.encoder_ffn_embed_dim,
                                     cfg.encoder_attention_heads,
-                                    normalize_before=False, activation="gelu")
+                                    normalize_before=False, activation="gelu",
+                                    dropout_rate=drop,
+                                    attention_dropout=attn_drop,
+                                    activation_dropout=act_drop)
             for _ in range(cfg.encoder_layers))
 
 
@@ -131,14 +185,21 @@ class HubertModel(nn.Module):
     # JAX's leaf name for fairseq's label_embs_concat (models/jax_bridge.py)
     jax_names = {"label_embs_concat": ("label_embs", "same")}
 
-    def __init__(self, cfg: HubertConfig):
+    def __init__(self, cfg: HubertConfig,
+                 rates: Optional[Sequence[float]] = None):
+        """rates: the layers' (dropout, attention dropout, activation
+        dropout), by default HuBERT's (``cfg.dropout``, 0,
+        ``cfg.activation_dropout``: JAX's layer drops no attention
+        probability, :182-200); they act only where a generator is
+        given."""
         super().__init__()
         self.cfg = cfg
         self.feature_extractor = _FeatureExtractor(cfg.conv_layers)
         feat_dim = cfg.conv_layers[-1][0]
         self.layer_norm = nn.LayerNorm(feat_dim)
         self.post_extract_proj = nn.Linear(feat_dim, cfg.encoder_embed_dim)
-        self.encoder = _Encoder(cfg)
+        self.encoder = _Encoder(cfg, rates or (cfg.dropout, 0.0,
+                                               cfg.activation_dropout))
 
     def carry_pretraining(self, shapes: Dict[str, Tuple[int, ...]]) -> None:
         """Give the frontend the pretraining leaves a checkpoint holds
@@ -174,8 +235,47 @@ class HubertModel(nn.Module):
         conv = self.encoder.pos_conv[0]
         y = F.conv1d(x.transpose(1, 2), conv.weight.to(x.dtype),
                      conv.bias.to(x.dtype), padding=conv.padding,
-                     groups=conv.groups)[:, :, :-1]
+                     groups=conv.groups)
+        if self.cfg.conv_pos % 2 == 0:
+            y = y[:, :, :-1]    # SamePad: an even kernel adds one frame
         return F.gelu(y).transpose(1, 2)
+
+    def features(self, source: torch.Tensor, c: float) -> torch.Tensor:
+        """The extractor's (B, T', C) features of a (B, L) waveform in the
+        compute dtype, their gradient times c (``grad_mult``); at c = 0 the
+        extractor runs without a graph."""
+        with torch.set_grad_enabled(torch.is_grad_enabled() and c != 0.0):
+            return grad_mult(self._extract(source.to(self.cfg.dtype)), c)
+
+    def post_extract(self, feats: torch.Tensor) -> torch.Tensor:
+        """``layer_norm`` then ``post_extract_proj``."""
+        x = layer_norm(feats, self.layer_norm.weight, self.layer_norm.bias)
+        return linear(x, self.post_extract_proj.weight,
+                      self.post_extract_proj.bias)
+
+    def encode(self, x: torch.Tensor, padding_mask: torch.Tensor,
+               generator: Optional[torch.Generator] = None,
+               input_dropout: float = 0.0,
+               n_layers: Optional[int] = None) -> torch.Tensor:
+        """The transformer over (B, T, D) inputs: padded frames zeroed,
+        ``pos_conv`` added, ``encoder.layer_norm`` before the layers
+        (post-LN trunk) or after them (``layer_norm_first``),
+        ``input_dropout`` before the layers and each layer's dropouts with
+        a generator.
+        ``n_layers`` stops early, before the closing norm."""
+        x = x.masked_fill(padding_mask[:, :, None], 0.0)
+        x = x + self._pos_conv(x)
+        enc_ln = self.encoder.layer_norm
+        lnf = self.cfg.layer_norm_first
+        if not lnf:
+            x = layer_norm(x, enc_ln.weight, enc_ln.bias)
+        x = dropout(x, input_dropout, generator)
+        layers = self.encoder.layers
+        for layer in layers if n_layers is None else layers[:n_layers]:
+            x = layer(x, padding_mask, generator)
+        if lnf and n_layers is None:
+            x = layer_norm(x, enc_ln.weight, enc_ln.bias)
+        return x
 
     def extract_features(self, source: torch.Tensor, lengths: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -186,17 +286,8 @@ class HubertModel(nn.Module):
         x = self._extract(source.to(cfg.dtype))
         t_out = x.shape[1]
         out_lengths = cfg.output_length(lengths).clamp(0, t_out)
-        x = layer_norm(x, self.layer_norm.weight, self.layer_norm.bias)
-        x = linear(x, self.post_extract_proj.weight,
-                   self.post_extract_proj.bias)
         padding_mask = lengths_to_padding_mask(out_lengths, t_out)
-        x = x.masked_fill(padding_mask[:, :, None], 0.0)
-        x = x + self._pos_conv(x)
-        enc_ln = self.encoder.layer_norm
-        x = layer_norm(x, enc_ln.weight, enc_ln.bias)
-        for layer in self.encoder.layers:
-            x = layer(x, padding_mask)
-        return x, out_lengths
+        return self.encode(self.post_extract(x), padding_mask), out_lengths
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "HubertModel":
@@ -222,6 +313,138 @@ class HubertModel(nn.Module):
 
 
 # ---------------------------------------------------------------------------
+# SSL pretraining (HubertModel.forward, fairseq hubert.py:412-516)
+# ---------------------------------------------------------------------------
+
+class Counter(nn.Module):
+    """The ``stats::num_updates`` int32 scalar of JAX's SSL and CTC trees,
+    a buffer a model's ``load_stats`` writes."""
+
+    jax_names = {"num_updates": ("stats::num_updates", "count")}
+
+    def __init__(self):
+        super().__init__()
+        self.register_buffer("num_updates", torch.zeros((), dtype=torch.int32))
+
+
+def cosine_logits(proj_x: torch.Tensor, target: torch.Tensor,
+                  label_embs: torch.Tensor, logit_temp: float
+                  ) -> torch.Tensor:
+    """``_cosine_logits`` (:354-378): (B, T, 1 + V) fp32, column 0 the
+    cosine of each frame with its target's codeword, columns 1.. with
+    every codeword, all over ``logit_temp``, -inf where a negative is the
+    positive. Norms as rsqrt(max(x . x, 1e-16)): a zero pad row keeps a
+    finite gradient, where ``norm``'s is NaN."""
+    x = proj_x.float()
+    e = label_embs.float()
+    xn = x * torch.rsqrt((x * x).sum(-1, keepdim=True).clamp(min=1e-16))
+    en = e * torch.rsqrt((e * e).sum(-1, keepdim=True).clamp(min=1e-16))
+    sims = torch.einsum("btd,vd->btv", xn, en)
+    tgt = target.long()[:, :, None]
+    pos = sims.gather(2, tgt)
+    neg_is_pos = torch.arange(sims.shape[2], device=sims.device) == tgt
+    return torch.cat([pos / logit_temp, (sims / logit_temp).masked_fill(
+        neg_is_pos, float("-inf"))], dim=2)
+
+
+class HubertPretrainModel(HubertModel):
+    """JAX's ``init_hubert_pretrain`` tree (:336-351): the trunk at the
+    top level, ``mask_emb``, ``final_proj`` (``final_dim`` a label stream
+    with ``untie_final_proj``) and ``label_embs_concat`` (JAX's
+    ``label_embs``), and ``stats::num_updates``."""
+
+    jax_names = {"mask_emb": ("params::mask_emb", "same"),
+                 "label_embs_concat": ("params::label_embs", "same")}
+    jax_rules = trunk_jax_rules()
+
+    def __init__(self, cfg: HubertConfig):
+        super().__init__(cfg)
+        d = cfg.encoder_embed_dim
+        n_lbl = max(len(cfg.num_classes), 1)
+        self.mask_emb = nn.Parameter(torch.zeros(d))
+        self.final_proj = nn.Linear(
+            d, cfg.final_dim * (n_lbl if cfg.untie_final_proj else 1))
+        self.label_embs_concat = nn.Parameter(
+            torch.zeros(sum(cfg.num_classes), cfg.final_dim))
+        self.stats = Counter()
+
+    def load_stats(self, new_stats: Dict[str, Any]) -> None:
+        self.stats.num_updates.copy_(new_stats["num_updates"])
+
+    @torch.no_grad()
+    def init_weights(self, seed) -> "HubertPretrainModel":
+        """Seeded random init with ``init_hubert_pretrain``'s
+        distributions: the trunk's, ``mask_emb`` and ``label_embs``
+        uniform in [0, 1)."""
+        g = seed if isinstance(seed, torch.Generator) \
+            else torch.Generator().manual_seed(seed)
+        super().init_weights(g)
+        for t in (self.mask_emb, self.label_embs_concat):
+            t.copy_(torch.rand(t.shape, generator=g))
+        return self
+
+    def forward_pretrain(self, source: torch.Tensor, lengths: torch.Tensor,
+                         target_list: Sequence[torch.Tensor],
+                         train: bool = True,
+                         generator: Optional[torch.Generator] = None,
+                         mask_indices: Optional[torch.Tensor] = None
+                         ) -> Dict[str, Any]:
+        """``forward_pretrain`` (:381-465): source (B, L), lengths (B,),
+        target_list (B, T_lbl) codeword indices a stream. Features trimmed
+        so that every frame has a label, the labels picked as
+        (arange * ratio) in fp32 truncated; a frame is padding when its
+        chunk of L // T samples starts past the length (not
+        ``output_length``). In training the span mask (min 2 spans) is
+        drawn from ``generator`` unless ``mask_indices`` (B, T) is given,
+        and the dropouts draw from it; without ``train`` nothing is masked
+        unless ``mask_indices`` says so. Returns full-shape logits
+        (B, T, 1 + V) a stream and the masks."""
+        from .wav2vec2 import compute_span_mask
+        cfg = self.cfg
+        gen = generator if train else None
+        feats = self.features(source, cfg.feature_grad_mult)
+        t_feat = feats.shape[1]
+        ratio = cfg.feat2tar_ratio
+        targ_tsz = min(int(t.shape[1]) for t in target_list)
+        feat_tsz = min(t_feat, int(targ_tsz / ratio)) \
+            if ratio * t_feat > targ_tsz else t_feat
+        feats = feats[:, :feat_tsz]
+        inds = torch.from_numpy((np.arange(feat_tsz, dtype=np.float32)
+                                 * np.float32(ratio)).astype(np.int64))
+        target_list = [t[:, inds.to(t.device)] for t in target_list]
+        k = max(source.shape[1] // feat_tsz, 1)
+        padding_mask = torch.arange(feat_tsz, device=source.device)[None] \
+            * k >= lengths[:, None]
+        out_lengths = (~padding_mask).sum(1)
+        features_pen = feats.float().pow(2).mean()
+
+        x = dropout(self.post_extract(feats), cfg.dropout_input, gen)
+        if mask_indices is None and cfg.mask_prob > 0 and train:
+            mask_indices = compute_span_mask(
+                out_lengths, feat_tsz, cfg.mask_prob, cfg.mask_length,
+                min_masks=2, generator=generator)
+        elif mask_indices is None:
+            mask_indices = torch.zeros((x.shape[0], feat_tsz), dtype=torch.bool,
+                                       device=x.device)
+        x = torch.where(mask_indices[:, :, None],
+                        self.mask_emb.to(x.dtype)[None, None, :], x)
+        x = self.encode(x, padding_mask, gen, input_dropout=cfg.dropout)
+
+        proj = linear(x, self.final_proj.weight, self.final_proj.bias)
+        n_lbl = len(target_list)
+        projs = proj.chunk(n_lbl, dim=-1) if cfg.untie_final_proj \
+            else [proj] * n_lbl
+        offs = np.cumsum([0] + list(cfg.num_classes))
+        logits = [cosine_logits(projs[i], target_list[i],
+                                self.label_embs_concat[offs[i]:offs[i + 1]],
+                                cfg.logit_temp)
+                  for i in range(n_lbl)]
+        return {"logits": logits, "mask": mask_indices,
+                "padding_mask": padding_mask, "features_pen": features_pen,
+                "target_list": target_list}
+
+
+# ---------------------------------------------------------------------------
 # fairseq checkpoint import
 # ---------------------------------------------------------------------------
 
@@ -232,13 +455,29 @@ def _model_cfg(state: Dict[str, Any]) -> Dict[str, Any]:
     return {}
 
 
-def _conv_spec(spec) -> Tuple[Tuple[int, int, int], ...]:
-    """fairseq's ``conv_feature_layers`` string, e.g. "[(512,10,5)] +
-    [(512,3,2)] * 4", evaluated as a list expression of int tuples."""
+def conv_spec(spec) -> Tuple[Tuple[int, int, int], ...]:
+    """fairseq's ``conv_feature_layers`` ("[(512,10,5)] + [(512,3,2)] *
+    4", or a sequence of triples) as int triples, parsed without eval: int
+    literals, lists, tuples, + and * only (``conv_spec_expr``,
+    s2st_tpu/options.py:786-806)."""
     if not isinstance(spec, str):
         return tuple(tuple(int(v) for v in t) for t in spec)
-    value = eval(spec, {"__builtins__": {}}, {})   # noqa: S307 (list arithmetic)
-    return tuple(tuple(int(v) for v in t) for t in value)
+
+    def ev(node):
+        if isinstance(node, ast.Expression):
+            return ev(node.body)
+        if isinstance(node, (ast.List, ast.Tuple)):
+            v = [ev(e) for e in node.elts]
+            return v if isinstance(node, ast.List) else tuple(v)
+        if isinstance(node, ast.Constant) and isinstance(node.value, int):
+            return node.value
+        if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Add):
+            return ev(node.left) + ev(node.right)
+        if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Mult):
+            return ev(node.left) * ev(node.right)
+        raise ValueError(f"bad conv spec element: {ast.dump(node)}")
+    return tuple(tuple(int(v) for v in t)
+                 for t in ev(ast.parse(spec, mode="eval")))
 
 
 def config_from_torch_ckpt(path: str,
@@ -250,13 +489,14 @@ def config_from_torch_ckpt(path: str,
         state = read_torch_checkpoint(path)
     m = _model_cfg(state)
     return HubertConfig(
-        conv_layers=_conv_spec(m.get("conv_feature_layers", BASE_CONV_LAYERS)),
+        conv_layers=conv_spec(m.get("conv_feature_layers", BASE_CONV_LAYERS)),
         encoder_layers=int(m.get("encoder_layers", 12)),
         encoder_embed_dim=int(m.get("encoder_embed_dim", 768)),
         encoder_ffn_embed_dim=int(m.get("encoder_ffn_embed_dim", 3072)),
         encoder_attention_heads=int(m.get("encoder_attention_heads", 12)),
         conv_pos=int(m.get("conv_pos", 128)),
-        conv_pos_groups=int(m.get("conv_pos_groups", 16)))
+        conv_pos_groups=int(m.get("conv_pos_groups", 16)),
+        layer_norm_first=bool(m.get("layer_norm_first", False)))
 
 
 def pretraining_shapes(tree: Dict[str, Any]) -> Dict[str, Tuple[int, ...]]:
@@ -319,4 +559,5 @@ def _trunk_names(cfg: HubertConfig):
 __all__ = ["BASE_CONV_LAYERS", "HubertConfig", "HubertModel",
            "frontend_config", "group_norm_over_time", "config_from_torch_ckpt",
            "load_torch_hubert", "read_torch_checkpoint", "fold_weight_norm",
-           "pretraining_shapes"]
+           "pretraining_shapes", "grad_mult", "cosine_logits",
+           "Counter", "HubertPretrainModel", "conv_spec"]

@@ -71,23 +71,26 @@ from torch import nn
 SEP = "::"
 
 
-
-def _frontend_rules(module: str, tree: str) -> list:
-    """A HuBERT trunk's rules: fairseq ``HubertModel`` names under the
-    torch module ``module`` -> JAX's subtree ``tree``."""
-    m = re.escape(module)
-    return [
-        (rf"^{m}\.feature_extractor\.conv_layers\.0\.2$",
-         rf"{tree}::extractor::gn0"),
-        (rf"^{m}\.feature_extractor\.conv_layers\.(\d+)\.0$",
-         rf"{tree}::extractor::conv\1"),
-        (rf"^{m}\.layer_norm$", rf"{tree}::feat_ln"),
-        (rf"^{m}\.post_extract_proj$", rf"{tree}::post_proj"),
-        (rf"^{m}\.encoder\.pos_conv\.0$", rf"{tree}::pos_conv"),
-        (rf"^{m}\.encoder\.layer_norm$", rf"{tree}::enc_ln"),
-        (rf"^{m}\.encoder\.layers\.(\d+)(\.|$)", rf"{tree}::layer\1\2"),
-        (rf"^{m}(\.|$)", rf"{tree}\1"),
+def trunk_jax_rules(tree: str = "", module: str = "") -> list:
+    """The rules of a HuBERT trunk: fairseq ``HubertModel`` names under the
+    torch module ``module`` (the model's root when empty) -> JAX's subtree
+    ``tree`` (the top level when empty); a module's other leaves
+    (``mask_emb``, ``final_proj``) go under ``tree`` too."""
+    m = re.escape(module) + r"\." if module else ""
+    t = tree + "::" if tree else ""
+    rules = [
+        (rf"^{m}feature_extractor\.conv_layers\.0\.2$", rf"{t}extractor::gn0"),
+        (rf"^{m}feature_extractor\.conv_layers\.(\d+)\.0$",
+         rf"{t}extractor::conv\1"),
+        (rf"^{m}layer_norm$", rf"{t}feat_ln"),
+        (rf"^{m}post_extract_proj$", rf"{t}post_proj"),
+        (rf"^{m}encoder\.pos_conv\.0$", rf"{t}pos_conv"),
+        (rf"^{m}encoder\.layer_norm$", rf"{t}enc_ln"),
+        (rf"^{m}encoder\.layers\.(\d+)(\.|$)", rf"{t}layer\1\2"),
     ]
+    if module:
+        rules.append((rf"^{re.escape(module)}(\.|$)", rf"{tree}\1"))
+    return rules
 
 
 # torch module name -> JAX module path, first match wins (a model's own
@@ -95,8 +98,8 @@ def _frontend_rules(module: str, tree: str) -> list:
 _MODULE_RULES = [
     # the HuBERT frontend of the S2ST and S2T models (encoder.hubert) and
     # the xm_transformer's trunk (encoder.w2v_model; JAX's params::w2v)
-    *_frontend_rules("encoder.hubert", "hubert"),
-    *_frontend_rules("encoder.w2v_model", "w2v"),
+    *trunk_jax_rules("hubert", "encoder.hubert"),
+    *trunk_jax_rules("w2v", "encoder.w2v_model"),
     # the xm_transformer's Conv1dAdaptor (JAX's params::adaptor)
     (r"^encoder\.adaptor\.layers\.(\d+)$", r"adaptor::conv\1"),
     (r"^encoder\.adaptor\.layernorms\.(\d+)$", r"adaptor::ln\1"),

@@ -366,3 +366,240 @@ MEAN_KEYS = ("loss", "l1_loss", "mse_loss", "eos_loss", "attn_loss",
              "ctc_loss", "ctc_loss_tgt", "aux_asr_loss", "aux_st_loss")
 FS2_MEAN_KEYS = ("loss", "l1_loss", "dur_loss", "pitch_loss", "energy_loss",
                  "ctc_loss")
+
+
+# ---------------------------------------------------------------------------
+# the self-supervised and CTC fine-tuning criteria (losses.py:1294-1560)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Wav2VecLossConfig:
+    """``Wav2VecLossConfig`` (:1294-1303): --loss-weights is
+    (prob_ppl_weight, features_pen_weight)."""
+    infonce: bool = True
+    prob_ppl_weight: float = 0.1
+    features_pen_weight: float = 10.0
+
+
+def wav2vec_loss(model, lcfg: Wav2VecLossConfig, batch: Dict[str, Any],
+                 train: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 layer_keep: Optional[Sequence[bool]] = None,
+                 **forward_kw) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """``wav2vec_loss`` (:1305-1354): InfoNCE over (1 positive + N
+    negatives) at every frame, weighted by the span mask on non-padded
+    frames; the probability-perplexity and feature penalties times
+    ``sample_size``; ``n_correct`` / ``total``. The update count the
+    Gumbel temperature reads comes back one higher as ``new_stats`` in
+    training. ``forward_kw`` (mask, negatives, gumbel) go to the
+    forward."""
+    num_updates = model.stats.num_updates
+    net = model.forward_pretrain(batch["source"], batch["source_lens"],
+                                 train=train, generator=generator,
+                                 **forward_kw)
+    logits = net["logits"]
+    w = (net["mask"] & ~net["padding_mask"]).float()
+    lp = torch.log_softmax(logits, dim=0)
+    main_loss = -(lp[0] * w).sum()
+    sample_size = w.sum()
+    loss = main_loss
+    logging: Dict[str, Any] = {"loss": main_loss}
+    if "prob_perplexity" in net and lcfg.prob_ppl_weight != 0.0:
+        ppl_pen = (net["num_vars"] - net["prob_perplexity"]) / net["num_vars"]
+        ppl_term = lcfg.prob_ppl_weight * ppl_pen * sample_size
+        loss = loss + ppl_term
+        logging.update(prob_ppl_loss=ppl_term,
+                       prob_perplexity=net["prob_perplexity"],
+                       code_perplexity=net["code_perplexity"],
+                       temp=net["temp"])
+    if lcfg.features_pen_weight != 0.0:
+        pen_term = lcfg.features_pen_weight * net["features_pen"] \
+            * sample_size
+        loss = loss + pen_term
+        logging["features_pen"] = pen_term
+    logging.update(n_correct=((logits.argmax(dim=0) == 0).float() * w).sum(),
+                   total=sample_size, ntokens=sample_size,
+                   nsentences=batch["source"].shape[0],
+                   sample_size=sample_size)
+    new_stats = {"num_updates": num_updates + 1} if train else {}
+    return loss, {"new_stats": new_stats, "logging": logging,
+                  "sample_size": sample_size,
+                  "mean_keys": ("prob_perplexity", "code_perplexity", "temp")}
+
+
+@dataclass(frozen=True)
+class HubertLossConfig:
+    """``HubertLossConfig`` (:1362-1370)."""
+    pred_masked_weight: float = 1.0
+    pred_nomask_weight: float = 0.0
+    features_pen_weight: float = 10.0
+
+
+def hubert_loss(model, lcfg: HubertLossConfig, batch: Dict[str, Any],
+                train: bool = True,
+                generator: Optional[torch.Generator] = None,
+                layer_keep: Optional[Sequence[bool]] = None,
+                mask_indices: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """``hubert_loss`` (:1382-1427): for the masked and the unmasked
+    frames (each branch on unless its weight is 0 or the model skips it)
+    the sum-reduced cross entropy of every label stream with the positive
+    at column 0; ``sample_size`` counts each branch's frames once, not
+    once a stream; the features penalty times ``sample_size``; the
+    ``correct_*`` / ``count_*`` meters (argmax at 0 but not also argmin
+    at 0). The update count is not advanced (``new_stats`` empty)."""
+    cfg = model.cfg
+    targets = batch["target_list"]
+    net = model.forward_pretrain(batch["source"], batch["source_lens"],
+                                 [targets[i] for i in range(len(targets))],
+                                 train=train, generator=generator,
+                                 mask_indices=mask_indices)
+    pad = net["padding_mask"]
+    w_m = (net["mask"] & ~pad).float()
+    w_u = (~net["mask"] & ~pad).float()
+    loss = torch.zeros((), device=w_m.device)
+    sample_size = torch.zeros((), device=w_m.device)
+    logging: Dict[str, Any] = {}
+    for branch, w, wt in (("m", w_m, lcfg.pred_masked_weight),
+                          ("u", w_u, lcfg.pred_nomask_weight)):
+        if wt <= 0 or (branch == "m" and cfg.skip_masked) or \
+                (branch == "u" and cfg.skip_nomask):
+            continue
+        n = w.sum()
+        for i, lg in enumerate(net["logits"]):
+            li = -(torch.log_softmax(lg.float(), dim=-1)[:, :, 0] * w).sum()
+            logging[f"loss_{branch}_{i}"] = li
+            loss = loss + wt * li
+            amax = lg.argmax(dim=-1) == 0
+            amin = lg.argmin(dim=-1) == 0
+            logging[f"correct_{branch}_{i}"] = (
+                (amax & ~(amax & amin)).float() * w).sum()
+            logging[f"count_{branch}_{i}"] = n
+        sample_size = sample_size + n
+    if lcfg.features_pen_weight != 0.0:
+        pen = lcfg.features_pen_weight * net["features_pen"] * sample_size
+        loss = loss + pen
+        logging["loss_features_pen"] = pen
+    logging.update(loss=loss, ntokens=sample_size,
+                   nsentences=batch["source"].shape[0],
+                   sample_size=sample_size)
+    return loss, {"new_stats": {}, "logging": logging,
+                  "sample_size": sample_size, "mean_keys": ()}
+
+
+@dataclass(frozen=True)
+class CtcLossConfig:
+    """``CtcLossConfig`` (:1435-1445): blank is the dictionary's
+    ``bos_index``, ``sep_idx`` its "|" (-1: no word separator)."""
+    zero_infinity: bool = True
+    sentence_avg: bool = False
+    pad_idx: int = 1
+    eos_idx: int = 2
+    blank_idx: int = 0
+    sep_idx: int = -1
+
+
+def levenshtein_unit(x: torch.Tensor, xlen: torch.Tensor, y: torch.Tensor,
+                     ylen: torch.Tensor) -> torch.Tensor:
+    """Batched unit-cost edit distance (``_levenshtein_unit``,
+    :1447-1469): one row of the table a token of x, its insertions by a
+    running minimum along the row; read at (xlen, ylen)."""
+    b, lx = x.shape
+    ly = y.shape[1]
+    j_idx = torch.arange(ly + 1, device=x.device)
+    row = j_idx.expand(b, ly + 1)
+    rows = [row]
+    for i in range(lx):
+        neq = (x[:, i:i + 1] != y).long()
+        c_tail = torch.minimum(row[:, 1:] + 1, row[:, :-1] + neq)
+        c = torch.cat([torch.full((b, 1), i + 1, device=x.device,
+                                  dtype=c_tail.dtype), c_tail], dim=1)
+        row = j_idx + torch.cummin(c - j_idx, dim=1).values
+        rows.append(row)
+    table = torch.stack(rows, dim=0)                       # (Lx + 1, B, Ly + 1)
+    r = table.gather(0, xlen.long()[None, :, None].expand(1, b, ly + 1))[0]
+    return r.gather(1, ylen.long()[:, None])[:, 0]
+
+
+def pack_words(toks: torch.Tensor, n: torch.Tensor, sep: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_pack_words`` (:1472-1501): each "|"-separated non-empty word of
+    a (B, L) unit row as JAX's rolling 32-bit hash (h * 1000003 + unit +
+    1 mod 2^32, in int64 masked to 32 bits, then read as int32, as JAX
+    casts its uint32), left-packed, with the word counts."""
+    b, l = toks.shape
+    t_idx = torch.arange(l, device=toks.device)[None, :]
+    is_sep = (toks == sep) | ~(t_idx < n[:, None])
+    h = torch.zeros(b, dtype=torch.long, device=toks.device)
+    hs = []
+    for j in range(l):
+        h = torch.where(is_sep[:, j], torch.zeros_like(h),
+                        (h * 1000003 + toks[:, j].long() + 1) & 0xFFFFFFFF)
+        hs.append(h)
+    hs = torch.stack(hs, dim=1)
+    nxt_sep = torch.cat([is_sep[:, 1:], torch.ones_like(is_sep[:, :1])],
+                        dim=1)
+    word_end = ~is_sep & nxt_sep
+    pos = word_end.long().cumsum(dim=1) - 1
+    nw = word_end.sum(dim=1)
+    out = torch.zeros_like(hs).scatter_(
+        1, torch.where(word_end, pos, torch.full_like(pos, l - 1)),
+        torch.where(word_end, hs, torch.zeros_like(hs)))
+    out = torch.where(t_idx < nw[:, None], out, torch.zeros_like(out))
+    return torch.where(out >= 2 ** 31, out - 2 ** 32, out), nw
+
+
+def ctc_criterion(model, lcfg: CtcLossConfig, batch: Dict[str, Any],
+                  train: bool = True,
+                  generator: Optional[torch.Generator] = None,
+                  layer_keep: Optional[Sequence[bool]] = None,
+                  **forward_kw) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The ``ctc`` criterion (``ctc_loss``, :1504-1560): the blank weight
+    on the training path too; ``ctc_loss`` (optax's recursion, log(0) =
+    -1e5) over the non-pad, non-EOS targets, summed, non-finite rows
+    zeroed under ``zero_infinity`` and rows of ``source_lens`` 0 zeroed;
+    ``sample_size`` the target units (the real rows under
+    ``sentence_avg``). In eval, the greedy decode's ``c_errors`` /
+    ``c_total`` and, with a word separator, ``w_errors`` (= ``wv_errors``)
+    / ``w_total``. In training the update count comes back one higher as
+    ``new_stats``, so that the freeze lifts after
+    ``freeze_finetune_updates`` updates (JAX's returns it unchanged and
+    its freeze never lifts: ROADMAP §3). ``forward_kw`` (mask,
+    channel_mask) go to the forward."""
+    from ..models.ctc_asr import blank_weighted, greedy_ctc_decode
+    num_updates = model.stats.num_updates
+    net = model.forward_ctc(batch["source"], batch["source_lens"],
+                            train=train, generator=generator, **forward_kw)
+    logits = blank_weighted(net["logits"], model.cfg, lcfg.blank_idx)
+    in_lens = (~net["padding_mask"]).sum(dim=1)
+    target = batch["target"]
+    keep = (target != lcfg.pad_idx) & (target != lcfg.eos_idx)
+    tgt_lens = keep.sum(dim=1)
+    tgt = torch.where(keep, target, torch.zeros_like(target))
+    per_ex = ctc_loss(logits, in_lens, tgt, tgt_lens, lcfg.blank_idx)
+    if lcfg.zero_infinity:
+        per_ex = torch.where(torch.isfinite(per_ex), per_ex,
+                             torch.zeros_like(per_ex))
+    real = (batch["source_lens"] > 0).float()
+    loss = (per_ex * real).sum()
+    ntokens = (tgt_lens * real).sum()
+    nsentences = real.sum()
+    sample_size = nsentences if lcfg.sentence_avg else ntokens
+    logging: Dict[str, Any] = {"loss": loss, "ntokens": ntokens,
+                               "nsentences": nsentences,
+                               "sample_size": sample_size}
+    if not train:
+        toks, n = greedy_ctc_decode(logits, in_lens, lcfg.blank_idx)
+        logging["c_errors"] = (levenshtein_unit(toks, n, tgt, tgt_lens)
+                               * real).sum()
+        logging["c_total"] = ntokens
+        if lcfg.sep_idx >= 0:
+            hw, nw = pack_words(toks, n, lcfg.sep_idx)
+            tw, ntw = pack_words(tgt, tgt_lens, lcfg.sep_idx)
+            logging["w_errors"] = (levenshtein_unit(hw, nw, tw, ntw)
+                                   * real).sum()
+            logging["wv_errors"] = logging["w_errors"]
+            logging["w_total"] = (ntw * real).sum()
+    new_stats = {"num_updates": num_updates + 1} if train else {}
+    return loss, {"new_stats": new_stats, "logging": logging,
+                  "sample_size": sample_size, "mean_keys": ()}

@@ -81,7 +81,10 @@ def test_port_imports_neither_jax_nor_s2st_tpu():
                  "preprocessing.doc_tools", "models.t2s_transformer",
                  "models.xm_transformer", "models.convtransformer",
                  "models.transformer_text", "models.lstm", "models.berard",
-                 "models.tacotron2", "models.fastspeech2"):
+                 "models.tacotron2", "models.fastspeech2",
+                 "models.wav2vec2", "models.ctc_asr",
+                 "tasks.audio_pretraining", "tasks.hubert_pretraining",
+                 "tasks.audio_finetuning"):
         assert f"s2st_tpu_torch.{name}" in _walk_names(), name
     assert bad == "[]", bad
 
